@@ -1,0 +1,21 @@
+// Shared helpers for the port's kernels (built for sm_90a by kernels/_build.py).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+constexpr uint32_t kSentinel = 0xFFFFFFFFu;
+
+// Murmur3 finalizer; the same word as core/universal_hash.py::fmix32.
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+}  // namespace repro_torch

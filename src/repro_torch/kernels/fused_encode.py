@@ -1,0 +1,155 @@
+"""Fused hash → b-bit → pack encode: kernels B1 and B2 and their plain
+versions (counterpart of ``repro/kernels/fused_encode.py``).
+
+``minhash_pack`` and ``oph_pack`` launch the CUDA kernels of
+``csrc/fused_encode.cu`` on CUDA tensors and take the plain torch
+version on CPU tensors; any other device raises.  Output layouts are
+the reference's: codes LSB-first, ceil(k·b/8) bytes per row; the empty
+mask MSB-first (``np.packbits``), ceil(k/8) bytes per row.  b must be
+in {1, 2, 4, 8}, so no code straddles a byte.
+
+Hash parameters arrive as int32 tensors holding the uint32 words'
+bits (``core.universal_hash.words_to_int32``).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.bbit import (pack_codes_torch, pack_mask_torch,
+                                   packed_mask_width, packed_width)
+from repro_torch.core.minhash import minhash_torch
+from repro_torch.core.oph import (_check_k, densify_rotation,
+                                  oph_bin_minima_torch)
+from repro_torch.core.universal_hash import int32_to_words
+from repro_torch.kernels import _build
+from repro_torch.kernels.counters import LaunchCount
+
+PACK_BITS = (1, 2, 4, 8)   # b where codes never straddle byte bounds
+
+
+def check_bits(bits: int) -> None:
+    if bits not in PACK_BITS:
+        raise ValueError(f"fused packing needs b ∈ {PACK_BITS}, got {bits}")
+
+
+def prefix_mask(indices: torch.Tensor, nnz: torch.Tensor) -> torch.Tensor:
+    """bool (n, m): column < nnz of its row."""
+    cols = torch.arange(indices.shape[1], device=indices.device)
+    return cols[None, :] < nnz.to(torch.int64)[:, None]
+
+
+def _check_cuda_args(what: str, indices, nnz, a, b) -> None:
+    for name, t in (("indices", indices), ("nnz", nnz), ("a", a), ("b", b)):
+        if t.device != indices.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, indices on "
+                             f"{indices.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if indices.dim() != 2 or nnz.shape != (indices.shape[0],):
+        raise ValueError(f"{what}: indices (n, m) and nnz (n,) expected, got "
+                         f"{tuple(indices.shape)} and {tuple(nnz.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# B1: minwise.
+# ---------------------------------------------------------------------------
+def minhash_pack_plain(indices: torch.Tensor, nnz: torch.Tensor,
+                       a: torch.Tensor, b: torch.Tensor, *,
+                       bits: int) -> torch.Tensor:
+    """B1's plain version: min-hash → low ``bits`` bits → packed uint8
+    (n, ceil(k·bits/8)) in torch ops on the inputs' device, for any b in
+    [1, 16]; also the computation the reference runs through XLA where
+    the fused kernel does not apply."""
+    mask = prefix_mask(indices, nnz)
+    z = minhash_torch(indices, mask, int32_to_words(a), int32_to_words(b))
+    return pack_codes_torch(z & ((1 << bits) - 1), bits)
+
+
+def minhash_pack(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """uint8 (n, ceil(k·bits/8)) packed b-bit min-hash codes.
+
+    indices int32 (n, m) contiguously padded rows; nnz int32 (n,) valid
+    prefix lengths; a, b int32 (k,) multiply-shift words (a odd).
+    """
+    check_bits(bits)
+    if _build.on_cpu("minhash_pack", indices):
+        return minhash_pack_plain(indices, nnz, a, b, bits=bits)
+    _check_cuda_args("minhash_pack", indices, nnz, a, b)
+    n, m = indices.shape
+    k = a.shape[0]
+    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
+                      device=indices.device)
+    lib = _build.load("fused_encode")
+    with torch.cuda.device(indices.device):
+        code = lib.repro_minhash_pack(
+            indices.data_ptr(), nnz.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, m, k, bits, out.shape[1],
+            indices.device.index, _build.stream(indices))
+    _build.check("fused_encode", code, "minhash_pack")
+    minhash_pack.launches.add()
+    return out
+
+
+minhash_pack.launches = LaunchCount()
+
+
+# ---------------------------------------------------------------------------
+# B2: one permutation hashing.
+# ---------------------------------------------------------------------------
+def oph_pack_plain(indices: torch.Tensor, nnz: torch.Tensor,
+                   a: torch.Tensor, b: torch.Tensor, *, k: int, bits: int,
+                   densify: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2's plain version: OPH bin minima → densify or zero-code → b bits
+    → pack, in torch ops on the inputs' device, for any b in [1, 16]
+    → (packed, packbits empty mask)."""
+    vals, empty = oph_bin_minima_torch(indices, prefix_mask(indices, nnz),
+                                       int32_to_words(a), int32_to_words(b),
+                                       k)
+    mask_b = (1 << bits) - 1
+    if densify:
+        # all-empty rows keep the sentinel → all-ones low bits
+        codes = densify_rotation(vals, empty)[0] & mask_b
+    else:
+        codes = torch.where(empty, 0, vals & mask_b)
+    return pack_codes_torch(codes, bits), pack_mask_torch(empty)
+
+
+def oph_pack(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, *, k: int, bits: int, densify: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(packed uint8 (n, ceil(k·bits/8)), empty uint8 (n, ceil(k/8))).
+
+    One hash per nonzero, per-bin minima, then rotation densification
+    (``densify=True``) or zero-coding (empty bins → code 0); ``empty``
+    marks the raw empty bins in both modes.  a, b are int32 (1,) words.
+    """
+    check_bits(bits)
+    shift = _check_k(k)
+    if _build.on_cpu("oph_pack", indices):
+        return oph_pack_plain(indices, nnz, a, b, k=k, bits=bits,
+                              densify=densify)
+    _check_cuda_args("oph_pack", indices, nnz, a, b)
+    n, m = indices.shape
+    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
+                      device=indices.device)
+    eout = torch.empty((n, packed_mask_width(k)), dtype=torch.uint8,
+                       device=indices.device)
+    lib = _build.load("fused_encode")
+    with torch.cuda.device(indices.device):
+        code = lib.repro_oph_pack(
+            indices.data_ptr(), nnz.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), eout.data_ptr(), n, m, k, shift, bits,
+            int(densify), out.shape[1], eout.shape[1],
+            indices.device.index, _build.stream(indices))
+    _build.check("fused_encode", code, "oph_pack")
+    oph_pack.launches.add()
+    return out, eout
+
+
+oph_pack.launches = LaunchCount()
