@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving path and of the paper's
+experiment (TRON over b-bit codes and VW sketches) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -12,6 +13,14 @@ Phases, one line of output each (or more), any failure exits non-zero:
            over b in {1, 2, 4, 8} and ragged nnz up to 8192 (nnz=0 and
            nnz<k included); bbit_linear_packed_fwd (B5) at b=8, C in
            {1, 4}, with and without the empty mask, allclose 1e-5;
+           bbit_linear_fwd (B7) and bbit_linear_bwd_dw (B8) at b in
+           {1, 2, 4, 8, 12}, bbit_linear_packed_bwd_dw (B6) at b in
+           {1, 2, 4, 8} with and without the mask, C in {1, 4}, ragged
+           k=37 and n=4099, B7 allclose 1e-5, B6 and B8 within 1e-5 of
+           each bin's sum of absolute terms (a bin sums up to 2,000 terms
+           at b=1) and the same bytes on two calls; vw_sketch (B9) at m in {2, 64, 1024, 16384}, byte for
+           byte with values of ones, allclose (1e-5, 1e-4) with random
+           values;
   engine   HashedClassifierEngine at the rcv1_oph width (k=256, b=8, 2
            classes) with seeded random weights, for minwise, oph and
            oph_zero: 384 synthetic expanded-rcv1 documents through
@@ -22,15 +31,42 @@ Phases, one line of output each (or more), any failure exits non-zero:
            per second over a window of several seconds of submit_many
            passes (median and spread over the passes), and one pass under
            torch.profiler for the device's busy time;
-  timing   each kernel at the engine's shapes (64 rows x 2048 / 8192
-           lanes of real documents) with CUDA events, its plain version,
-           B5's one-call PyTorch yardstick (embedding_bag), and the bound
-           (the larger of bytes over 3.35 TB/s and operations over the
-           card's rate for their type: int32 for B1 and B2, float32 for
-           B5).
+  train    the paper's experiment at the rcv1_oph width (k=256, b=8, 2
+           classes, C=1): 20,000 synthetic expanded-rcv1 documents
+           (examples/compare_vw_bbit.py's corpus settings, seed 11), the
+           first 16,000 to train; preprocess_rows for minwise and oph,
+           train_bbit_liblinear with logistic and squared-hinge loss (30
+           TRON iterations at most), VW sketches through ops.vw_sketch at
+           equal storage (m=64) and at m=2^14, train_vw_liblinear; the
+           launch counters set to zero before and read after; test
+           accuracy, iterations, objective and seconds of each run.  The
+           sketches of both m byte for byte against core.vw's.  Then B7,
+           B8 and B6 against their plain versions at this phase's own
+           shapes: its codes (16,000 and 4,000 rows), trained tables and
+           the objective's logistic dout, B6 at 1,024 and 16,000 packed
+           rows; B9 on one real 256-document chunk at m=64 and m=2^14.
+           Then one gradient of the mean logistic loss over
+           bbit_logits_packed on 1,024 packed training rows, for oph and
+           for oph_zero with its empty mask (B5 + B6, and B6 alone against
+           its plain version), against the gradient through widened
+           codes;
+  timing   each kernel at its main path's shapes with CUDA events, its
+           plain version, its one-call PyTorch yardstick where there is
+           one, and the bound (the larger of bytes over 3.35 TB/s and
+           operations over the card's rate for their type: int32 for B1,
+           B2 and B9, float32 for B5-B8): B1, B2, B5 at the engine's
+           shapes (64 rows x 2048 / 8192 lanes of real documents, B5 vs
+           embedding_bag); B7 and B8 at 16,000 x 256 codes, V=256, C=1 (vs
+           embedding_bag and bincount); B6 at 1,024 and 16,000 packed rows
+           (vs bincount on unpacked codes); B9 at one 256-row chunk of
+           real documents, m=64 and m=2^14.
 
 The last three lines are the card's name and power limit, one JSON
-object describing every kernel, and {"ok": true, "device": {...}}.
+object describing every kernel, and {"ok": true, "device": {...}}.  A
+kernel's max_abs_err there is its largest error at the main path's
+shapes (B1, B2 and B5 in the kernels phase at the engine's rows and
+lanes, B6-B9 in the train phase); the errors of the edge-case checks of
+B6-B9 (ragged k and n, b=1..12, C=4) go to --out only.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -67,6 +103,21 @@ INT32_OPS_PER_SM_CLOCK = 64
 # multiplies, then the min (B1) or the bin shift + atomicMin (B2)
 OPS_PER_MINHASH = 1 + 8 + 1
 OPS_PER_OPH_HASH = 1 + 8 + 2
+# two fmix32 (8 each), the multiply-add and xor before them, the mask
+# and the bucket-range test (B9)
+OPS_PER_VW_ID = 8 + 8 + 2 + 2
+# the train phase (configs/rcv1_oph.py, examples/compare_vw_bbit.py)
+TRAIN_DOCS, TRAIN_ROWS, TRAIN_SEED = 20_000, 16_000, 11
+TRAIN_ITERS, TRAIN_C = 30, 1.0
+HASH_SEED, VW_SEED = 1, 2
+VW_EQUAL = K * B // 32               # 2048 bits = 64 float32 buckets
+VW_WIDE = 1 << 14
+VW_CHUNK = 256
+STREAM_BATCH = 1024                  # configs/rcv1_oph.py stream_batch
+GRAD_TOL = dict(rtol=1e-5, atol=1e-8)
+# B6/B8 against their plain versions: |err| <= 1e-5 x the sum of the
+# absolute terms of each bin (+1e-6), the bound of a reordered float32 sum
+DW_SUM_TOL = 1e-5
 KERNELS = {
     "minhash_pack": ("src/repro_torch/csrc/fused_encode.cu",
                      "src/repro/kernels/fused_encode.py:128"),
@@ -74,6 +125,14 @@ KERNELS = {
                  "src/repro/kernels/fused_encode.py:271"),
     "bbit_linear_packed_fwd": ("src/repro_torch/csrc/bbit_linear.cu",
                                "src/repro/kernels/bbit_linear.py:277"),
+    "bbit_linear_packed_bwd_dw": ("src/repro_torch/csrc/bbit_linear.cu",
+                                  "src/repro/kernels/bbit_linear.py:363"),
+    "bbit_linear_fwd": ("src/repro_torch/csrc/bbit_linear.cu",
+                        "src/repro/kernels/bbit_linear.py:80"),
+    "bbit_linear_bwd_dw": ("src/repro_torch/csrc/bbit_linear.cu",
+                           "src/repro/kernels/bbit_linear.py:147"),
+    "vw_sketch": ("src/repro_torch/csrc/vw_sketch.cu",
+                  "src/repro/kernels/vw_sketch.py:69"),
 }
 
 
@@ -139,7 +198,9 @@ def phase_build():
                 print(f"build: {name}: {line.strip()}")
 
 
-def phase_kernels(torch, dev) -> dict:
+def phase_kernels(torch, dev):
+    """→ (errors at the main path's shapes: B1, B2, B5 at the engine's
+    rows and lanes; errors of the edge-case checks of B6-B9)."""
     from repro_torch.core.bbit import pack_codes
     from repro_torch.core.oph import OPHHash
     from repro_torch.core.universal_hash import MultiplyShiftHash
@@ -212,7 +273,111 @@ def phase_kernels(torch, dev) -> dict:
                   f"{torch.equal(got, again)}")
             if not ok or not torch.equal(got, again):
                 fail("bbit_linear_packed_fwd differs from its plain version")
-    return errs
+    edge = {}
+    check_linear_kernels(torch, dev, rng, edge)
+    check_vw_kernel(torch, dev, rng, edge)
+    return errs, edge
+
+
+def _close(torch, name, errs, got, want, again=None, scale=None, **tol):
+    """Records the max abs error; fails unless allclose (or, given the
+    sums of absolute terms ``scale``, within 1e-5 of them: the error
+    bound of a float32 sum taken in another order), and, given
+    ``again``, unless ``again`` has the same bytes as ``got``."""
+    diff = (got - want).abs()
+    err = float(diff.max()) if got.numel() else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+    if scale is None:
+        ok = torch.allclose(got, want, **(tol or TOL))
+    else:
+        ok = bool((diff <= DW_SUM_TOL * scale + 1e-6).all())
+    same = again is None or torch.equal(got.view(torch.int32),
+                                        again.view(torch.int32))
+    if not ok or not same:
+        fail(f"{name} differs from its plain version (max_abs_err={err}, "
+             f"run-to-run equal={same})")
+    return err
+
+
+def check_linear_kernels(torch, dev, rng, errs):
+    """B7, B8 (widened codes) and B6 (packed) against their plain versions
+    at ragged k and n; B6 and B8 twice for the same bytes.  The train
+    phase checks them again at its own shapes (check_train_shapes)."""
+    from repro_torch.core.bbit import pack_codes
+    from repro_torch.kernels import bbit_linear as bl
+    n, k = 4099, 37
+    for bits in (1, 2, 4, 8, 12):
+        v = 1 << bits
+        codes_np = rng.integers(0, v, size=(n, k)).astype(np.int32)
+        codes = torch.from_numpy(codes_np).to(dev)
+        for c in (1, 4):
+            table = torch.from_numpy(
+                rng.normal(size=(k, v, c)).astype(np.float32)).to(dev)
+            dout = torch.from_numpy(
+                rng.normal(size=(n, c)).astype(np.float32)).to(dev)
+            e7 = _close(torch, "bbit_linear_fwd",
+                        errs, bl.bbit_linear_fwd(codes, table),
+                        bl.bbit_linear_fwd_plain(codes, table),
+                        bl.bbit_linear_fwd(codes, table))
+            e8 = _close(torch, "bbit_linear_bwd_dw", errs,
+                        bl.bbit_linear_bwd_dw(codes, dout, v),
+                        bl.bbit_linear_bwd_dw_plain(codes, dout, v),
+                        bl.bbit_linear_bwd_dw(codes, dout, v),
+                        scale=bl.bbit_linear_bwd_dw_plain(codes, dout.abs(),
+                                                          v))
+            line = (f"kernels: bbit_linear_fwd / bwd_dw k={k} n={n} b={bits}"
+                    f" C={c}: max_abs_err={e7} / {e8} within tolerance "
+                    "run-to-run equal=True")
+            if bits > 8:
+                print(line)
+                continue
+            packed = torch.from_numpy(
+                pack_codes(codes_np.astype(np.uint16), bits)).to(dev)
+            mask = rng.random((n, k)) < 0.3
+            mask[0] = True
+            empty = torch.from_numpy(np.packbits(mask, axis=1)).to(dev)
+            e6 = []
+            for em in (None, empty):
+                kw = dict(k=k, bits=bits, empty=em)
+                e6.append(_close(
+                    torch, "bbit_linear_packed_bwd_dw", errs,
+                    bl.bbit_linear_packed_bwd_dw(packed, dout, v, **kw),
+                    bl.bbit_linear_packed_bwd_dw_plain(packed, dout, v, **kw),
+                    bl.bbit_linear_packed_bwd_dw(packed, dout, v, **kw),
+                    scale=bl.bbit_linear_packed_bwd_dw_plain(
+                        packed, dout.abs(), v, **kw)))
+            print(f"{line}; bbit_linear_packed_bwd_dw without / with mask: "
+                  f"max_abs_err={e6[0]} / {e6[1]} within tolerance "
+                  "run-to-run equal=True")
+
+
+def check_vw_kernel(torch, dev, rng, errs):
+    """B9: byte for byte with values of ones, allclose with random
+    values, the same bytes on two calls."""
+    from repro_torch.kernels import vw_sketch as vw
+    n, mx = 256, 3000
+    idx = torch.from_numpy(
+        rng.integers(0, 1 << 31, size=(n, mx)).astype(np.int32)).to(dev)
+    nnz_np = rng.integers(0, mx + 1, size=n).astype(np.int32)
+    nnz_np[:2] = [0, mx]
+    nnz = torch.from_numpy(nnz_np).to(dev)
+    ones = torch.ones((n, mx), dtype=torch.float32, device=dev)
+    vals = torch.from_numpy(
+        rng.normal(size=(n, mx)).astype(np.float32)).to(dev)
+    for m in (2, 64, 1024, VW_WIDE):
+        got = vw.vw_sketch(idx, ones, nnz, m, seed=VW_SEED)
+        want = vw.vw_sketch_plain(idx, ones, nnz, m, seed=VW_SEED)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        if not same:
+            fail(f"vw_sketch m={m} with ones differs from its plain version")
+        err = _close(torch, "vw_sketch", errs,
+                     vw.vw_sketch(idx, vals, nnz, m, seed=VW_SEED),
+                     vw.vw_sketch_plain(idx, vals, nnz, m, seed=VW_SEED),
+                     vw.vw_sketch(idx, vals, nnz, m, seed=VW_SEED),
+                     rtol=1e-5, atol=1e-4)
+        print(f"kernels: vw_sketch rows={n} nnz 0..{mx} m={m}: ones bytes "
+              f"equal={same}; random values max_abs_err={err} "
+              "allclose(1e-5, 1e-4)=True run-to-run equal=True")
 
 
 def make_corpus(n: int, seed: int):
@@ -260,6 +425,12 @@ def plain_scores(torch, dev, eng, docs):
     return np.concatenate(out)
 
 
+def serve_pass(eng, docs):
+    futs = eng.submit_many(docs)
+    eng.flush()
+    return [f.result(timeout=300) for f in futs]
+
+
 def serve_rate(eng, docs) -> dict:
     """Documents per second of submit_many + flush passes over ``docs``,
     repeated for at least RATE_WINDOW_S seconds: the median and spread of
@@ -268,11 +439,8 @@ def serve_rate(eng, docs) -> dict:
     t_start = time.perf_counter()
     while time.perf_counter() - t_start < RATE_WINDOW_S or len(rates) < 10:
         t0 = time.perf_counter()
-        futs = eng.submit_many(docs)
-        eng.flush()
-        for f in futs:
-            f.result(timeout=300)
-        rates.append(len(futs) / (time.perf_counter() - t0))
+        served = serve_pass(eng, docs)
+        rates.append(len(served) / (time.perf_counter() - t0))
     seconds = time.perf_counter() - t_start
     p10, med, p90 = (float(x) for x in np.percentile(rates, [10, 50, 90]))
     return {"passes": len(rates), "seconds": seconds,
@@ -280,26 +448,28 @@ def serve_rate(eng, docs) -> dict:
             "p10": p10, "p90": p90, "min": min(rates), "max": max(rates)}
 
 
-def profile_pass(torch, eng, docs) -> dict:
-    """One submit_many pass under torch.profiler: the device time it
-    records per op (µs) and the window's wall time.  The profiler slows
-    the host, so the share is also taken against an unprofiled pass."""
+def profiled(torch, fn):
+    """Runs ``fn`` under torch.profiler → (its result, {"wall_ms",
+    "device_ms", "top"}): the wall time and the device time per
+    device-side event (kernels, copies).  A CPU op's self device time
+    repeats the time of the kernels it launched, so only device events
+    are summed."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        futs = eng.submit_many(docs)
-        eng.flush()
-        for f in futs:
-            f.result(timeout=300)
+        result = fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops_us = {}
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0) or 0)
-        if us > 0:
-            ops_us[e.key[:60]] = us
-    return {"wall_ms": wall_ms, "device_ms": sum(ops_us.values()) / 1e3,
-            "top": sorted(ops_us.items(), key=lambda kv: -kv[1])[:6]}
+        if us > 0 and e.device_type != DeviceType.CPU:
+            ops_us[e.key[:70]] = us
+    return result, {"wall_ms": wall_ms,
+                    "device_ms": sum(ops_us.values()) / 1e3,
+                    "top": sorted(ops_us.items(), key=lambda kv: -kv[1])[:8]}
 
 
 def phase_engine(torch, dev, docs, card: str) -> dict:
@@ -366,7 +536,7 @@ def phase_engine(torch, dev, docs, card: str) -> dict:
             nnz_all = np.array([len(d) for d in docs])
             rate = serve_rate(eng, docs)
             docs_per_s[scheme] = rate
-            prof = profile_pass(torch, eng, docs)
+            _, prof = profiled(torch, lambda: serve_pass(eng, docs))
             profiles[scheme] = prof
             if prof["device_ms"] > 0:
                 pass_ms = len(docs) / rate["median"] * 1e3
@@ -395,6 +565,299 @@ def phase_engine(torch, dev, docs, card: str) -> dict:
             "profiles": profiles}
 
 
+def make_train_corpus():
+    """examples/compare_vw_bbit.py's corpus settings, seed 11."""
+    from repro_torch.data.synth_rcv1 import SynthRcv1Config, generate_arrays
+    cfg = SynthRcv1Config(seed=TRAIN_SEED, topic_tokens=150,
+                          background_frac=0.35, max_pairs_per_doc=4000,
+                          max_triples_per_doc=2000)
+    return generate_arrays(TRAIN_DOCS, cfg)
+
+
+def sketch_corpus(torch, dev, rows, m: int, via_core: bool = False):
+    """(n, m) VW sketches on the card, in length-sorted chunks of 256
+    rows: ops.vw_sketch (B9), or core.vw.vw_hash_sparse (plain torch)."""
+    from repro_torch.core.vw import vw_hash_sparse
+    from repro_torch.data.hashed_dataset import _length_sorted_chunks
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import ops
+    out = torch.empty((len(rows), m), dtype=torch.float32, device=dev)
+    for sel in _length_sorted_chunks(rows, VW_CHUNK):
+        idx, nnz = pad_rows([rows[i] for i in sel])
+        idx = torch.from_numpy(idx).to(dev)
+        nnz = torch.from_numpy(nnz).to(dev)
+        if via_core:
+            mask = (torch.arange(idx.shape[1], device=dev)[None, :]
+                    < nnz[:, None])
+            sk = vw_hash_sparse(idx, mask, None, m, seed=VW_SEED)
+        else:
+            ones = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+            sk = ops.vw_sketch(idx, ones, nnz, m, seed=VW_SEED)
+        out[torch.from_numpy(sel).to(dev)] = sk
+    return out
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_train(torch, dev, card: str, errs: dict):
+    from repro_torch.data.hashed_dataset import preprocess_rows
+    from repro_torch.kernels import ops
+    from repro_torch.models.linear import BBitLinearConfig, VWLinearConfig
+    from repro_torch.train.linear_trainer import (train_bbit_liblinear,
+                                                  train_vw_liblinear)
+
+    (rows, labels), gen_s = timed(torch, make_train_corpus)
+    nnz_all = np.array([len(r) for r in rows])
+    print(f"train: corpus {len(rows)} docs in {gen_s:.2f} s, nnz "
+          f"{nnz_all.min()}..{nnz_all.max()} (mean {nnz_all.mean():.1f}, "
+          f"total {nnz_all.sum()}), positive share {labels.mean():.4f}")
+    n = TRAIN_ROWS
+    cfg = BBitLinearConfig(k=K, b=B, n_classes=N_CLASSES)
+    runs, codes = {}, {}
+
+    ops.reset_counts()
+    for scheme in ("minwise", "oph"):
+        codes[scheme], sec = timed(torch, lambda: preprocess_rows(
+            rows, k=K, b=B, scheme=scheme, seed=HASH_SEED, device=dev))
+        print(f"train: preprocess_rows {scheme} k={K} b={B} docs="
+              f"{len(rows)}: {sec:.3f} s ({len(rows) / sec:.0f} docs/s) "
+              f"card={card}")
+        for loss in ("logistic", "squared_hinge"):
+            c = codes[scheme]
+            res = train_bbit_liblinear(c[:n], labels[:n], c[n:], labels[n:],
+                                       cfg, loss=loss, C=TRAIN_C,
+                                       max_iter=TRAIN_ITERS, device=dev)
+            runs[f"bbit {scheme} {loss}"] = res
+    sketches = {}
+    for m in (VW_EQUAL, VW_WIDE):
+        sketches[m], sec = timed(torch, lambda: sketch_corpus(
+            torch, dev, rows, m))
+        print(f"train: vw sketches m={m} docs={len(rows)} via ops.vw_sketch:"
+              f" {sec:.3f} s card={card}")
+        sk = sketches[m]
+        runs[f"vw m={m} logistic"] = train_vw_liblinear(
+            sk[:n], labels[:n], sk[n:], labels[n:], VWLinearConfig(m=m),
+            loss="logistic", C=TRAIN_C, max_iter=TRAIN_ITERS, device=dev)
+    counts = ops.counts()
+
+    for m in (VW_EQUAL, VW_WIDE):
+        core = sketch_corpus(torch, dev, rows, m, via_core=True)
+        vw_equal = torch.equal(sketches[m].view(torch.int32),
+                               core.view(torch.int32))
+        print(f"train: vw m={m} sketches of ops.vw_sketch vs "
+              f"core.vw.vw_hash_sparse over all {len(rows)} docs: bytes "
+              f"equal={vw_equal}")
+        if not vw_equal:
+            fail(f"B9 sketches differ from core.vw's at m={m}")
+        del core
+    for name, res in runs.items():
+        print(f"train: {name} test_acc={res.test_acc} train_acc="
+              f"{res.train_acc} tron_iters={res.n_iter} objective="
+              f"{res.objective} seconds={res.train_seconds} card={card}")
+        if not np.isfinite(res.objective):
+            fail(f"{name}: objective not finite")
+    for scheme in ("minwise", "oph"):
+        if runs[f"bbit {scheme} logistic"].test_acc <= 0.9:
+            fail(f"{scheme} logistic test accuracy <= 0.9")
+        if runs[f"bbit {scheme} squared_hinge"].test_acc <= 0.85:
+            fail(f"{scheme} squared hinge test accuracy <= 0.85")
+        gap = (runs[f"bbit {scheme} logistic"].test_acc
+               - runs[f"vw m={VW_EQUAL} logistic"].test_acc)
+        print(f"train: b-bit {scheme} - VW m={VW_EQUAL} (equal storage, "
+              f"{K * B} bits) test accuracy: {gap}")
+        if gap <= 0.05:
+            fail(f"b-bit {scheme} does not beat VW at equal storage by 0.05")
+    for name in ("bbit_linear_fwd", "bbit_linear_bwd_dw", "vw_sketch",
+                 "minhash_pack", "oph_pack"):
+        if counts[name] < 1:
+            fail(f"train: kernel {name} was not launched")
+    stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if stray:
+        fail(f"train: the main path left the kernels: {stray}")
+    print(f"train: launches {json.dumps(counts)}")
+
+    c = codes["oph"]
+    res, prof = profiled(torch, lambda: train_bbit_liblinear(
+        c[:n], labels[:n], c[n:], labels[n:], cfg, loss="logistic",
+        C=TRAIN_C, max_iter=TRAIN_ITERS, device=dev))
+    if prof["device_ms"] <= 0:
+        fail("the profiler traced no device time in the TRON fit")
+    prof["tron_ms"] = res.train_seconds * 1e3
+    unprofiled_ms = runs["bbit oph logistic"].train_seconds * 1e3
+    prof["busy_share"] = prof["device_ms"] / unprofiled_ms
+    print(f"train: profile of bbit oph logistic: device busy "
+          f"{prof['device_ms']} ms in a profiled fit of {prof['wall_ms']} ms "
+          f"(TRON {prof['tron_ms']} ms), share of the unprofiled TRON "
+          f"({unprofiled_ms} ms) {prof['busy_share']}; top {prof['top']}")
+    check_train_shapes(torch, dev, rows, labels, codes, runs, errs)
+    grad = gradient_step(torch, dev, rows[:STREAM_BATCH], labels,
+                         runs["bbit oph logistic"].params, cfg, errs)
+    summary = {"runs": {k: dict(test_acc=r.test_acc, train_acc=r.train_acc,
+                                n_iter=r.n_iter, objective=r.objective,
+                                seconds=r.train_seconds)
+                        for k, r in runs.items()},
+               "counts": counts, "grad": grad, "profile": prof}
+    return summary, {"rows": rows, "codes": codes["minwise"],
+                     "params": runs["bbit minwise logistic"].params}
+
+
+def logistic_dout(torch, logits, labels, scale: float):
+    """d/dlogits of ``scale`` x the summed logistic loss: the dout that
+    the objective's backward hands to B8 / B6."""
+    y = 2.0 * labels.to(torch.float32)[:, None] - 1.0
+    return (-scale * y * torch.sigmoid(-y * logits)).contiguous()
+
+
+def check_train_shapes(torch, dev, rows, labels, codes, runs, errs):
+    """B7, B8 and B6 (without mask) against their plain versions at the
+    train phase's own shapes, on its codes, its trained tables and the
+    objective's dout; B9 on one real chunk of 256 documents at m=64 and
+    m=2^14.  B6 and B8 twice for the same bytes."""
+    from repro_torch.core.bbit import pack_codes
+    from repro_torch.data.hashed_dataset import _length_sorted_chunks
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import bbit_linear as bl
+    from repro_torch.kernels import vw_sketch as vw
+    v, n = 1 << B, TRAIN_ROWS
+    y = torch.from_numpy(labels).to(dev)
+    for scheme in ("minwise", "oph"):
+        params = runs[f"bbit {scheme} logistic"].params
+        table = params["table"].detach().contiguous()
+        c_all = torch.from_numpy(codes[scheme].astype(np.int32)).to(dev)
+        e7 = [_close(torch, "bbit_linear_fwd", errs,
+                     bl.bbit_linear_fwd(x, table),
+                     bl.bbit_linear_fwd_plain(x, table),
+                     bl.bbit_linear_fwd(x, table))
+              for x in (c_all[:n], c_all[n:].contiguous())]
+        x = c_all[:n]
+        logits = bl.bbit_linear_fwd_plain(x, table) + params["bias"].detach()
+        dout = logistic_dout(torch, logits, y[:n], TRAIN_C)
+        e8 = _close(torch, "bbit_linear_bwd_dw", errs,
+                    bl.bbit_linear_bwd_dw(x, dout, v),
+                    bl.bbit_linear_bwd_dw_plain(x, dout, v),
+                    bl.bbit_linear_bwd_dw(x, dout, v),
+                    scale=bl.bbit_linear_bwd_dw_plain(x, dout.abs(), v))
+        e6 = {}
+        for rows_n in (STREAM_BATCH, TRAIN_ROWS):
+            packed = torch.from_numpy(pack_codes(
+                codes[scheme][:rows_n], B)).to(dev)
+            d = dout[:rows_n].contiguous()
+            kw = dict(k=K, bits=B)
+            e6[rows_n] = _close(
+                torch, "bbit_linear_packed_bwd_dw", errs,
+                bl.bbit_linear_packed_bwd_dw(packed, d, v, **kw),
+                bl.bbit_linear_packed_bwd_dw_plain(packed, d, v, **kw),
+                bl.bbit_linear_packed_bwd_dw(packed, d, v, **kw),
+                scale=bl.bbit_linear_packed_bwd_dw_plain(packed, d.abs(), v,
+                                                         **kw))
+        print(f"check: {scheme} trained table, k={K} V={v} C=1: "
+              f"bbit_linear_fwd n={n} / {len(labels) - n} max_abs_err="
+              f"{e7[0]} / {e7[1]} allclose(1e-5); bbit_linear_bwd_dw n={n} "
+              f"(logistic dout) max_abs_err={e8}; bbit_linear_packed_bwd_dw "
+              f"without mask n={STREAM_BATCH} / {n} max_abs_err="
+              f"{e6[STREAM_BATCH]} / {e6[n]}; dW within 1e-5 of each bin's "
+              "sum of |terms|, run-to-run equal=True")
+    chunks = list(_length_sorted_chunks(rows, VW_CHUNK))
+    sel = chunks[len(chunks) // 2]
+    idx, nnz = pad_rows([rows[i] for i in sel])
+    idx = torch.from_numpy(idx).to(dev)
+    nnz = torch.from_numpy(nnz).to(dev)
+    ones = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+    for m in (VW_EQUAL, VW_WIDE):
+        got = vw.vw_sketch(idx, ones, nnz, m, seed=VW_SEED)
+        want = vw.vw_sketch_plain(idx, ones, nnz, m, seed=VW_SEED)
+        err = _close(torch, "vw_sketch", errs, got, want,
+                     vw.vw_sketch(idx, ones, nnz, m, seed=VW_SEED))
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            fail(f"vw_sketch m={m} on a real chunk differs from its plain "
+                 "version")
+        print(f"check: vw_sketch one chunk of {len(sel)} docs (pad "
+              f"{idx.shape[1]}) m={m}: bytes equal=True max_abs_err={err}")
+
+
+def gradient_step(torch, dev, docs, labels, params, cfg, errs) -> dict:
+    """One gradient of the mean logistic loss over bbit_logits_packed on
+    one stream batch of packed training rows (B5 + B6), for oph and
+    oph_zero, against the gradient through widened codes (B7 + B8 for
+    oph, the plain masked gather for oph_zero); and B6 alone on the same
+    packed rows, mask and loss dout against its plain version."""
+    from repro_torch.kernels import bbit_linear as bl
+    from repro_torch.core.bbit import unpack_codes_torch, unpack_mask_torch
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import ops
+    from repro_torch.models.linear import bbit_logits, bbit_logits_packed
+    from repro_torch.train.losses import mean_loss_fn
+
+    idx, nnz = pad_rows(docs)
+    idx = torch.from_numpy(idx).to(dev)
+    nnz = torch.from_numpy(nnz).to(dev)
+    y = torch.from_numpy(labels[:len(docs)]).to(dev)
+    out = {"launches": {}}
+    for scheme in ("oph", "oph_zero"):
+        packed, empty = make_scheme(scheme, K, HASH_SEED).encode_packed(
+            idx, nnz, B)
+        kw = dict(k=K, bits=B, empty=empty)
+        table = params["table"].detach()
+        logits = (bl.bbit_linear_packed_fwd_plain(packed, table, **kw)
+                  + params["bias"].detach())
+        dout = logistic_dout(torch, logits, y, 1.0 / len(docs))
+        e6 = _close(torch, "bbit_linear_packed_bwd_dw", errs,
+                    bl.bbit_linear_packed_bwd_dw(packed, dout, 1 << B, **kw),
+                    bl.bbit_linear_packed_bwd_dw_plain(packed, dout, 1 << B,
+                                                       **kw),
+                    bl.bbit_linear_packed_bwd_dw(packed, dout, 1 << B, **kw),
+                    scale=bl.bbit_linear_packed_bwd_dw_plain(
+                        packed, dout.abs(), 1 << B, **kw))
+        print(f"check: bbit_linear_packed_bwd_dw {scheme} {len(docs)} packed "
+              f"rows mask={empty is not None} (mean logistic dout): "
+              f"max_abs_err={e6} within 1e-5 of each bin's sum of |terms|, "
+              "run-to-run equal=True")
+        grads = []
+        for widened in (False, True):
+            p = {name: t.detach().clone().requires_grad_(True)
+                 for name, t in params.items()}
+            if widened:
+                x = unpack_codes_torch(packed, K, B).to(torch.int32)
+                mask = None if empty is None else unpack_mask_torch(empty, K)
+                fwd = lambda q, c, mask=mask: bbit_logits(q, c, cfg,
+                                                          empty=mask)
+            else:
+                x = packed
+                fwd = lambda q, c, empty=empty: bbit_logits_packed(
+                    q, c, cfg, empty_packed=empty)
+            ops.reset_counts()
+            mean_loss_fn(fwd, "logistic")(p, x, y).backward()
+            torch.cuda.synchronize()
+            counts = ops.counts()
+            if not widened:
+                for name in ("bbit_linear_packed_fwd",
+                             "bbit_linear_packed_bwd_dw"):
+                    if counts[name] < 1 or counts[f"{name}_plain"]:
+                        fail(f"gradient {scheme}: {name} not launched")
+                    out["launches"][name] = (out["launches"].get(name, 0)
+                                             + counts[name])
+            grads.append({name: t.grad for name, t in p.items()})
+        err = max(float((grads[0][n] - grads[1][n]).abs().max())
+                  for n in grads[0])
+        ok = all(torch.allclose(grads[0][n], grads[1][n], **GRAD_TOL)
+                 for n in grads[0])
+        out[scheme] = err
+        print(f"gradient: {scheme} mean logistic loss over "
+              f"{len(docs)} packed rows (B5 + B6{' + mask' if empty is not None else ''})"
+              f" vs widened codes ({'B7 + B8' if empty is None else 'plain masked gather'}):"
+              f" max_abs_err={err} allclose(rtol 1e-5, atol 1e-8)={ok}")
+        if not ok:
+            fail(f"gradient {scheme}: packed and widened gradients differ")
+    return out
+
+
 def lane_batch(torch, dev, docs, lane):
     """ROWS real documents of one nnz lane, padded to the lane's width."""
     from repro_torch.data.packing import pad_rows
@@ -411,6 +874,8 @@ def lane_batch(torch, dev, docs, lane):
 
 
 def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
+    """B1, B2 and B5 at the engine's shapes → {"main": {kernel: record
+    at the widest lane}, "shapes": {lane: {kernel: record}}}."""
     import torch.nn.functional as F
     from repro_torch.core.bbit import (packed_mask_width, packed_width,
                                        unpack_codes_torch)
@@ -470,7 +935,92 @@ def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
                   f"({r['bound_by']}) library_ms={r['library_ms']} "
                   f"card={card}")
         out[lane] = rec
-    return out
+    return {"main": out[NNZ_BUCKETS[-1]], "shapes": out}
+
+
+def phase_timing_train(torch, dev, data, card: str, int_rate: float) -> dict:
+    """B6-B9 at the train phase's shapes, beside their plain versions,
+    one-call yardsticks and bounds → {"main": {kernel: record at its
+    main path's shape}, "shapes": {kernel: {shape: record}}}."""
+    from repro_torch.core.bbit import pack_codes, packed_width
+    from repro_torch.data.hashed_dataset import _length_sorted_chunks
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import bbit_linear as bl
+    from repro_torch.kernels import vw_sketch as vw
+    import torch.nn.functional as F
+
+    v = 1 << B
+    codes_np = data["codes"][:TRAIN_ROWS].astype(np.int32)
+    codes = torch.from_numpy(codes_np).to(dev)
+    table = data["params"]["table"].detach().contiguous()
+    n = codes.shape[0]
+    dout = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(n, 1)).astype(np.float32)).to(dev)
+    flat = torch.arange(K, device=dev)[None, :] * v + codes.to(torch.int64)
+    weight2d = table.view(K * v, 1)
+    touched = int(torch.unique(flat).numel())
+    out, main = {}, {}
+
+    def record(name, shape, ms, plain, bnd, lib, is_main=True):
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                   library_ms=lib)
+        out.setdefault(name, {})[shape] = rec
+        if is_main:
+            main[name] = rec
+        print(f"timing: {name} {shape} ms={ms} plain_ms={plain} bound_ms="
+              f"{bnd[0]} ({bnd[1]}) library_ms={lib} card={card}")
+
+    shape = f"n={n} k={K} V={v} C=1"
+    record("bbit_linear_fwd", shape,
+           time_ms(torch, lambda: bl.bbit_linear_fwd(codes, table), 200),
+           time_ms(torch, lambda: bl.bbit_linear_fwd_plain(codes, table), 20),
+           bound(4 * n * K + 4 * touched + 4 * n, n * K, PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: F.embedding_bag(flat, weight2d,
+                                                  mode="sum"), 200))
+    w_rep = dout[:, 0].repeat_interleave(K)
+    flat1 = flat.reshape(-1)
+    record("bbit_linear_bwd_dw", shape,
+           time_ms(torch, lambda: bl.bbit_linear_bwd_dw(codes, dout, v), 200),
+           time_ms(torch, lambda: bl.bbit_linear_bwd_dw_plain(codes, dout, v),
+                   20),
+           bound(4 * n * K + 4 * n + 4 * K * v, n * K, PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: torch.bincount(flat1, weights=w_rep,
+                                                 minlength=K * v), 200))
+    for rows_n in (STREAM_BATCH, TRAIN_ROWS):
+        packed = torch.from_numpy(pack_codes(
+            codes_np[:rows_n].astype(np.uint16), B)).to(dev)
+        d = dout[:rows_n].contiguous()
+        f1 = flat[:rows_n].reshape(-1)
+        wr = d[:, 0].repeat_interleave(K)
+        record("bbit_linear_packed_bwd_dw", f"n={rows_n} k={K} V={v} C=1",
+               time_ms(torch, lambda: bl.bbit_linear_packed_bwd_dw(
+                   packed, d, v, k=K, bits=B), 200),
+               time_ms(torch, lambda: bl.bbit_linear_packed_bwd_dw_plain(
+                   packed, d, v, k=K, bits=B), 20),
+               bound(rows_n * packed_width(K, B) + 4 * rows_n + 4 * K * v,
+                     rows_n * K, PEAK_F32_OPS_PER_S),
+               time_ms(torch, lambda: torch.bincount(f1, weights=wr,
+                                                     minlength=K * v), 200),
+               is_main=rows_n == STREAM_BATCH)
+    rows = data["rows"]
+    chunks = list(_length_sorted_chunks(rows, VW_CHUNK))
+    sel = chunks[len(chunks) // 2]
+    idx, nnz = pad_rows([rows[i] for i in sel])
+    total_nnz = int(nnz.sum())
+    idx = torch.from_numpy(idx).to(dev)
+    nnz = torch.from_numpy(nnz).to(dev)
+    ones = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+    for m in (VW_EQUAL, VW_WIDE):
+        record("vw_sketch", f"rows={len(sel)} nnz_sum={total_nnz} "
+               f"pad={idx.shape[1]} m={m}",
+               time_ms(torch, lambda: vw.vw_sketch(idx, ones, nnz, m,
+                                                   seed=VW_SEED), 200),
+               time_ms(torch, lambda: vw.vw_sketch_plain(
+                   idx, ones, nnz, m, seed=VW_SEED), 20),
+               bound(8 * total_nnz + 4 * len(sel) + 4 * len(sel) * m,
+                     OPS_PER_VW_ID * total_nnz, int_rate),
+               None, is_main=m == VW_WIDE)
+    return {"main": main, "shapes": out}
 
 
 def main() -> int:
@@ -492,23 +1042,35 @@ def main() -> int:
     card = card_line()
     int_rate = int32_ops_per_s(torch)
     phase_build()
-    errs = phase_kernels(torch, dev)
+    errs, edge_errs = phase_kernels(torch, dev)
     docs = make_corpus(DOCS, seed=0)
     engine = phase_engine(torch, dev, docs, card)
+    train, train_data = phase_train(torch, dev, card, errs)
     timing = phase_timing(torch, dev, docs, card, int_rate)
+    timing_train = phase_timing_train(torch, dev, train_data, card, int_rate)
 
-    top = NNZ_BUCKETS[-1]
+    # each kernel's line: its launches summed over the main paths' runs
+    # (engine, train, gradient), its error and time at its main path's
+    # shapes
+    launches = {name: engine["launches"].get(name, 0)
+                + train["counts"][name]
+                + train["grad"]["launches"].get(name, 0)
+                for name in KERNELS}
+    main_rec = {**timing["main"], **timing_train["main"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        rec = timing[top][name]
+        rec = main_rec[name]
+        if launches[name] < 1:
+            fail(f"kernel {name} was launched on no main path")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": engine["launches"][name],
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], **rec})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "int32_ops_per_s": int_rate,
-                       "kernels": kernels, "timing": timing,
+                       "kernels": kernels, "edge_max_abs_err": edge_errs,
+                       "timing": timing["shapes"],
+                       "timing_train": timing_train["shapes"], "train": train,
                        "docs_per_s": engine["docs_per_s"],
                        "profiles": engine["profiles"],
                        "seconds": time.perf_counter() - t_start}, f,

@@ -1,9 +1,11 @@
-"""PyTorch + CUDA port of the b-bit hashed classifier (serving path).
+"""PyTorch + CUDA port of the b-bit hashed classifier: serving, and the
+paper's experiment (TRON over b-bit codes and over VW sketches).
 
 A second package beside the JAX reference ``repro``: the same hashing
 schemes, packed code layout and (k, 2^b, C) linear table, served by
-``repro_torch.serving.HashedClassifierEngine`` through hand-written
-CUDA kernels for Hopper (``repro_torch/csrc``).  It imports torch and
+``repro_torch.serving.HashedClassifierEngine`` and trained by
+``repro_torch.train.linear_trainer`` through hand-written CUDA kernels
+for Hopper (``repro_torch/csrc``).  It imports torch and
 numpy only.  Entry points run on ``cuda:0`` unless the caller passes
 ``device="cpu"``; the CPU runs each kernel's plain torch version.
 """

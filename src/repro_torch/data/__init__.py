@@ -1,2 +1,3 @@
-"""Numpy data helpers copied from the reference: row padding and the
-synthetic expanded-rcv1 corpus."""
+"""Data helpers: row padding and the synthetic expanded-rcv1 corpus
+(numpy, copied from the reference), and in-memory hashing of a corpus
+into b-bit codes (``hashed_dataset.preprocess_rows``)."""

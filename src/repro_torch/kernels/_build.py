@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 # exported C functions of each library: name -> argtypes (restype int)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "fused_encode": {
@@ -40,10 +41,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "bbit_linear": {
         "repro_bbit_linear_packed_fwd": [P, P, P, P, I, I, I, I, I, I, I,
                                          I, P],
+        "repro_bbit_linear_fwd": [P, P, P, I, I, I, I, I, P],
+        "repro_bbit_linear_bwd_dw": [P, P, P, P, I, I, I, I, I, I, I, P],
+        "repro_bbit_linear_packed_bwd_dw": [P, P, P, P, P, I, I, I, I, I, I,
+                                            I, I, I, I, P],
+    },
+    "vw_sketch": {
+        "repro_vw_sketch": [P, P, P, P, I, I, I, I, U, I, P],
     },
 }
 ERROR_FN = {"fused_encode": "repro_fused_encode_error",
-            "bbit_linear": "repro_bbit_linear_error"}
+            "bbit_linear": "repro_bbit_linear_error",
+            "vw_sketch": "repro_vw_sketch_error"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,1 +1,1 @@
-"""Linear model over packed b-bit codes."""
+"""Linear models over b-bit codes and over VW sketches."""

@@ -1,13 +1,17 @@
-"""Linear model over packed b-bit codes (counterpart of
-``repro/models/linear.py``, serving forward).
+"""Linear models over b-bit codes and over VW sketches (counterpart of
+``repro/models/linear.py``).
 
-The weight is a (k, 2^b, C) float32 table — the expanded 2^b·k weight
-vector reshaped, the reference's layout — plus a (C,) bias, held in a
-plain dict of tensors ``{"table", "bias"}``.  Binary problems keep one
-output column (C = 1).
+The b-bit weight is a (k, 2^b, C) float32 table — the expanded 2^b·k
+weight vector reshaped, the reference's layout — plus a (C,) bias, held
+in a plain dict of tensors ``{"table", "bias"}``.  The VW model is a
+dense (m, C) weight over the sketches, ``{"w", "bias"}``.  Binary
+problems keep one output column (C = 1).  Every forward is
+differentiable in the params: the b-bit ones through the kernels'
+``torch.autograd.Function``s (``kernels.ops``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Mapping, Optional
@@ -50,26 +54,65 @@ def init_bbit_linear(cfg: BBitLinearConfig,
 
 def params_from_jax(params_np: Mapping[str, np.ndarray],
                     device: DeviceLike = None) -> dict:
-    """The reference's params (numpy arrays: table (k, 2^b, n_out), bias
-    (n_out,)) → the port's; the layout is the same, so this converts
-    the array type only."""
+    """The reference's params → the port's: b-bit ``{"table" (k, 2^b,
+    n_out), "bias" (n_out,)}`` or VW ``{"w" (m, n_out), "bias"}``, as
+    numpy arrays.  The layout is the same, so this converts the array
+    type only."""
     dev = resolve_device(device)
+    names = ("w", "bias") if "w" in params_np else ("table", "bias")
     return {name: torch.tensor(np.asarray(params_np[name], np.float32),
                                device=dev)
-            for name in ("table", "bias")}
+            for name in names}
+
+
+def _finish(out: torch.Tensor, params, cfg: BBitLinearConfig
+            ) -> torch.Tensor:
+    if cfg.normalize:
+        out = out / math.sqrt(cfg.k)
+    return out + params["bias"].to(torch.float32)
+
+
+def bbit_logits(params, codes: torch.Tensor, cfg: BBitLinearConfig,
+                empty: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Integer codes (n, k) → logits (n, n_out) float32.  ``empty`` (bool
+    (n, k), zero-coded OPH) drops the marked bins, by a plain torch
+    gather as in the reference (``ops.bbit_linear_masked``)."""
+    if empty is not None:
+        out = ops.bbit_linear_masked(codes, params["table"], empty)
+    else:
+        out = ops.bbit_linear(codes, params["table"])
+    return _finish(out, params, cfg)
+
+
+def bbit_scores(params, codes: torch.Tensor, cfg: BBitLinearConfig,
+                empty: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Binary → (n,) margin, multiclass → (n, C) logits."""
+    logits = bbit_logits(params, codes, cfg, empty=empty)
+    return logits[:, 0] if cfg.n_classes == 2 else logits
+
+
+def _classes(logits: torch.Tensor, n_classes: int) -> torch.Tensor:
+    if n_classes == 2:
+        return (logits[:, 0] > 0).to(torch.int32)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def predict_classes(params, codes: torch.Tensor,
+                    cfg: BBitLinearConfig) -> torch.Tensor:
+    """int32 (n,) class per row."""
+    return _classes(bbit_logits(params, codes, cfg), cfg.n_classes)
 
 
 def bbit_logits_packed(params, packed: torch.Tensor, cfg: BBitLinearConfig,
                        empty_packed: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """Packed uint8 (n, ceil(k·b/8)) rows → logits (n, n_out) float32.
+    """Packed uint8 (n, ceil(k·b/8)) rows → logits (n, n_out) float32,
+    differentiable in the params (B5 forward, B6 backward).
     ``empty_packed`` (the ``oph_zero`` packbits mask) drops the marked
     bins."""
     out = ops.bbit_linear_packed(packed, params["table"], cfg.k, cfg.b,
                                  empty=empty_packed)
-    if cfg.normalize:
-        out = out / math.sqrt(cfg.k)
-    return out + params["bias"].to(torch.float32)
+    return _finish(out, params, cfg)
 
 
 def bbit_scores_packed(params, packed: torch.Tensor, cfg: BBitLinearConfig,
@@ -79,3 +122,55 @@ def bbit_scores_packed(params, packed: torch.Tensor, cfg: BBitLinearConfig,
     logits = bbit_logits_packed(params, packed, cfg,
                                 empty_packed=empty_packed)
     return logits[:, 0] if cfg.n_classes == 2 else logits
+
+
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class VWLinearConfig:
+    m: int                       # number of VW buckets
+    n_classes: int = 2
+
+    @property
+    def n_out(self) -> int:
+        return 1 if self.n_classes == 2 else self.n_classes
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` (no TF32 in
+    float32 matmuls) for the ``with`` block, then restores the process's
+    setting."""
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = before
+
+
+def init_vw_linear(cfg: VWLinearConfig, device: DeviceLike = None) -> dict:
+    """Zero weight (m, n_out) and bias, TRON's starting point."""
+    dev = resolve_device(device)
+    return {name: torch.zeros(shape, dtype=torch.float32, device=dev)
+            for name, shape in (("w", (cfg.m, cfg.n_out)),
+                                ("bias", (cfg.n_out,)))}
+
+
+def vw_logits(params, sketches: torch.Tensor,
+              cfg: VWLinearConfig) -> torch.Tensor:
+    """Dense sketches (n, m) → logits (n, n_out): a plain float32
+    ``torch.matmul``, as the reference leaves it to XLA, run inside
+    ``full_float32_matmul`` so the card multiplies in full float32.
+    Its gradient's matmul runs when autograd's backward does, outside
+    this call: ``train_vw_liblinear`` holds the same scope around the
+    whole fit for that."""
+    with full_float32_matmul():
+        out = torch.matmul(sketches, params["w"])
+    return out + params["bias"]
+
+
+def vw_predict(params, sketches: torch.Tensor,
+               cfg: VWLinearConfig) -> torch.Tensor:
+    """int32 (n,) class per row."""
+    return _classes(vw_logits(params, sketches, cfg), cfg.n_classes)

@@ -1,0 +1,168 @@
+"""TRON: trust-region Newton-CG, LIBLINEAR's primal solver (counterpart
+of ``repro/optim/tron.py``).
+
+Steihaug conjugate-gradient inner solves on one flat float32 tensor, on
+the params' device.  The params are flattened in the order of the
+reference's ``ravel_pytree`` (sorted keys: ``bias`` before ``table``),
+so the two solvers walk like vectors.  The scalar tests of the outer and
+inner loops run on the host, as in the reference.  Hessian-vector
+products come from the caller (``hvp``, the analytic Hv = v +
+C·Xᵀ(ℓ″(m)⊙Xv) of a linear model) or else from double backward.
+
+Hyper-parameters follow LIBLINEAR's tron.cpp: eta0/1/2 = 1e-4/0.25/0.75,
+sigma1/2/3 = 0.25/0.5/4.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+
+Params = Union[torch.Tensor, dict]
+
+
+@dataclasses.dataclass
+class TronResult:
+    params: Params
+    fun: float
+    grad_norm: float
+    n_iter: int
+    converged: bool
+    trace: list
+
+
+def ravel_params(params: Params) -> Tuple[torch.Tensor, Callable]:
+    """→ (flat float32 tensor, unravel): a dict's tensors in sorted key
+    order, or a tensor as it is."""
+    if isinstance(params, torch.Tensor):
+        shape = params.shape
+        return params.reshape(-1).to(torch.float32), lambda f: f.view(shape)
+    names = sorted(params)
+    shapes = [params[name].shape for name in names]
+    sizes = [params[name].numel() for name in names]
+    flat = torch.cat([params[name].reshape(-1).to(torch.float32)
+                      for name in names])
+
+    def unravel(f: torch.Tensor) -> dict:
+        return {name: part.view(shape) for name, part, shape
+                in zip(names, torch.split(f, sizes), shapes)}
+
+    return flat, unravel
+
+
+def _cg_steihaug(hvp, g, delta, cg_tol, cg_max):
+    """Solves H s = -g within ||s|| ≤ delta.  Returns (s, hit_boundary)."""
+    s = torch.zeros_like(g)
+    r = -g
+    d = r
+    rTr = r @ r
+    g_norm = torch.sqrt(g @ g)
+    for _ in range(cg_max):
+        if torch.sqrt(rTr) <= cg_tol * g_norm:
+            return s, False
+        Hd = hvp(d)
+        dHd = d @ Hd
+        if dHd <= 0:
+            return s + _boundary_tau(s, d, delta) * d, True
+        alpha = rTr / dHd
+        s_next = s + alpha * d
+        if torch.sqrt(s_next @ s_next) >= delta:
+            return s + _boundary_tau(s, d, delta) * d, True
+        s = s_next
+        r = r - alpha * Hd
+        rTr_new = r @ r
+        d = r + (rTr_new / rTr) * d
+        rTr = rTr_new
+    return s, False
+
+
+def _boundary_tau(s, d, delta):
+    """Positive root of ||s + tau·d|| = delta."""
+    sd = s @ d
+    dd = d @ d
+    ss = s @ s
+    rad = torch.sqrt(sd * sd + dd * (delta * delta - ss))
+    return (rad - sd) / dd
+
+
+def tron_minimize(
+    fun: Callable,
+    w0: Params,
+    *,
+    hvp: Optional[Callable] = None,
+    max_iter: int = 100,
+    cg_max: int = 30,
+    cg_tol: float = 0.1,
+    grad_tol: float = 1e-4,
+) -> TronResult:
+    """Minimizes ``fun(params)`` (full-batch, deterministic closure).
+
+    ``hvp(params, v) -> params`` optionally supplies an analytic
+    Hessian-vector product; without it Hv comes from double backward
+    through ``fun``.
+    """
+    flat0, unravel = ravel_params(w0)
+
+    def val_and_grad(w):
+        w = w.detach().requires_grad_(True)
+        with torch.enable_grad():
+            f = fun(unravel(w))
+            (g,) = torch.autograd.grad(f, w)
+        return f.detach(), g
+
+    def val_only(w):
+        with torch.no_grad():
+            return fun(unravel(w))
+
+    if hvp is None:
+        def hvp_at(w, v):
+            w = w.detach().requires_grad_(True)
+            with torch.enable_grad():
+                (g,) = torch.autograd.grad(fun(unravel(w)), w,
+                                           create_graph=True)
+                (hv,) = torch.autograd.grad(g, w, grad_outputs=v)
+            return hv
+    else:
+        def hvp_at(w, v):
+            return ravel_params(hvp(unravel(w), unravel(v)))[0]
+
+    w = flat0.detach()
+    f, g = val_and_grad(w)
+    g0_norm = float(torch.linalg.norm(g))
+    delta = g0_norm
+    trace = [float(f)]
+    eta0, eta1, eta2 = 1e-4, 0.25, 0.75
+    sigma1, sigma2, sigma3 = 0.25, 0.5, 4.0
+
+    converged = False
+    it = 0
+    for it in range(1, max_iter + 1):
+        gnorm = float(torch.linalg.norm(g))
+        if gnorm <= grad_tol * max(g0_norm, 1e-12):
+            converged = True
+            break
+        s, _ = _cg_steihaug(lambda v: hvp_at(w, v), g, delta, cg_tol, cg_max)
+        f_new = val_only(w + s)
+        gs = float(g @ s)
+        sHs = float(s @ hvp_at(w, s))
+        pred = -(gs + 0.5 * sHs)                 # predicted decrease
+        actual = float(f - f_new)
+        rho = actual / pred if pred > 0 else -1.0
+        snorm = float(torch.linalg.norm(s))
+        # LIBLINEAR-style delta update
+        if rho < eta0:
+            delta = sigma1 * min(delta, snorm)
+        elif rho < eta1:
+            delta = max(sigma1 * delta, min(snorm, sigma2 * delta))
+        elif rho < eta2:
+            delta = max(sigma1 * delta, min(snorm * sigma3, delta))
+        else:
+            delta = max(delta, min(snorm * sigma3, 1e10))
+        if rho > eta0:
+            w = w + s
+            f, g = val_and_grad(w)
+            trace.append(float(f))
+    return TronResult(params=unravel(w), fun=float(f),
+                      grad_norm=float(torch.linalg.norm(g)), n_iter=it,
+                      converged=converged, trace=trace)
