@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path and of the paper's
-experiment (TRON over b-bit codes and VW sketches) on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving path, of the paper's
+experiment (TRON over b-bit codes and VW sketches, at the rcv1_oph width
+and at the paper's own k=500, b=16) and of banded-LSH search on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -34,7 +36,10 @@ Phases, one line of output each (or more), any failure exits non-zero:
   train    the paper's experiment at the rcv1_oph width (k=256, b=8, 2
            classes, C=1): 20,000 synthetic expanded-rcv1 documents
            (examples/compare_vw_bbit.py's corpus settings, seed 11), the
-           first 16,000 to train; preprocess_rows for minwise and oph,
+           first 16,000 to train; preprocess_rows for minwise and oph
+           (the raw-minima encode, minhash (B3) and oph (B4), which are
+           then held to their plain versions byte for byte on the
+           widest full 1,024-row chunk of the corpus),
            train_bbit_liblinear with logistic and squared-hinge loss (30
            TRON iterations at most), VW sketches through ops.vw_sketch at
            equal storage (m=64) and at m=2^14, train_vw_liblinear; the
@@ -50,23 +55,45 @@ Phases, one line of output each (or more), any failure exits non-zero:
            for oph_zero with its empty mask (B5 + B6, and B6 alone against
            its plain version), against the gradient through widened
            codes;
+  paper    the same corpus at configs/rcv1_bbit.py's width: preprocess_rows
+           at k=500, b=16 (B3), TRON logistic and squared hinge over a
+           (500, 65536, 1) table (B7, and B8 over 16 V tiles); k=30, b=12
+           (the abstract's 30 hashes, B3, then B7/B8 at V=4096); oph_zero
+           at k=256, b=8 (B4), its codes against the host numpy encode;
+           no plain call at all; B7 and B8 against their plain versions
+           on the k=500 codes, the logistic fit's (500, 65536, 1) table
+           and its dout; the first 1,024-row chunk's k=500 codes against
+           B3's plain version; the reference tests' accuracy limits;
+  search   the corpus packed at k=256, b=8 (B2) into a BandedLSHIndex
+           with 4 codes per band; 128 exact copies of indexed documents
+           (rank 1, similarity 1.0) and 128 near-duplicates with 10 % of
+           their ids dropped (in the top 10), ranked by
+           hamming_distance (B10); recall@10 against a full scan of the
+           20,000 rows; on every 8th query the full scan's distances and
+           top-10 indices are held to B10's plain version (and, once, to
+           a second call);
   timing   each kernel at its main path's shapes with CUDA events, its
            plain version, its one-call PyTorch yardstick where there is
            one, and the bound (the larger of bytes over 3.35 TB/s and
-           operations over the card's rate for their type: int32 for B1,
-           B2 and B9, float32 for B5-B8): B1, B2, B5 at the engine's
-           shapes (64 rows x 2048 / 8192 lanes of real documents, B5 vs
-           embedding_bag); B7 and B8 at 16,000 x 256 codes, V=256, C=1 (vs
-           embedding_bag and bincount); B6 at 1,024 and 16,000 packed rows
-           (vs bincount on unpacked codes); B9 at one 256-row chunk of
-           real documents, m=64 and m=2^14.
+           operations over the card's rate for their type: int32 for
+           B1-B4, B9 and B10, float32 for B5-B8): B1, B2, B5 at the
+           engine's shapes (64 rows x 2048 / 8192 lanes of real documents,
+           B5 vs embedding_bag); B7 and B8 at 16,000 x 256 codes, V=256,
+           C=1 (vs embedding_bag and bincount), and at the paper fits'
+           16,000 x 500 codes, V=65536; B6 at 1,024 and 16,000
+           packed rows (vs bincount on unpacked codes); B9 at one 256-row
+           chunk of real documents, m=64 and m=2^14; B3 (k=500 and 256)
+           and B4 (k=256) on the widest full 1,024-row chunk of the train
+           corpus; B10 over the 20,000 indexed rows and over a typical
+           candidate set.
 
 The last three lines are the card's name and power limit, one JSON
 object describing every kernel, and {"ok": true, "device": {...}}.  A
 kernel's max_abs_err there is its largest error at the main path's
 shapes (B1, B2 and B5 in the kernels phase at the engine's rows and
-lanes, B6-B9 in the train phase); the errors of the edge-case checks of
-B6-B9 (ragged k and n, b=1..12, C=4) go to --out only.
+lanes, B3, B4 and B6-B9 in the train and paper phases, B10 in the
+search phase); the errors of the edge-case checks of B6-B9 (ragged k and
+n, b=1..12, C=4) go to --out only.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -94,13 +121,18 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # tensor cores (B5's adds)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# 32-bit integer operations issue at 64 per SM per clock on Hopper
-# (NVIDIA H100 Tensor Core GPU Architecture white paper, SM section);
-# the data sheet has no int32 entry, so the rate is this times the
-# card's SM count and its maximum SM clock, both read from the card
-INT32_OPS_PER_SM_CLOCK = 64
+# 32-bit integer operations per SM per clock, at most: each of a Hopper
+# SM's four partitions issues one warp instruction (32 lanes) per clock.
+# The integer ALU pipe has 16 lanes a partition (64 per SM per clock, the
+# NVIDIA H100 Tensor Core GPU Architecture white paper's int32 figure),
+# but integer multiplies and multiply-adds issue to the FMA pipe beside
+# it, so a mix of the two -- the hashes here -- can exceed 64: B3 ran at
+# 1.22x the 64-lane rate on the H100.  The data sheet has no int32 entry,
+# so the rate is the issue limit times the card's SM count and its
+# maximum SM clock, both read from the card
+INT32_OPS_PER_SM_CLOCK = 128
 # 32-bit operations per hash: a*t+b, fmix32's 3 shift-xors and 2
-# multiplies, then the min (B1) or the bin shift + atomicMin (B2)
+# multiplies, then the min (B1, B3) or the bin shift + atomicMin (B2, B4)
 OPS_PER_MINHASH = 1 + 8 + 1
 OPS_PER_OPH_HASH = 1 + 8 + 2
 # two fmix32 (8 each), the multiply-add and xor before them, the mask
@@ -114,6 +146,17 @@ VW_EQUAL = K * B // 32               # 2048 bits = 64 float32 buckets
 VW_WIDE = 1 << 14
 VW_CHUNK = 256
 STREAM_BATCH = 1024                  # configs/rcv1_oph.py stream_batch
+PREPROCESS_CHUNK = 1024              # preprocess_rows' chunk
+PAPER_K, PAPER_B = 500, 16           # configs/rcv1_bbit.py
+ABSTRACT_K, ABSTRACT_B = 30, 12      # examples/compare_vw_bbit.py:26
+# the search phase: configs/rcv1_oph.py's retrieval geometry, and
+# benchmarks/retrieval_bench.py's near-duplicate churn
+ROWS_PER_BAND, TOP_K = 4, 10
+SEARCH_QUERIES = 128                 # exact copies, and as many near-dups
+SEARCH_CHECK_EVERY = 8               # B10 vs plain on every 8th query
+DROP_FRAC = 0.1
+# 32-bit operations per word of B10: the XOR, the popcount, the add
+OPS_PER_HAMMING_WORD = 3
 GRAD_TOL = dict(rtol=1e-5, atol=1e-8)
 # B6/B8 against their plain versions: |err| <= 1e-5 x the sum of the
 # absolute terms of each bin (+1e-6), the bound of a reordered float32 sum
@@ -123,6 +166,9 @@ KERNELS = {
                      "src/repro/kernels/fused_encode.py:128"),
     "oph_pack": ("src/repro_torch/csrc/fused_encode.cu",
                  "src/repro/kernels/fused_encode.py:271"),
+    "minhash": ("src/repro_torch/csrc/minhash.cu",
+                "src/repro/kernels/minhash.py:73"),
+    "oph": ("src/repro_torch/csrc/oph.cu", "src/repro/kernels/oph.py:82"),
     "bbit_linear_packed_fwd": ("src/repro_torch/csrc/bbit_linear.cu",
                                "src/repro/kernels/bbit_linear.py:277"),
     "bbit_linear_packed_bwd_dw": ("src/repro_torch/csrc/bbit_linear.cu",
@@ -133,6 +179,8 @@ KERNELS = {
                            "src/repro/kernels/bbit_linear.py:147"),
     "vw_sketch": ("src/repro_torch/csrc/vw_sketch.cu",
                   "src/repro/kernels/vw_sketch.py:69"),
+    "hamming_distance": ("src/repro_torch/csrc/hamming.cu",
+                         "src/repro/kernels/hamming.py:44"),
 }
 
 
@@ -161,10 +209,10 @@ def int32_ops_per_s(torch) -> float:
     return rate
 
 
-def time_ms(torch, fn, iters: int) -> float:
+def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     """Device time per call: the calls are queued behind a sleep kernel,
     so the card runs them back to back whatever the host's pace."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -176,6 +224,15 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def int_err(torch, got, want) -> int:
+    """Largest absolute difference of two integer tensors (0: equal)."""
+    if got.shape != want.shape:
+        fail(f"shapes differ: {tuple(got.shape)} vs {tuple(want.shape)}")
+    if not got.numel():
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
 def bound(bytes_: float, ops: float, ops_per_s: float):
@@ -215,16 +272,12 @@ def phase_kernels(torch, dev):
     nnz_np[:4] = [0, 3, K - 1, m]
     nnz = torch.from_numpy(nnz_np).to(dev)
     errs = {}
-
-    def int_err(got, want):
-        return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-
     a, b = MultiplyShiftHash.make(K, 1).params(dev)
     for bits in (1, 2, 4, 8):
         got = fe.minhash_pack(idx, nnz, a, b, bits=bits)
         want = fe.minhash_pack_plain(idx, nnz, a, b, bits=bits)
         torch.cuda.synchronize()
-        err = int_err(got, want)
+        err = int_err(torch, got, want)
         errs["minhash_pack"] = max(errs.get("minhash_pack", 0), err)
         print(f"kernels: minhash_pack k={K} b={bits} rows={ROWS} "
               f"nnz 0..{m}: bytes equal={err == 0}")
@@ -239,7 +292,8 @@ def phase_kernels(torch, dev):
             want = fe.oph_pack_plain(idx, nnz, oa, ob, k=K, bits=bits,
                                      densify=densify)
             torch.cuda.synchronize()
-            err = max(int_err(got[0], want[0]), int_err(got[1], want[1]))
+            err = max(int_err(torch, got[0], want[0]),
+                      int_err(torch, got[1], want[1]))
             errs["oph_pack"] = max(errs.get("oph_pack", 0), err)
             print(f"kernels: oph_pack k={K} b={bits} densify={densify} "
                   f"rows={ROWS} nnz 0..{m}: codes and mask equal="
@@ -624,7 +678,8 @@ def phase_train(torch, dev, card: str, errs: dict):
     ops.reset_counts()
     for scheme in ("minwise", "oph"):
         codes[scheme], sec = timed(torch, lambda: preprocess_rows(
-            rows, k=K, b=B, scheme=scheme, seed=HASH_SEED, device=dev))
+            rows, k=K, b=B, scheme=scheme, seed=HASH_SEED,
+            chunk=PREPROCESS_CHUNK, device=dev))
         print(f"train: preprocess_rows {scheme} k={K} b={B} docs="
               f"{len(rows)}: {sec:.3f} s ({len(rows) / sec:.0f} docs/s) "
               f"card={card}")
@@ -674,7 +729,7 @@ def phase_train(torch, dev, card: str, errs: dict):
         if gap <= 0.05:
             fail(f"b-bit {scheme} does not beat VW at equal storage by 0.05")
     for name in ("bbit_linear_fwd", "bbit_linear_bwd_dw", "vw_sketch",
-                 "minhash_pack", "oph_pack"):
+                 "minhash", "oph"):
         if counts[name] < 1:
             fail(f"train: kernel {name} was not launched")
     stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
@@ -695,6 +750,7 @@ def phase_train(torch, dev, card: str, errs: dict):
           f"{prof['device_ms']} ms in a profiled fit of {prof['wall_ms']} ms "
           f"(TRON {prof['tron_ms']} ms), share of the unprofiled TRON "
           f"({unprofiled_ms} ms) {prof['busy_share']}; top {prof['top']}")
+    check_raw_encode(torch, dev, raw_chunk(torch, dev, rows), errs)
     check_train_shapes(torch, dev, rows, labels, codes, runs, errs)
     grad = gradient_step(torch, dev, rows[:STREAM_BATCH], labels,
                          runs["bbit oph logistic"].params, cfg, errs)
@@ -703,8 +759,57 @@ def phase_train(torch, dev, card: str, errs: dict):
                                 seconds=r.train_seconds)
                         for k, r in runs.items()},
                "counts": counts, "grad": grad, "profile": prof}
-    return summary, {"rows": rows, "codes": codes["minwise"],
-                     "params": runs["bbit minwise logistic"].params}
+    return summary, {"rows": rows, "labels": labels,
+                     "codes": codes["minwise"],
+                     "params": runs["bbit minwise logistic"].params,
+                     "vw_wide": runs[f"vw m={VW_WIDE} logistic"]}
+
+
+def raw_chunk(torch, dev, rows, first: bool = False):
+    """One chunk of ``preprocess_rows``' own, padded as it pads it: the
+    first (the shortest documents), or the widest of the chunks that
+    hold a full chunk's rows → (sel, idx, nnz, total nonzeros)."""
+    from repro_torch.data.hashed_dataset import _length_sorted_chunks
+    from repro_torch.data.packing import pad_rows
+    chunks = list(_length_sorted_chunks(rows, PREPROCESS_CHUNK))
+    full = [c for c in chunks if len(c) == len(chunks[0])]
+    sel = chunks[0] if first else full[-1]
+    idx, nnz = pad_rows([rows[i] for i in sel], bucket=True)
+    return (sel, torch.from_numpy(idx).to(dev), torch.from_numpy(nnz).to(dev),
+            int(nnz.sum()))
+
+
+def check_raw_encode(torch, dev, chunk, errs):
+    """B3 at k=256 and k=500 and B4 at k=256, with the train and paper
+    phases' hash seed, against their plain versions on one chunk of
+    ``preprocess_rows``' own: the same words, and the same words on two
+    calls."""
+    from repro_torch.core.oph import OPHHash
+    from repro_torch.core.universal_hash import MultiplyShiftHash
+    from repro_torch.kernels import minhash as mh
+    from repro_torch.kernels import oph as oph_k
+    sel, idx, nnz, total = chunk
+    cases = []
+    for k in (K, PAPER_K):
+        a, b = MultiplyShiftHash.make(k, HASH_SEED).params(dev)
+        cases.append(("minhash", k, lambda a=a, b=b: mh.minhash(idx, nnz, a, b),
+                      lambda a=a, b=b: mh.minhash_plain(idx, nnz, a, b)))
+    oa, ob = OPHHash.make(K, HASH_SEED).params(dev)
+    cases.append(("oph", K, lambda: oph_k.oph(idx, nnz, oa, ob, k=K),
+                  lambda: oph_k.oph_plain(idx, nnz, oa, ob, k=K)))
+    for name, k, kernel, plain in cases:
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err = int_err(torch, got, want)
+        same = torch.equal(got, again)
+        errs[name] = max(errs.get(name, 0), err)
+        print(f"check: {name} k={k} on one chunk of {len(sel)} docs (pad "
+              f"{idx.shape[1]}, {total} nonzeros): words equal={err == 0} "
+              f"run-to-run equal={same}")
+        if err or not same:
+            fail(f"{name} k={k} differs from its plain version")
+        del got, again, want
+    torch.cuda.empty_cache()
 
 
 def logistic_dout(torch, logits, labels, scale: float):
@@ -858,6 +963,256 @@ def gradient_step(torch, dev, docs, labels, params, cfg, errs) -> dict:
     return out
 
 
+def phase_paper(torch, dev, card: str, data: dict, errs: dict) -> dict:
+    """configs/rcv1_bbit.py's width on the train phase's corpus: k=500,
+    b=16 through B3 and TRON over the (500, 65536, 1) table; the
+    abstract's k=30, b=12 (B3, then B7/B8 at V=4096); oph_zero at k=256
+    (B4) against the host numpy encode."""
+    from repro_torch.core.bbit import unpack_codes
+    from repro_torch.core.oph import OPH_EMPTY_CODE
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.data.hashed_dataset import (_length_sorted_chunks,
+                                                 preprocess_rows)
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import minhash as mh
+    from repro_torch.kernels import ops
+    from repro_torch.models.linear import BBitLinearConfig
+    from repro_torch.train.linear_trainer import train_bbit_liblinear
+
+    rows, labels = data["rows"], data["labels"]
+    n = TRAIN_ROWS
+    runs, codes, rates = {}, {}, {}
+
+    def encode(name, **kw):
+        codes[name], sec = timed(torch, lambda: preprocess_rows(
+            rows, seed=HASH_SEED, chunk=PREPROCESS_CHUNK, device=dev, **kw))
+        rates[name] = len(rows) / sec
+        print(f"paper: preprocess_rows {name} docs={len(rows)}: {sec:.3f} s "
+              f"({rates[name]:.0f} docs/s) card={card}")
+
+    def fit(name, k, b, loss):
+        c = codes[f"minwise k={k} b={b}"]
+        runs[f"{name} {loss}"] = train_bbit_liblinear(
+            c[:n], labels[:n], c[n:], labels[n:],
+            BBitLinearConfig(k=k, b=b, n_classes=N_CLASSES), loss=loss,
+            C=TRAIN_C, max_iter=TRAIN_ITERS, device=dev)
+
+    ops.reset_counts()
+    encode(f"minwise k={PAPER_K} b={PAPER_B}", k=PAPER_K, b=PAPER_B,
+           scheme="minwise")
+    for loss in ("logistic", "squared_hinge"):
+        fit(f"bbit minwise k={PAPER_K} b={PAPER_B}", PAPER_K, PAPER_B, loss)
+    encode(f"minwise k={ABSTRACT_K} b={ABSTRACT_B}", k=ABSTRACT_K,
+           b=ABSTRACT_B, scheme="minwise")
+    fit(f"bbit minwise k={ABSTRACT_K} b={ABSTRACT_B}", ABSTRACT_K,
+        ABSTRACT_B, "logistic")
+    encode(f"oph_zero k={K} b={B}", k=K, b=B, scheme="oph_zero")
+    counts = ops.counts()
+
+    for name in ("minhash", "oph", "bbit_linear_fwd", "bbit_linear_bwd_dw"):
+        if counts[name] < 1:
+            fail(f"paper: kernel {name} was not launched")
+    stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    if stray:
+        fail(f"paper: the main path left the kernels: {stray}")
+    print(f"paper: launches {json.dumps(counts)}")
+    for name, res in runs.items():
+        print(f"paper: {name} test_acc={res.test_acc} train_acc="
+              f"{res.train_acc} tron_iters={res.n_iter} objective="
+              f"{res.objective} seconds={res.train_seconds} card={card}")
+        if not np.isfinite(res.objective):
+            fail(f"{name}: objective not finite")
+        limit = 0.9 if name.endswith("logistic") else 0.85
+        if res.test_acc <= limit:
+            fail(f"{name}: test accuracy <= {limit}")
+    vw = data["vw_wide"]
+    short = runs[f"bbit minwise k={ABSTRACT_K} b={ABSTRACT_B} logistic"]
+    print(f"paper: b-bit k={ABSTRACT_K} b={ABSTRACT_B} "
+          f"({ABSTRACT_K * ABSTRACT_B} bits/doc) test_acc={short.test_acc} "
+          f"vs VW m={VW_WIDE} ({32 * VW_WIDE} bits/doc) test_acc="
+          f"{vw.test_acc} (reported, not gated: the corpus is separable)")
+
+    check_paper_shapes(torch, dev, labels,
+                       codes[f"minwise k={PAPER_K} b={PAPER_B}"],
+                       runs[f"bbit minwise k={PAPER_K} b={PAPER_B} "
+                            "logistic"].params, errs)
+    sel, idx, nnz, total = raw_chunk(torch, dev, rows, first=True)
+    a, b = make_scheme("minwise", PAPER_K, HASH_SEED).hash_params(dev)
+    want = (mh.minhash_plain(idx, nnz, a, b) & ((1 << PAPER_B) - 1)).cpu()
+    same = np.array_equal(codes[f"minwise k={PAPER_K} b={PAPER_B}"][sel],
+                          want.numpy().astype(np.uint16))
+    print(f"check: preprocess_rows k={PAPER_K} b={PAPER_B} codes of the "
+          f"first chunk ({len(sel)} docs, {total} nonzeros) vs minhash's "
+          f"plain version: equal={same}")
+    if not same:
+        fail(f"k={PAPER_K} codes differ from B3's plain version")
+
+    sch = make_scheme("oph_zero", K, HASH_SEED)
+    got = codes[f"oph_zero k={K} b={B}"]
+    empties = 0
+    for sel in _length_sorted_chunks(rows, PREPROCESS_CHUNK):
+        idx, nnz = pad_rows([rows[i] for i in sel], pad_to_multiple=1)
+        packed, empty = sch.encode_packed_numpy(idx, nnz, B)
+        host = unpack_codes(packed, K, B)
+        mask = np.unpackbits(empty, axis=1, count=K).astype(bool)
+        host[mask] = OPH_EMPTY_CODE
+        empties += int(mask.sum())
+        if not np.array_equal(got[sel], host):
+            fail("oph_zero codes differ from the host numpy encode")
+    print(f"check: preprocess_rows oph_zero k={K} b={B} codes of all "
+          f"{len(rows)} docs ({empties} empty bins) equal the host numpy "
+          "encode (encode_packed_numpy, unpacked, sentinel applied)")
+    summary = {"counts": counts, "docs_per_s": rates,
+               "runs": {k: dict(test_acc=r.test_acc, train_acc=r.train_acc,
+                                n_iter=r.n_iter, objective=r.objective,
+                                seconds=r.train_seconds)
+                        for k, r in runs.items()}}
+    return summary, {
+        "codes": codes[f"minwise k={PAPER_K} b={PAPER_B}"],
+        "params": runs[f"bbit minwise k={PAPER_K} b={PAPER_B} "
+                       "logistic"].params}
+
+
+def check_paper_shapes(torch, dev, labels, codes, params, errs):
+    """B7 and B8 against their plain versions at the paper fits' own
+    shape, (16,000 x 500) codes into a (500, 65536, 1) table: the k=500,
+    b=16 codes, the logistic fit's table and the objective's dout; B8
+    twice for the same bytes."""
+    from repro_torch.kernels import bbit_linear as bl
+    v, n = 1 << PAPER_B, TRAIN_ROWS
+    table = params["table"].detach().contiguous()
+    x = torch.from_numpy(codes[:n].astype(np.int32)).to(dev)
+    y = torch.from_numpy(labels[:n]).to(dev)
+    e7 = _close(torch, "bbit_linear_fwd", errs, bl.bbit_linear_fwd(x, table),
+                bl.bbit_linear_fwd_plain(x, table),
+                bl.bbit_linear_fwd(x, table))
+    logits = bl.bbit_linear_fwd_plain(x, table) + params["bias"].detach()
+    dout = logistic_dout(torch, logits, y, TRAIN_C)
+    e8 = _close(torch, "bbit_linear_bwd_dw", errs,
+                bl.bbit_linear_bwd_dw(x, dout, v),
+                bl.bbit_linear_bwd_dw_plain(x, dout, v),
+                bl.bbit_linear_bwd_dw(x, dout, v),
+                scale=bl.bbit_linear_bwd_dw_plain(x, dout.abs(), v))
+    print(f"check: k={PAPER_K} b={PAPER_B} trained table, V={v} C=1, n={n}:"
+          f" bbit_linear_fwd max_abs_err={e7} allclose(1e-5); "
+          f"bbit_linear_bwd_dw (logistic dout, {-(-v // 4096)} V tiles) "
+          f"max_abs_err={e8} within 1e-5 of each bin's sum of |terms|, "
+          "run-to-run equal=True")
+    del x, table, logits, dout
+    torch.cuda.empty_cache()
+
+
+def phase_search(torch, dev, card: str, rows, errs: dict) -> dict:
+    """The corpus packed at k=256, b=8 (B2) into a BandedLSHIndex; exact
+    copies and near-duplicates ranked by B10; recall@10 against a full
+    scan whose distances and top-10 are held to B10's plain version."""
+    from repro_torch.data.hashed_dataset import preprocess_rows_packed
+    from repro_torch.kernels import hamming as hd
+    from repro_torch.kernels import ops
+    from repro_torch.retrieval import BandedLSHIndex
+
+    def pack(docs):
+        return preprocess_rows_packed(docs, k=K, b=B, scheme="oph",
+                                      seed=HASH_SEED, chunk=PREPROCESS_CHUNK,
+                                      device=dev)[0]
+
+    ops.reset_counts()
+    packed, enc_s = timed(torch, lambda: pack(rows))
+    index = BandedLSHIndex(k=K, b=B, rows_per_band=ROWS_PER_BAND,
+                           device=dev)
+    _, ins_s = timed(torch, lambda: index.insert(list(range(len(rows))),
+                                                 packed))
+    rng = np.random.default_rng(0)
+    picks = rng.choice(len(rows), size=2 * SEARCH_QUERIES, replace=False)
+    exact, near = picks[:SEARCH_QUERIES], picks[SEARCH_QUERIES:]
+    queries = ([rows[i] for i in exact]
+               + [rows[i][rng.random(rows[i].size) > DROP_FRAC]
+                  for i in near])
+    q_packed = pack(queries)
+    if not np.array_equal(q_packed[:SEARCH_QUERIES], packed[exact]):
+        fail("search: exact copies encode to other bytes than the index's")
+    encode_counts = ops.counts()
+    ops.reset_counts()
+    results, query_s = timed(torch, lambda: [
+        index.query(q, top_k=TOP_K) for q in q_packed])
+    counts = ops.counts()
+    if counts["hamming_distance"] < 1 or counts["hamming_distance_plain"]:
+        fail(f"search: the queries left kernel hamming_distance: {counts}")
+    n_cands = np.array([len(index.candidates(q)) for q in q_packed])
+
+    misses = []
+    for j, (ids, sims) in enumerate(results):
+        src = int(picks[j])
+        if j < SEARCH_QUERIES:
+            tied = [i for i, sim in zip(ids, sims) if sim == 1.0]
+            if not len(sims) or sims[0] != 1.0 or src not in tied:
+                misses.append(("exact", src, ids[:3], sims[:3].tolist()))
+        elif src not in ids:
+            misses.append(("near", src, ids[:3], sims[:3].tolist()))
+    if misses:
+        fail(f"search: {len(misses)} queries missed their source: "
+             f"{misses[:5]}")
+
+    table = torch.from_numpy(packed).to(dev)
+    hits, err, ties, scans = 0, 0, 0, 0
+    for j, (q, (ids, _)) in enumerate(zip(q_packed, results)):
+        qd = torch.from_numpy(q).to(dev)
+        full_i, _ = ops.hamming_topk(qd, table, k=K, bits=B, topk=TOP_K)
+        scans += 1
+        hits += len(set(full_i.tolist()) & set(ids))
+        if j % SEARCH_CHECK_EVERY:
+            continue
+        # a sample of the queries: B10 against its plain version over
+        # the whole index, and the full scan's top-10 against the plain
+        # distances' stable order
+        dist = hd.hamming_distance(qd, table)
+        plain = hd.hamming_distance_plain(qd, table)
+        scans += 1
+        if j == 0:
+            same = torch.equal(dist, hd.hamming_distance(qd, table))
+            scans += 1
+            if not same:
+                fail("search: hamming_distance differs between two calls")
+        e = int_err(torch, dist, plain)
+        if e:
+            fail(f"search: hamming_distance differs from its plain version "
+                 f"(max_abs_err={e})")
+        err = max(err, e)
+        d = plain.cpu().numpy()
+        want_i = np.argsort(d, kind="stable")[:TOP_K]
+        if not np.array_equal(full_i.cpu().numpy(), want_i):
+            fail("search: full-scan top-10 differs from the plain distances'")
+        ties += int(np.sum(d == d[want_i[-1]]) > 1)
+    checked = -(-len(q_packed) // SEARCH_CHECK_EVERY)
+    errs["hamming_distance"] = max(errs.get("hamming_distance", 0), err)
+    recall = hits / (len(q_packed) * TOP_K)
+    stats = index.stats()
+    print(f"search: {len(rows)} docs packed (k={K} b={B}, oph) in {enc_s:.3f}"
+          f" s, indexed in {ins_s:.3f} s ({stats['buckets']} buckets, "
+          f"{stats['bands']} bands of {ROWS_PER_BAND} codes); "
+          f"{len(q_packed)} queries in {query_s:.3f} s "
+          f"({len(q_packed) / query_s:.1f} queries/s), candidates per "
+          f"query median {np.median(n_cands):.0f} mean {n_cands.mean():.1f} "
+          f"max {n_cands.max()} card={card}")
+    print(f"search: {SEARCH_QUERIES} exact copies at rank 1 with sim 1.0, "
+          f"{SEARCH_QUERIES} near-duplicates ({DROP_FRAC:.0%} of ids "
+          f"dropped) in the top {TOP_K}; recall@{TOP_K} of the index vs the "
+          f"full scan {recall}; on {checked} of the queries, full-scan "
+          f"distances vs hamming_distance's plain version over {len(rows)} "
+          f"rows: max_abs_err={err}, top-{TOP_K} indices equal ({ties} "
+          f"with a tie at the boundary), run-to-run equal=True")
+    print(f"search: launches {json.dumps(counts)} (encode: "
+          f"oph_pack={encode_counts['oph_pack']}; full scans and checks: "
+          f"{scans} more hamming_distance launches, not counted)")
+    typical = int(np.argmin(np.abs(n_cands - np.median(n_cands))))
+    slots = index.candidates(q_packed[typical])
+    return {"counts": {**counts, "oph_pack": encode_counts["oph_pack"]},
+            "recall": recall, "candidates": n_cands.tolist(),
+            "table": table, "query": torch.from_numpy(
+                q_packed[typical]).to(dev),
+            "cands": torch.from_numpy(packed[slots]).to(dev)}
+
+
 def lane_batch(torch, dev, docs, lane):
     """ROWS real documents of one nnz lane, padded to the lane's width."""
     from repro_torch.data.packing import pad_rows
@@ -938,10 +1293,12 @@ def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
     return {"main": out[NNZ_BUCKETS[-1]], "shapes": out}
 
 
-def phase_timing_train(torch, dev, data, card: str, int_rate: float) -> dict:
-    """B6-B9 at the train phase's shapes, beside their plain versions,
-    one-call yardsticks and bounds → {"main": {kernel: record at its
-    main path's shape}, "shapes": {kernel: {shape: record}}}."""
+def phase_timing_train(torch, dev, data, paper, card: str,
+                       int_rate: float) -> dict:
+    """B6-B9 at the train phase's shapes, and B7/B8 at the paper fits'
+    too, beside their plain versions, one-call yardsticks and bounds →
+    {"main": {kernel: record at its main path's shape}, "shapes":
+    {kernel: {shape: record}}}."""
     from repro_torch.core.bbit import pack_codes, packed_width
     from repro_torch.data.hashed_dataset import _length_sorted_chunks
     from repro_torch.data.packing import pad_rows
@@ -986,6 +1343,39 @@ def phase_timing_train(torch, dev, data, card: str, int_rate: float) -> dict:
            bound(4 * n * K + 4 * n + 4 * K * v, n * K, PEAK_F32_OPS_PER_S),
            time_ms(torch, lambda: torch.bincount(flat1, weights=w_rep,
                                                  minlength=K * v), 200))
+    # the paper fits' shape: k=500 codes into a (500, 65536, 1) table
+    pv = 1 << PAPER_B
+    pcodes = torch.from_numpy(
+        paper["codes"][:TRAIN_ROWS].astype(np.int32)).to(dev)
+    ptable = paper["params"]["table"].detach().contiguous()
+    pflat = (torch.arange(PAPER_K, device=dev)[None, :] * pv
+             + pcodes.to(torch.int64))
+    pweight = ptable.view(PAPER_K * pv, 1)
+    ptouched = int(torch.unique(pflat).numel())
+    pflat1 = pflat.reshape(-1)
+    pw_rep = dout[:, 0].repeat_interleave(PAPER_K)
+    shape = f"n={n} k={PAPER_K} V={pv} C=1"
+    record("bbit_linear_fwd", shape,
+           time_ms(torch, lambda: bl.bbit_linear_fwd(pcodes, ptable), 50),
+           time_ms(torch, lambda: bl.bbit_linear_fwd_plain(pcodes, ptable),
+                   10),
+           bound(4 * n * PAPER_K + 4 * ptouched + 4 * n, n * PAPER_K,
+                 PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: F.embedding_bag(pflat, pweight,
+                                                  mode="sum"), 50),
+           is_main=False)
+    record("bbit_linear_bwd_dw", shape,
+           time_ms(torch, lambda: bl.bbit_linear_bwd_dw(pcodes, dout, pv),
+                   20),
+           time_ms(torch, lambda: bl.bbit_linear_bwd_dw_plain(
+               pcodes, dout, pv), 10),
+           bound(4 * n * PAPER_K + 4 * n + 4 * PAPER_K * pv, n * PAPER_K,
+                 PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: torch.bincount(
+               pflat1, weights=pw_rep, minlength=PAPER_K * pv), 20),
+           is_main=False)
+    del pcodes, pflat, pflat1, pw_rep
+    torch.cuda.empty_cache()
     for rows_n in (STREAM_BATCH, TRAIN_ROWS):
         packed = torch.from_numpy(pack_codes(
             codes_np[:rows_n].astype(np.uint16), B)).to(dev)
@@ -1023,6 +1413,62 @@ def phase_timing_train(torch, dev, data, card: str, int_rate: float) -> dict:
     return {"main": main, "shapes": out}
 
 
+def phase_timing_raw(torch, dev, rows, search: dict, card: str,
+                     int_rate: float) -> dict:
+    """B3 (k=500 and 256) and B4 (k=256) on the widest full chunk of
+    ``preprocess_rows``' own, B10 over a typical query's candidates and
+    over the whole index → {"main": {kernel: record at its main path's
+    shape}, "shapes": {kernel: {shape: record}}}."""
+    from repro_torch.core.oph import OPHHash
+    from repro_torch.core.universal_hash import MultiplyShiftHash
+    from repro_torch.kernels import hamming as hd
+    from repro_torch.kernels import minhash as mh
+    from repro_torch.kernels import oph as oph_k
+
+    sel, idx, nnz, total = raw_chunk(torch, dev, rows)
+    n = len(sel)
+    out, main = {}, {}
+
+    def record(name, shape, ms, plain, bnd, is_main):
+        rec = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                   library_ms=None)
+        out.setdefault(name, {})[shape] = rec
+        if is_main:
+            main[name] = rec
+        print(f"timing: {name} {shape} ms={ms} plain_ms={plain} bound_ms="
+              f"{bnd[0]} ({bnd[1]}) library_ms=None card={card}")
+
+    for k in (PAPER_K, K):
+        a, b = MultiplyShiftHash.make(k, HASH_SEED).params(dev)
+        record("minhash", f"rows={n} pad={idx.shape[1]} nnz_sum={total} "
+               f"k={k}",
+               time_ms(torch, lambda: mh.minhash(idx, nnz, a, b), 20),
+               time_ms(torch, lambda: mh.minhash_plain(idx, nnz, a, b), 1,
+                       warmup=1),
+               bound(4 * total + 4 * n + 8 * k + 4 * n * k,
+                     OPS_PER_MINHASH * k * total, int_rate),
+               is_main=k == PAPER_K)
+        torch.cuda.empty_cache()
+    oa, ob = OPHHash.make(K, HASH_SEED).params(dev)
+    record("oph", f"rows={n} pad={idx.shape[1]} nnz_sum={total} k={K}",
+           time_ms(torch, lambda: oph_k.oph(idx, nnz, oa, ob, k=K), 200),
+           time_ms(torch, lambda: oph_k.oph_plain(idx, nnz, oa, ob, k=K),
+                   5),
+           bound(4 * total + 4 * n + 8 + 4 * n * K,
+                 OPS_PER_OPH_HASH * total, int_rate), is_main=True)
+    q = search["query"]
+    for cands, is_main in ((search["cands"], True), (search["table"], False)):
+        rn, w = cands.shape
+        record("hamming_distance", f"n={rn} w={w}",
+               time_ms(torch, lambda: hd.hamming_distance(q, cands), 500),
+               time_ms(torch, lambda: hd.hamming_distance_plain(q, cands),
+                       50),
+               bound(rn * w + w + 4 * rn,
+                     OPS_PER_HAMMING_WORD * rn * ((w + 3) // 4), int_rate),
+               is_main=is_main)
+    return {"main": main, "shapes": out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1041,22 +1487,41 @@ def main() -> int:
 
     card = card_line()
     int_rate = int32_ops_per_s(torch)
-    phase_build()
-    errs, edge_errs = phase_kernels(torch, dev)
+    phase_s = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
+    errs, edge_errs = run("kernels", phase_kernels, torch, dev)
     docs = make_corpus(DOCS, seed=0)
-    engine = phase_engine(torch, dev, docs, card)
-    train, train_data = phase_train(torch, dev, card, errs)
-    timing = phase_timing(torch, dev, docs, card, int_rate)
-    timing_train = phase_timing_train(torch, dev, train_data, card, int_rate)
+    engine = run("engine", phase_engine, torch, dev, docs, card)
+    train, train_data = run("train", phase_train, torch, dev, card, errs)
+    paper, paper_data = run("paper", phase_paper, torch, dev, card,
+                            train_data, errs)
+    search = run("search", phase_search, torch, dev, card,
+                 train_data["rows"], errs)
+    timing = run("timing", phase_timing, torch, dev, docs, card, int_rate)
+    timing_train = run("timing_train", phase_timing_train, torch, dev,
+                       train_data, paper_data, card, int_rate)
+    timing_raw = run("timing_raw", phase_timing_raw, torch, dev,
+                     train_data["rows"], search, card, int_rate)
+    print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
-    # (engine, train, gradient), its error and time at its main path's
-    # shapes
+    # (engine, train, gradient, paper, search), its error and time at its
+    # main path's shapes
     launches = {name: engine["launches"].get(name, 0)
                 + train["counts"][name]
                 + train["grad"]["launches"].get(name, 0)
+                + paper["counts"][name]
+                + search["counts"].get(name, 0)
                 for name in KERNELS}
-    main_rec = {**timing["main"], **timing_train["main"]}
+    main_rec = {**timing["main"], **timing_train["main"],
+                **timing_raw["main"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rec = main_rec[name]
@@ -1070,9 +1535,13 @@ def main() -> int:
             json.dump({"card": card, "int32_ops_per_s": int_rate,
                        "kernels": kernels, "edge_max_abs_err": edge_errs,
                        "timing": timing["shapes"],
-                       "timing_train": timing_train["shapes"], "train": train,
+                       "timing_train": timing_train["shapes"],
+                       "timing_raw": timing_raw["shapes"], "train": train,
+                       "paper": paper,
+                       "search": {k: search[k] for k in ("counts", "recall",
+                                                         "candidates")},
                        "docs_per_s": engine["docs_per_s"],
-                       "profiles": engine["profiles"],
+                       "profiles": engine["profiles"], "phase_s": phase_s,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
-"""b-bit code packing (counterpart of ``repro/core/bbit.py``).
+"""b-bit codes, their packing and storage accounting (counterpart of
+``repro/core/bbit.py``).
 
 One bit layout everywhere: a row-major bitstream, LSB-first within each
 byte, ceil(k·b/8) bytes per row.  The ``oph_zero`` empty-bin mask uses
@@ -11,6 +12,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def bbit_codes(z, b: int):
+    """Lowest b bits of each min-hash value: uint16 codes for a numpy
+    array, int32 codes for a tensor (int64 words; CUDA torch has little
+    uint16 support, and every code in [0, 2^16) fits int32)."""
+    if not 1 <= b <= 16:
+        raise ValueError(f"b must be in [1, 16], got {b}")
+    mask = (1 << b) - 1
+    if isinstance(z, np.ndarray):
+        return (z & np.asarray(mask, dtype=z.dtype)).astype(np.uint16)
+    return (z & mask).to(torch.int32)
+
+
+def storage_bits(n: int, k: int, b: int) -> int:
+    """Exact storage of the hashed dataset: n·b·k bits (paper §3)."""
+    return n * b * k
+
+
+def vw_storage_bits(n: int, k: int, bits_per_entry: int = 32) -> int:
+    """VW stores k dense (float/int) bins per example (paper §5.3)."""
+    return n * k * bits_per_entry
+
+
+def codes_agree(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """\\hat{P}_b per pair: the fraction of agreeing b-bit codes (paper
+    Eq. 6), float32 over the last axis: the exact count times the
+    float32 reciprocal of k, which is how XLA rounds the reference's
+    ``jnp.mean`` (torch's own ``mean`` can differ in the last bit)."""
+    agree = (c1 == c2).sum(dim=-1).to(torch.float32)
+    return agree * float(np.float32(1) / np.float32(c1.shape[-1]))
 
 
 def pack_codes(codes: np.ndarray, b: int) -> np.ndarray:

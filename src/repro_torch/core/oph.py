@@ -122,8 +122,24 @@ def densify_rotation(vals: torch.Tensor, empty: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# Numpy (host) path: used by ``encode_packed_numpy``.
+# Numpy (host) path: the oracle, and ``encode_packed_numpy``.
 # ---------------------------------------------------------------------------
+def oph_bin_minima_numpy(
+    indices: np.ndarray, mask: np.ndarray, fam: OPHHash,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-bin minima of h over each row's masked-in ids of int (n, m)
+    ``indices`` → (vals uint32 (n, k), empty bool (n, k)); empty bins
+    hold 2^32 − 1.  One hash evaluation per (padded) nonzero."""
+    n, m = indices.shape
+    h = fam(indices)
+    bins = (h >> np.uint32(fam.shift)).astype(np.int64)
+    vals = np.full((n, fam.k), UINT32_MAX_NP, dtype=np.uint32)
+    hv = np.where(mask, h, UINT32_MAX_NP)
+    rows = np.broadcast_to(np.arange(n)[:, None], (n, m))
+    np.minimum.at(vals, (rows.ravel(), bins.ravel()), hv.ravel())
+    return vals, vals == UINT32_MAX_NP
+
+
 def oph_bin_minima_ragged_numpy(
     tokens: np.ndarray, lens: np.ndarray, fam: OPHHash,
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -160,7 +176,56 @@ def densify_rotation_numpy(
     return out.astype(np.uint32), np.broadcast_to(all_empty, (n, k)).copy()
 
 
+def oph_codes_numpy(
+    indices: np.ndarray,
+    mask: np.ndarray,
+    fam: OPHHash,
+    b: int,
+    *,
+    densify: bool = True,
+) -> np.ndarray:
+    """End-to-end numpy OPH → uint16 b-bit codes.  Densified, every bin
+    holds a code in [0, 2^b); zero-coded (``densify=False``), empty bins
+    hold ``OPH_EMPTY_CODE`` (so b ≤ 15)."""
+    if not densify and b > 15:
+        raise ValueError("oph_zero reserves 0xFFFF: b must be <= 15")
+    vals, empty = oph_bin_minima_numpy(indices, mask, fam)
+    if densify:
+        vals, empty = densify_rotation_numpy(vals, empty)
+    codes = (vals & np.uint32((1 << b) - 1)).astype(np.uint16)
+    return np.where(empty, OPH_EMPTY_CODE, codes)
+
+
+# ---------------------------------------------------------------------------
+# Estimators.
+# ---------------------------------------------------------------------------
+def oph_collision_probability(
+    v1: np.ndarray, e1: np.ndarray, v2: np.ndarray, e2: np.ndarray,
+) -> float:
+    """Zero-coding resemblance estimator (arXiv:1208.1259 Eq. 3):
+    R̂ = N_match / (k − N_emp), matches counted on jointly non-empty
+    bins, jointly empty bins left out of the denominator."""
+    both = ~(np.asarray(e1) | np.asarray(e2))
+    n_emp = int(np.sum(np.asarray(e1) & np.asarray(e2)))
+    denom = v1.shape[-1] - n_emp
+    if denom <= 0:
+        return 0.0
+    return float(np.sum((np.asarray(v1) == np.asarray(v2)) & both) / denom)
+
+
 def split_zero_codes(codes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """(codes with ``OPH_EMPTY_CODE``) → (gather-safe codes, empty mask)."""
     empty = codes == OPH_EMPTY_CODE
     return np.where(empty, np.uint16(0), codes), empty
+
+
+def oph_codes_agree(c1: np.ndarray, c2: np.ndarray) -> float:
+    """b-bit twin of ``oph_collision_probability`` on uint16 codes with
+    the ``OPH_EMPTY_CODE`` sentinel."""
+    e1 = c1 == OPH_EMPTY_CODE
+    e2 = c2 == OPH_EMPTY_CODE
+    both = ~(e1 | e2)
+    denom = c1.shape[-1] - int(np.sum(e1 & e2))
+    if denom <= 0:
+        return 0.0
+    return float(np.sum((c1 == c2) & both) / denom)

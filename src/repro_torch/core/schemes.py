@@ -1,18 +1,26 @@
 """Hashing-scheme registry: minwise vs OPH (counterpart of
-``repro/core/schemes.py``, serving path).
+``repro/core/schemes.py``).
 
-A scheme turns padded sparse rows into packed b-bit codes:
+A scheme turns padded sparse rows into b-bit codes:
 
     sch = make_scheme("oph", k=256, seed=0)
+    codes, empty = sch.encode_device(idx, nnz, b=8)         # torch, device
+    codes = sch.encode_padded(idx_np, nnz_np, b=8)          # numpy in/out
     packed, empty = sch.encode_packed(idx, nnz, b=8)        # torch, device
     packed, empty = sch.encode_packed_numpy(idx, nnz, b=8)  # numpy, host
 
-``encode_packed`` is the counterpart of the reference's
-``encode_packed_jit``: the fused kernels (B1, B2) through
-``kernels.ops`` on the tensors' device.  ``empty`` is the packbits
-empty-bin mask for the zero-coded ``oph_zero`` scheme, ``None``
+``encode_device`` is the counterpart of the reference's
+``encode_device``: the raw-minima kernels (B3 minwise, B4 OPH) through
+``kernels.ops``, then densify or zero-coding and the b-bit mask, on the
+tensors' device → int32 (n, k) codes and, for ``oph_zero``, a bool
+empty mask.  ``encode_torch`` is the same arithmetic in plain torch
+(the reference's ``encode_jnp``).  ``encode_padded`` returns the uint16
+codes of ``preprocess_rows``, empty bins of ``oph_zero`` marked
+``OPH_EMPTY_CODE``.  ``encode_packed`` is the counterpart of the
+reference's ``encode_packed_jit``: the fused kernels (B1, B2).  There
+``empty`` is the packbits empty-bin mask for ``oph_zero``, ``None``
 otherwise.  ``encode_packed_numpy`` is the reference's host encode,
-copied; both give the same bytes.
+copied; it gives the same bytes.
 """
 from __future__ import annotations
 
@@ -22,11 +30,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.bbit import pack_codes
-from repro_torch.core.oph import (OPH_EMPTY_CODE, OPHHash,
+from repro_torch.core.minhash import minhash_torch
+from repro_torch.core.oph import (OPH_EMPTY_CODE, OPHHash, densify_rotation,
                                   densify_rotation_numpy,
                                   oph_bin_minima_ragged_numpy,
-                                  split_zero_codes)
-from repro_torch.core.universal_hash import MultiplyShiftHash, _fmix32_numpy
+                                  oph_bin_minima_torch, split_zero_codes)
+from repro_torch.core.universal_hash import (MASK32, MultiplyShiftHash,
+                                             _fmix32_numpy, int32_to_words)
+from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
 SCHEMES: Dict[str, Type["HashingScheme"]] = {}
@@ -67,6 +78,35 @@ class HashingScheme:
             self._params[device] = got
         return got
 
+    def encode_torch(
+        self, indices: torch.Tensor, mask: torch.Tensor, b: int,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Plain torch: int32 (n, m) ids + bool (n, m) mask → (codes
+        int32 (n, k), bool empty mask or None), on their device."""
+        raise NotImplementedError
+
+    def encode_device(
+        self, indices: torch.Tensor, nnz: torch.Tensor, b: int,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """int32 (n, m) padded rows + int32 (n,) nnz → (codes int32
+        (n, k), bool empty mask or None) through the raw-minima encode
+        (B3, B4), on their device."""
+        raise NotImplementedError
+
+    def encode_padded(self, indices: np.ndarray, nnz: np.ndarray, b: int,
+                      *, device: DeviceLike = None) -> np.ndarray:
+        """One padded chunk → uint16 (n, k) codes on the host, encoded
+        on ``device`` (default ``cuda:0``); zero-coded schemes mark empty
+        bins with ``OPH_EMPTY_CODE``."""
+        dev = resolve_device(device)
+        codes, empty = self.encode_device(
+            torch.as_tensor(np.asarray(indices, np.int32)).to(dev),
+            torch.as_tensor(np.asarray(nnz, np.int32)).to(dev), b)
+        out = codes.cpu().numpy().astype(np.uint16)
+        if empty is not None:
+            out[empty.cpu().numpy()] = OPH_EMPTY_CODE
+        return out
+
     def encode_packed(
         self, indices: torch.Tensor, nnz: torch.Tensor, b: int,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -88,6 +128,16 @@ class MinwiseScheme(HashingScheme):
     def __init__(self, k: int, seed: int):
         super().__init__(k, seed)
         self.family = MultiplyShiftHash.make(k, seed)
+
+    def encode_torch(self, indices, mask, b):
+        a, bv = self.hash_params(indices.device)
+        z = minhash_torch(indices, mask, int32_to_words(a),
+                          int32_to_words(bv))
+        return (z & ((1 << b) - 1)).to(torch.int32), None
+
+    def encode_device(self, indices, nnz, b):
+        a, bv = self.hash_params(indices.device)
+        return ops.minhash_bbit(indices, nnz, a, bv, b), None
 
     def encode_packed(self, indices, nnz, b):
         a, bv = self.hash_params(indices.device)
@@ -129,6 +179,26 @@ class OPHScheme(HashingScheme):
     def _check_b(self, b: int) -> None:
         if not self.densify and b > 15:
             raise ValueError("oph_zero reserves 0xFFFF: b must be <= 15")
+
+    def _finish(self, vals, empty, b):
+        """int64 words (n, k) and their empty bins → (int32 codes, bool
+        empty mask or None): densify, or keep the mask (zero-coding)."""
+        self._check_b(b)
+        if self.densify:
+            vals, _ = densify_rotation(vals, empty)
+        codes = (vals & ((1 << b) - 1)).to(torch.int32)
+        return codes, (None if self.densify else empty)
+
+    def encode_torch(self, indices, mask, b):
+        a, bv = self.hash_params(indices.device)
+        vals, empty = oph_bin_minima_torch(indices, mask, int32_to_words(a),
+                                           int32_to_words(bv), self.k)
+        return self._finish(vals, empty, b)
+
+    def encode_device(self, indices, nnz, b):
+        a, bv = self.hash_params(indices.device)
+        vals = int32_to_words(ops.oph(indices, nnz, a, bv, self.k))
+        return self._finish(vals, vals == MASK32, b)
 
     def encode_packed(self, indices, nnz, b):
         self._check_b(b)

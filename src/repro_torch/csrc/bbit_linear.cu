@@ -29,18 +29,25 @@
 //   and dout read once, dW written once; one float add per (row, bin,
 //   class).  Design: a histogram per bin j.  A block owns 8 consecutive j
 //   (one warp each, its (V,) histogram of one class in shared memory) and a
-//   range of rows.  It stages 32 rows x 8 codes at a time, read as whole
-//   32-byte row segments (8 packed codes are b whole bytes, 8 mask bits one
-//   byte).  In each warp __match_any_sync groups the lanes (rows) that hold
-//   the same code; the group's lowest lane sums their dout in lane order and
+//   range of rows.  It stages 256 rows x 8 codes at a time (8 loads in
+//   flight per thread), read as whole 32-byte row segments (8 packed codes
+//   are b whole bytes, 8 mask bits one byte), then takes them in groups of
+//   32 rows.  In each warp __match_any_sync groups the lanes (rows) that
+//   hold the same code; the group's lowest lane sums their dout in lane order and
 //   adds it to the bin the warp owns alone.  There are no float atomics, so
 //   every bin sums in one fixed order.  The rows are split over blocks so
 //   that a (k / 8)-block grid still fills the card; each split writes its
 //   partial table and a second kernel adds the splits in split order.  The
 //   split count depends on the shapes only, so dW is the same bits on every
 //   run (ROADMAP B6: the streaming trainer's bit-identical resume).
-//   V up to 4096 fits (8 x 4096 floats = 128 KiB of dynamic shared memory);
-//   the classes are taken one after another, so any C works.
+//   A histogram tile holds up to kDwVTile = 4096 values of v (8 x 4096
+//   floats = 128 KiB of dynamic shared memory); a wider table (b = 16:
+//   V = 65536) is cut into V tiles, a third grid axis: each block keeps
+//   the codes in its tile and skips the rest, so every bin is still summed
+//   by one warp in row order and dW stays the same bits on every run, at
+//   the price of reading the codes once per tile.  The classes are taken
+//   one after another, so any C works.  Neither the forward nor dW has a
+//   limit on V.
 #include <algorithm>
 
 #include "common.cuh"
@@ -50,7 +57,9 @@ namespace {
 
 constexpr int kRowsPerBlock = 8;   // forward: one warp per row
 constexpr int kDwWarps = 8;        // dW: bins j per block, one warp each
-constexpr int kDwRows = 32;        // dW: rows per staged tile, one per lane
+constexpr int kDwRows = 32;        // dW: rows per group, one per lane
+constexpr int kDwGroups = 8;       // dW: 32-row groups staged per pass
+constexpr int kDwVTile = 4096;     // dW: histogram values per V tile
 
 __device__ __forceinline__ float warp_sum(float acc) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -133,53 +142,66 @@ struct PackedCodes {
   }
 };
 
-// grid (ceil(k / kDwWarps), splits); part is (splits, k, v, c).
+// grid (ceil(k / kDwWarps), splits, ceil(v / v_tile)); part is
+// (splits, k, v, c).  Block z owns the values [z * v_tile, + v_tile).
 template <typename Codes>
 __global__ void __launch_bounds__(kDwWarps * 32)
 bbit_linear_dw_kernel(Codes code_at, const float* __restrict__ dout,
                       float* __restrict__ part, int n, int k, int v, int c,
-                      int rows_per_split) {
-  extern __shared__ float hist[];             // kDwWarps x v
-  __shared__ int tile[kDwRows][kDwWarps + 1];  // 32 rows x 8 bins (+1: banks)
-  __shared__ float vals[kDwRows];             // dout of the 32 rows
+                      int rows_per_split, int v_tile) {
+  constexpr int kStage = kDwRows * kDwGroups;  // rows staged per pass
+  extern __shared__ float hist[];              // kDwWarps x v_tile
+  __shared__ int tile[kStage][kDwWarps + 1];   // rows x 8 bins (+1: banks)
+  __shared__ float vals[kStage];               // dout of the staged rows
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int j0 = blockIdx.x * kDwWarps;
   const int j = j0 + warp;
   const int lo = blockIdx.y * rows_per_split;
   const int hi = min(n, lo + rows_per_split);
-  float* h = hist + warp * v;
+  const int v0 = blockIdx.z * v_tile;
+  const int vt = min(v_tile, v - v0);
+  float* h = hist + warp * v_tile;
   float* dst = part + static_cast<size_t>(blockIdx.y) * k * v * c;
   for (int cc = 0; cc < c; ++cc) {
-    for (int i = lane; i < v; i += 32) h[i] = 0.f;
-    for (int r0 = lo; r0 < hi; r0 += kDwRows) {
-      __syncthreads();  // the previous tile is consumed
-      {
-        const int r = threadIdx.x / kDwWarps;
-        const int jj = threadIdx.x % kDwWarps;
+    for (int i = lane; i < vt; i += 32) h[i] = 0.f;
+    for (int r0 = lo; r0 < hi; r0 += kStage) {
+      __syncthreads();  // the previous stage is consumed
+      // each thread loads kDwGroups codes at once, so their latencies
+      // overlap; consecutive threads read consecutive bins of a row
+#pragma unroll
+      for (int e = 0; e < kDwGroups; ++e) {
+        const int slot = threadIdx.x + e * kDwWarps * 32;
+        const int r = slot / kDwWarps;
+        const int jj = slot % kDwWarps;
         const int row = r0 + r;
-        tile[r][jj] = (row < hi && j0 + jj < k) ? code_at(row, j0 + jj) : -1;
-        if (threadIdx.x < kDwRows) {
-          const int rr = r0 + threadIdx.x;
-          vals[threadIdx.x] =
-              rr < hi ? dout[static_cast<size_t>(rr) * c + cc] : 0.f;
-        }
+        // this V tile's offset of the code, -1 outside the tile
+        const int code =
+            (row < hi && j0 + jj < k) ? code_at(row, j0 + jj) - v0 : -1;
+        tile[r][jj] = (code >= 0 && code < vt) ? code : -1;
+      }
+      for (int r = threadIdx.x; r < kStage; r += kDwWarps * 32) {
+        vals[r] = r0 + r < hi ? dout[static_cast<size_t>(r0 + r) * c + cc]
+                              : 0.f;
       }
       __syncthreads();
-      const int code = tile[lane][warp];
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, code);
-      if (code >= 0 && lane == __ffs(peers) - 1) {
-        float s = 0.f;
-        for (unsigned rest = peers; rest != 0u; rest &= rest - 1u) {
-          s += vals[__ffs(rest) - 1];
+      // 32-row groups in row order: a bin sums its rows in row order
+      for (int g = 0; g < kStage; g += kDwRows) {
+        const int code = tile[g + lane][warp];
+        const unsigned peers = __match_any_sync(0xFFFFFFFFu, code);
+        if (code >= 0 && lane == __ffs(peers) - 1) {
+          float s = 0.f;
+          for (unsigned rest = peers; rest != 0u; rest &= rest - 1u) {
+            s += vals[g + __ffs(rest) - 1];
+          }
+          h[code] += s;
         }
-        h[code] += s;
       }
     }
     __syncwarp();
     if (j < k) {
-      for (int i = lane; i < v; i += 32) {
-        dst[(static_cast<size_t>(j) * v + i) * c + cc] = h[i];
+      for (int i = lane; i < vt; i += 32) {
+        dst[(static_cast<size_t>(j) * v + v0 + i) * c + cc] = h[i];
       }
     }
     __syncwarp();  // read out before the next class zeroes the histogram
@@ -202,16 +224,18 @@ template <typename Codes>
 int launch_dw(Codes code_at, const void* dout, void* part, void* out, int n,
               int k, int v, int c, int splits, int rows_per_split,
               cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kDwWarps) * v * sizeof(float);
+  const int v_tile = std::min(v, kDwVTile);
+  const size_t smem = static_cast<size_t>(kDwWarps) * v_tile * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       bbit_linear_dw_kernel<Codes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((k + kDwWarps - 1) / kDwWarps, splits);
+  const dim3 grid((k + kDwWarps - 1) / kDwWarps, splits,
+                  (v + v_tile - 1) / v_tile);
   float* dst = static_cast<float*>(splits == 1 ? out : part);
   bbit_linear_dw_kernel<Codes><<<grid, kDwWarps * 32, smem, stream>>>(
       code_at, static_cast<const float*>(dout), dst, n, k, v, c,
-      rows_per_split);
+      rows_per_split, v_tile);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(k) * v * c;

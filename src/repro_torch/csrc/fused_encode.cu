@@ -23,15 +23,14 @@
 //   depend on scheduling.  Densify is one thread per bin searching forward
 //   for the next non-empty bin, a direct shared-memory gather in place of
 //   the TPU's O(k^2) lane compare-select.
-#include "common.cuh"
+//
+// The hash loops of both live in encode.cuh, shared with the raw-minima
+// kernels B3 (minhash.cu) and B4 (oph.cu); only the finish is this file's.
+#include "encode.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kLanes = 32;    // hash lanes per block: one per thread of a warp
-constexpr int kSlices = 8;    // warps per block, each over 1/8 of the nonzeros
-constexpr int kTile = 2048;   // ids staged in shared memory per pass
-constexpr int kOphThreads = 256;
 constexpr uint32_t kRotC = 0x9E3779B1u;  // core/oph.py::_ROT_C
 
 __global__ void __launch_bounds__(kLanes * kSlices)
@@ -41,45 +40,13 @@ minhash_pack_kernel(const int32_t* __restrict__ idx,
                     const uint32_t* __restrict__ b,
                     uint8_t* __restrict__ out,
                     int m, int k, int bits, int out_w) {
-  __shared__ uint32_t tile[kTile];
-  __shared__ uint32_t part[kSlices][kLanes];
-  __shared__ uint32_t codes[kLanes];
+  __shared__ MinhashSmem sm;
+  __shared__ uint32_t mins[kLanes];
+  minhash_block(idx, nnz, a, b, m, k, sm, mins);
 
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x % kLanes;
-  const int slice = threadIdx.x / kLanes;
-  const int j = blockIdx.y * kLanes + lane;
-  const bool live = j < k;
-  const uint32_t aj = live ? a[j] : 0u;
-  const uint32_t bj = live ? b[j] : 0u;
-  const int len = min(max(nnz[row], 0), m);
-  const int32_t* ids = idx + static_cast<size_t>(row) * m;
-
-  uint32_t acc = kSentinel;
-  for (int base = 0; base < len; base += kTile) {
-    const int cnt = min(kTile, len - base);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-      tile[i] = static_cast<uint32_t>(ids[base + i]);
-    }
-    __syncthreads();
-    if (live) {
-      for (int i = slice; i < cnt; i += kSlices) {
-        acc = min(acc, fmix32(aj * tile[i] + bj));
-      }
-    }
-  }
-  part[slice][lane] = acc;
-  __syncthreads();
-
-  if (slice == 0) {
-    uint32_t v = part[0][lane];
-    for (int s = 1; s < kSlices; ++s) v = min(v, part[s][lane]);
-    codes[lane] = live ? (v & ((1u << bits) - 1u)) : 0u;
-  }
-  __syncthreads();
-
-  // kLanes is a multiple of 8, so this block's codes fill whole bytes.
+  // kLanes is a multiple of 8, so this block's codes fill whole bytes;
+  // lanes >= k pack as code 0.
+  const uint32_t mask = (1u << bits) - 1u;
   const int bytes = kLanes * bits / 8;
   const int per = 8 / bits;
   if (threadIdx.x < bytes) {
@@ -87,9 +54,13 @@ minhash_pack_kernel(const int32_t* __restrict__ idx,
     if (col < out_w) {
       uint32_t byte = 0;
       for (int i = 0; i < per; ++i) {
-        byte |= codes[threadIdx.x * per + i] << (i * bits);
+        const int lane = threadIdx.x * per + i;
+        const int j = blockIdx.y * kLanes + lane;
+        const uint32_t c = j < k ? (mins[lane] & mask) : 0u;
+        byte |= c << (i * bits);
       }
-      out[static_cast<size_t>(row) * out_w + col] = static_cast<uint8_t>(byte);
+      out[static_cast<size_t>(blockIdx.x) * out_w + col] =
+          static_cast<uint8_t>(byte);
     }
   }
 }
@@ -108,18 +79,7 @@ oph_pack_kernel(const int32_t* __restrict__ idx,
   uint8_t* codes = reinterpret_cast<uint8_t*>(smem + k);   // k bytes
 
   const int row = blockIdx.x;
-  const uint32_t ha = a[0];
-  const uint32_t hb = b[0];
-  for (int j = threadIdx.x; j < k; j += blockDim.x) bins[j] = kSentinel;
-  __syncthreads();
-
-  const int len = min(max(nnz[row], 0), m);
-  const int32_t* ids = idx + static_cast<size_t>(row) * m;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const uint32_t h = fmix32(ha * static_cast<uint32_t>(ids[i]) + hb);
-    atomicMin(&bins[h >> shift], h);
-  }
-  __syncthreads();
+  oph_block(idx, nnz, a[0], b[0], m, k, shift, bins);
 
   const uint32_t mask = (1u << bits) - 1u;
   for (int j = threadIdx.x; j < k; j += blockDim.x) {
@@ -168,8 +128,8 @@ oph_pack_kernel(const int32_t* __restrict__ idx,
 }  // namespace repro_torch
 
 using repro_torch::kLanes;
-using repro_torch::kSlices;
 using repro_torch::kOphThreads;
+using repro_torch::kSlices;
 
 extern "C" int repro_minhash_pack(const void* idx, const void* nnz,
                                   const void* a, const void* b, void* out,
@@ -196,12 +156,8 @@ extern "C" int repro_oph_pack(const void* idx, const void* nnz,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
   const size_t smem = static_cast<size_t>(k) * (sizeof(uint32_t) + 1);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(repro_torch::oph_pack_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = repro_torch::allow_smem(repro_torch::oph_pack_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   repro_torch::oph_pack_kernel<<<n, kOphThreads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(nnz),

@@ -23,6 +23,7 @@ write any amount to disk for the Table-2 loading benchmarks).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterator, List, Tuple
 
 import numpy as np
@@ -58,17 +59,26 @@ class SynthRcv1Config:
         return AMBIENT_DIM
 
 
+@functools.lru_cache(maxsize=128)
+def _pair_indices(f: int, cap: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(i, j) of the pairs i < j of f tokens, evenly thinned to at most
+    ``cap``; cached per (f, cap), since documents repeat lengths."""
+    i, j = np.triu_indices(f, k=1)
+    if len(i) > cap:
+        keep = np.linspace(0, len(i) - 1, cap).astype(np.int64)
+        i, j = i[keep], j[keep]
+    i.flags.writeable = False
+    j.flags.writeable = False
+    return i, j
+
+
 def _expand_doc(tokens: np.ndarray, cfg: SynthRcv1Config) -> np.ndarray:
     """unigrams + all pairs + 1/30 of triples, hashed into [0, 2^30)."""
     toks = np.unique(tokens.astype(np.uint64))
     feats = [toks]  # unigram ids occupy [0, vocab)
 
     if cfg.pair_expansion and len(toks) >= 2:
-        i, j = np.triu_indices(len(toks), k=1)
-        if len(i) > cfg.max_pairs_per_doc:
-            keep = np.linspace(0, len(i) - 1, cfg.max_pairs_per_doc
-                               ).astype(np.int64)
-            i, j = i[keep], j[keep]
+        i, j = _pair_indices(len(toks), cfg.max_pairs_per_doc)
         pair_key = _mix64(toks[i] * np.uint64(1_000_003) + toks[j])
         pair_ids = (pair_key % np.uint64(AMBIENT_DIM - cfg.vocab)
                     ) + np.uint64(cfg.vocab)
@@ -76,11 +86,7 @@ def _expand_doc(tokens: np.ndarray, cfg: SynthRcv1Config) -> np.ndarray:
 
     if cfg.triple_expansion and len(toks) >= 3:
         # deterministic 1/30 subsample of all C(f,3) triples via hashing
-        i, j = np.triu_indices(len(toks), k=1)
-        if len(i) > cfg.max_triples_per_doc:
-            keep = np.linspace(0, len(i) - 1, cfg.max_triples_per_doc
-                               ).astype(np.int64)
-            i, j = i[keep], j[keep]
+        i, j = _pair_indices(len(toks), cfg.max_triples_per_doc)
         # pair each (i,j) with a third token chosen by rolling index — a
         # deterministic triple cover; keep iff hash % denominator == 0.
         third = toks[(i + j) % len(toks)]

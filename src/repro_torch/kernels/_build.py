@@ -49,10 +49,17 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "vw_sketch": {
         "repro_vw_sketch": [P, P, P, P, I, I, I, I, U, I, P],
     },
+    "minhash": {
+        "repro_minhash": [P, P, P, P, P, I, I, I, I, P],
+    },
+    "oph": {
+        "repro_oph": [P, P, P, P, P, I, I, I, I, I, P],
+    },
+    "hamming": {
+        "repro_hamming_distance": [P, P, P, I, I, I, I, P],
+    },
 }
-ERROR_FN = {"fused_encode": "repro_fused_encode_error",
-            "bbit_linear": "repro_bbit_linear_error",
-            "vw_sketch": "repro_vw_sketch_error"}
+ERROR_FN = {name: f"repro_{name}_error" for name in SIGNATURES}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

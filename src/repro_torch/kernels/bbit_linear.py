@@ -27,8 +27,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.counters import LaunchCount
 from repro_torch.kernels.fused_encode import check_bits
 
-# dW: bins per block (csrc kDwWarps), and the grid the row splits aim at
+# dW: bins per block (csrc kDwWarps), values per V tile (csrc kDwVTile),
+# and the grid the row splits aim at
 DW_BINS_PER_BLOCK = 8
+DW_V_TILE = 4096
 DW_TARGET_BLOCKS = 512
 DW_MIN_ROWS_PER_SPLIT = 256
 DW_MAX_SCRATCH_FLOATS = 1 << 26     # 256 MiB of partial tables
@@ -136,11 +138,13 @@ def _check_packed(what: str, packed: torch.Tensor, k: int, bits: int,
 
 def dw_row_splits(n: int, k: int, v: int, c: int) -> Tuple[int, int]:
     """(splits, rows per split) of the dW kernels' rows: enough blocks
-    to fill the card, at least 256 rows each, a bounded scratch.  A
+    (bin groups x V tiles x splits) to fill the card, at least 256 rows
+    each, a bounded scratch.  A
     function of the shapes only, so dW sums in the same order on every
     run."""
     n = max(n, 1)
-    splits = min(-(-DW_TARGET_BLOCKS // -(-k // DW_BINS_PER_BLOCK)),
+    blocks = -(-k // DW_BINS_PER_BLOCK) * -(-v // DW_V_TILE)
+    splits = min(-(-DW_TARGET_BLOCKS // blocks),
                  -(-n // DW_MIN_ROWS_PER_SPLIT),
                  max(1, DW_MAX_SCRATCH_FLOATS // max(k * v * c, 1)))
     rows = -(-n // splits)

@@ -1,22 +1,25 @@
 """Dispatch between the kernels and their plain torch versions (counterpart
 of ``repro/kernels/ops.py``).
 
-The eligibility predicates are the reference's static rules:
+The eligibility predicates are the limits of the kernels' own layouts:
 
-  * fused encode (B1, B2) needs b ∈ {1, 2, 4, 8}, so codes never
-    straddle a byte (``fused_pack_supported``);
-  * the packed linear kernels (B5, B6) also need 2^b ≤
-    ``BBIT_KERNEL_MAX_V`` (``packed_kernel_supported``);
-  * the widened linear kernels (B7, B8) need V ≤ ``BBIT_KERNEL_MAX_V``
-    (``linear_kernel_supported``);
-  * the VW sketch kernel (B9) needs a power-of-two m.
+  * the raw-minima encode (B3 minwise, B4 OPH) takes any b and any k
+    its scheme accepts (OPH: a power of two, in both versions);
+  * the kernels that read or write packed codes byte by byte (B1, B2,
+    B5, B6) need b ∈ {1, 2, 4, 8}, so codes never straddle a byte
+    (``whole_byte_codes``);
+  * the widened linear kernels (B7, B8) take any V: dW cuts a wide
+    table into V tiles of its shared-memory histogram;
+  * the VW sketch kernel (B9) needs a power-of-two m;
+  * the Hamming kernel (B10) takes packed rows of any b.
 
 Inside eligibility a call on a CUDA tensor goes to the kernel wrapper,
 which launches its kernel (counted in the wrapper's ``launches``) or
 raises.  Every other call runs the operation's plain torch version on
 the tensors' own device and is counted in the kernel's ``PLAIN``
-counter: a CPU tensor, a shape outside eligibility (b = 6, b = 16,
-m = 12, …), or the masked widened-codes product (``bbit_linear_masked``),
+counter: a CPU tensor, a shape outside eligibility (b = 6 packed,
+m = 12), or the masked widened-codes product
+(``bbit_linear_masked``),
 where the reference itself runs plain XLA code.  So on a
 card the ``plain`` counters of the main path stay at zero.  Nothing
 here catches a kernel's failure.
@@ -35,15 +38,19 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import bbit_linear as _bl
 from repro_torch.kernels import fused_encode as _fe
+from repro_torch.kernels import hamming as _hd
+from repro_torch.kernels import minhash as _mh
+from repro_torch.kernels import oph as _oph
 from repro_torch.kernels import vw_sketch as _vw
 from repro_torch.kernels.counters import LaunchCount
 
 PACK_BITS = _fe.PACK_BITS
-BBIT_KERNEL_MAX_V = 4096
 
 # kernel name -> its wrapper's launches, and kernel name -> the calls of
 # its operation that took the plain version
 LAUNCHES: Dict[str, LaunchCount] = {
+    "minhash": _mh.minhash.launches,
+    "oph": _oph.oph.launches,
     "minhash_pack": _fe.minhash_pack.launches,
     "oph_pack": _fe.oph_pack.launches,
     "bbit_linear_packed_fwd": _bl.bbit_linear_packed_fwd.launches,
@@ -51,6 +58,7 @@ LAUNCHES: Dict[str, LaunchCount] = {
     "bbit_linear_fwd": _bl.bbit_linear_fwd.launches,
     "bbit_linear_bwd_dw": _bl.bbit_linear_bwd_dw.launches,
     "vw_sketch": _vw.vw_sketch.launches,
+    "hamming_distance": _hd.hamming_distance.launches,
 }
 PLAIN: Dict[str, LaunchCount] = {name: LaunchCount() for name in LAUNCHES}
 
@@ -67,24 +75,19 @@ def reset_counts() -> None:
         c.reset()
 
 
-def fused_pack_supported(bits: int) -> bool:
-    """Whether the fused hash→b-bit→pack kernels handle b=bits."""
+def _is_pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def whole_byte_codes(bits: int) -> bool:
+    """Whether b=bits codes fill whole bytes, the layout of the kernels
+    that pack (B1, B2) or unpack (B5, B6) codes byte by byte."""
     return bits in PACK_BITS
-
-
-def packed_kernel_supported(bits: int, v: int) -> bool:
-    """Whether the packed-input linear kernels handle (b=bits, V=v)."""
-    return bits in PACK_BITS and v <= BBIT_KERNEL_MAX_V
-
-
-def linear_kernel_supported(v: int) -> bool:
-    """Whether the widened-code linear kernels handle a table of V=v."""
-    return v <= BBIT_KERNEL_MAX_V
 
 
 def vw_kernel_supported(m_buckets: int) -> bool:
     """Whether the VW sketch kernel handles m buckets (a power of two)."""
-    return m_buckets >= 1 and m_buckets & (m_buckets - 1) == 0
+    return _is_pow2(m_buckets)
 
 
 def _launches(t: torch.Tensor, name: str, eligible: bool) -> bool:
@@ -96,11 +99,36 @@ def _launches(t: torch.Tensor, name: str, eligible: bool) -> bool:
     return False
 
 
+def minhash(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """Raw min-hashes → int32 (n, k) bits of the uint32 words (B3)."""
+    if _launches(indices, "minhash", True):
+        return _mh.minhash(indices, nnz, a, b)
+    return _mh.minhash_plain(indices, nnz, a, b)
+
+
+def minhash_bbit(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, bits: int) -> torch.Tensor:
+    """Min-hash + b-bit extraction → int32 (n, k) codes in [0, 2^bits)."""
+    return minhash(indices, nnz, a, b) & ((1 << bits) - 1)
+
+
+def oph(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
+        b: torch.Tensor, k: int) -> torch.Tensor:
+    """Raw OPH bin minima → int32 (n, k) bits of the uint32 words (B4);
+    empty bins hold the bits of 0xFFFFFFFF.  A k that is not a power of
+    two raises, in the kernel's wrapper and in the plain version alike,
+    as the reference's jnp path does."""
+    if _launches(indices, "oph", True):
+        return _oph.oph(indices, nnz, a, b, k=k)
+    return _oph.oph_plain(indices, nnz, a, b, k=k)
+
+
 def minhash_packed(indices: torch.Tensor, nnz: torch.Tensor,
                    a: torch.Tensor, b: torch.Tensor,
                    bits: int) -> torch.Tensor:
     """min-hash + b-bit + pack → uint8 (n, ceil(k·bits/8))."""
-    if _launches(indices, "minhash_pack", fused_pack_supported(bits)):
+    if _launches(indices, "minhash_pack", whole_byte_codes(bits)):
         return _fe.minhash_pack(indices, nnz, a, b, bits=bits)
     return _fe.minhash_pack_plain(indices, nnz, a, b, bits=bits)
 
@@ -109,7 +137,7 @@ def oph_packed(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor, k: int, bits: int, *,
                densify: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """OPH + densify/zero-code + b-bit + pack → (packed, packbits empty)."""
-    if _launches(indices, "oph_pack", fused_pack_supported(bits)):
+    if _launches(indices, "oph_pack", whole_byte_codes(bits)):
         return _fe.oph_pack(indices, nnz, a, b, k=k, bits=bits,
                             densify=densify)
     return _fe.oph_pack_plain(indices, nnz, a, b, k=k, bits=bits,
@@ -123,8 +151,7 @@ class _BBitLinear(torch.autograd.Function):
     def forward(ctx, codes, weights):
         ctx.save_for_backward(codes)
         ctx.vsize = weights.shape[1]
-        if _launches(codes, "bbit_linear_fwd",
-                     linear_kernel_supported(weights.shape[1])):
+        if _launches(codes, "bbit_linear_fwd", True):
             return _bl.bbit_linear_fwd(codes, weights)
         return _bl.bbit_linear_fwd_plain(codes, weights)
 
@@ -132,8 +159,7 @@ class _BBitLinear(torch.autograd.Function):
     def backward(ctx, dout):
         (codes,) = ctx.saved_tensors
         dout = dout.to(torch.float32).contiguous()
-        if _launches(codes, "bbit_linear_bwd_dw",
-                     linear_kernel_supported(ctx.vsize)):
+        if _launches(codes, "bbit_linear_bwd_dw", True):
             return None, _bl.bbit_linear_bwd_dw(codes, dout, ctx.vsize)
         return None, _bl.bbit_linear_bwd_dw_plain(codes, dout, ctx.vsize)
 
@@ -182,7 +208,7 @@ class _BBitLinearPacked(torch.autograd.Function):
         ctx.save_for_backward(packed, empty)
         ctx.k, ctx.bits, ctx.vsize = k, bits, weights.shape[1]
         if _launches(packed, "bbit_linear_packed_fwd",
-                     packed_kernel_supported(bits, weights.shape[1])):
+                     whole_byte_codes(bits)):
             return _bl.bbit_linear_packed_fwd(packed, weights, k=k,
                                               bits=bits, empty=empty)
         return _bl.bbit_linear_packed_fwd_plain(packed, weights, k=k,
@@ -194,7 +220,7 @@ class _BBitLinearPacked(torch.autograd.Function):
         dout = dout.to(torch.float32).contiguous()
         kw = dict(k=ctx.k, bits=ctx.bits, empty=empty)
         if _launches(packed, "bbit_linear_packed_bwd_dw",
-                     packed_kernel_supported(ctx.bits, ctx.vsize)):
+                     whole_byte_codes(ctx.bits)):
             dw = _bl.bbit_linear_packed_bwd_dw(packed, dout, ctx.vsize, **kw)
         else:
             dw = _bl.bbit_linear_packed_bwd_dw_plain(packed, dout,
@@ -221,3 +247,29 @@ def vw_sketch(indices: torch.Tensor, values: torch.Tensor,
     if _launches(indices, "vw_sketch", vw_kernel_supported(m_buckets)):
         return _vw.vw_sketch(indices, values, nnz, m_buckets, seed)
     return _vw.vw_sketch_plain(indices, values, nnz, m_buckets, seed)
+
+
+def hamming_topk(query: torch.Tensor, cands: torch.Tensor, *, k: int,
+                 bits: int, topk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-``topk`` candidates by packed-code Hamming similarity.
+
+    ``query`` uint8 (w,), ``cands`` uint8 (n, w): packed b-bit code rows
+    (w = ceil(k·bits/8)), on one device.  → (idx int32 (t,), sims
+    float32 (t,)), t = min(topk, n), sims descending: sim = 1 −
+    dist/(k·bits).  The distances are B10 (any b: it popcounts whole
+    bytes, and both rows pad their last byte with zeros) or, on the CPU,
+    its plain version; top-k is a stable ascending sort of the distances,
+    so equal distances keep the lower index first, as ``jax.lax.top_k``
+    does, and the sims are computed in float32 as the reference does.
+    """
+    if _launches(cands, "hamming_distance", True):
+        dist = _hd.hamming_distance(query, cands)
+    else:
+        dist = _hd.hamming_distance_plain(query, cands)
+    t = min(int(topk), int(cands.shape[0]))
+    idx = torch.sort(dist, stable=True).indices[:t]
+    neg = (-dist[idx]).to(torch.float32)
+    # a tensor divisor: CUDA torch divides by a Python scalar through its
+    # reciprocal, which can round differently
+    sims = 1.0 + neg / torch.full_like(neg, float(k * bits))
+    return idx.to(torch.int32), sims

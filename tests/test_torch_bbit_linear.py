@@ -76,8 +76,9 @@ def test_packed_fwd_plain_matches_pallas_and_oracle(b, k, empty_frac):
 
 @pytest.mark.parametrize("b", [6, 16])
 def test_unfused_arm_outside_eligibility(b):
-    """b = 6 straddles bytes and 2^16 > BBIT_KERNEL_MAX_V: the plain
-    torch version runs, on the plain counter, with the oracle's result."""
+    """b = 6 and b = 16 straddle bytes, outside the packed kernels'
+    layout: the plain torch version runs, on the plain counter, with the
+    oracle's result."""
     k = 8
     packed, weights, empty = _case(b, k, n=5, c=2, empty_frac=0.3)
     ops.reset_counts()
@@ -193,12 +194,13 @@ def test_bbit_linear_autograd_matches_jax_grad(b):
 
 
 def test_bbit_linear_beyond_max_v_takes_the_plain_path():
-    """V = 2^13 > BBIT_KERNEL_MAX_V: the reference's gather path; the
-    port's plain versions run, on the plain counters."""
+    """V = 2^13, beyond the reference kernels' V <= 4096 (the reference
+    runs its gather there): on CPU tensors the port's plain versions
+    run, on the plain counters, with the reference's results.  On the
+    card B7/B8 take any V (tests/test_torch_kernels_cuda.py)."""
     rng = np.random.default_rng(10)
     codes = rng.integers(0, 1 << 13, size=(4, 6)).astype(np.int32)
     w = rng.normal(size=(6, 1 << 13, 1)).astype(np.float32)
-    assert not ops.linear_kernel_supported(1 << 13)
     wt = torch.from_numpy(w).requires_grad_(True)
     ops.reset_counts()
     out = ops.bbit_linear(torch.from_numpy(codes), wt)

@@ -57,6 +57,70 @@ def test_oph_params_match_reference(seed, k):
     assert int(b.numpy().view(np.uint32)[0]) == ref.b
 
 
+@pytest.mark.parametrize("seed", [0, 7, 2**33 + 1])
+@pytest.mark.parametrize("k", [1, 64, 500])
+def test_mod_prime_family_matches_reference(seed, k):
+    ref = juh.ModPrimeHash.make(k, seed)
+    got = tuh.ModPrimeHash.make(k, seed)
+    assert got.k == ref.k == k
+    assert np.array_equal(got.c1, ref.c1) and np.array_equal(got.c2, ref.c2)
+    rng = np.random.default_rng(seed % 1000)
+    t = np.concatenate([np.array([0, 1, (1 << 30) - 1, 1 << 30,
+                                  (1 << 31) - 1, (1 << 40) + 3]),
+                        rng.integers(0, 1 << 31, size=50)])
+    h = got(t.reshape(8, 7))
+    assert h.dtype == np.uint64 and h.shape == (8, 7, k)
+    assert np.array_equal(h, ref(t.reshape(8, 7)))
+    assert np.all(h < juh.MERSENNE61)
+    # the exact residue, in Python integers
+    p = (1 << 61) - 1
+    assert int(h[0, 1, 0]) == (int(ref.c1[0]) + int(ref.c2[0]) * int(t[1])) % p
+
+
+def test_mersenne61_helpers_match_reference():
+    rng = np.random.default_rng(1)
+    a = rng.integers(0, (1 << 61) - 1, size=200, dtype=np.uint64)
+    b = rng.integers(0, 1 << 31, size=200, dtype=np.uint64)
+    c = rng.integers(0, (1 << 61) - 1, size=200, dtype=np.uint64)
+    assert np.array_equal(tuh._mulmod_mersenne61(a, b),
+                          juh._mulmod_mersenne61(a, b))
+    assert np.array_equal(tuh._addmod_mersenne61(a, c),
+                          juh._addmod_mersenne61(a, c))
+    assert np.array_equal(tuh._reduce_mersenne61(a * np.uint64(3)),
+                          juh._reduce_mersenne61(a * np.uint64(3)))
+    p = (1 << 61) - 1
+    assert [int(x) for x in tuh._mulmod_mersenne61(a, b)] == \
+        [int(x) * int(y) % p for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("k,dim,seed", [(1, 10, 0), (20, 300, 5),
+                                        (64, 1000, 2**31 + 5)])
+def test_permutation_family_matches_reference(k, dim, seed):
+    ref = juh.PermutationHash.make(k, dim, seed)
+    got = tuh.PermutationHash.make(k, dim, seed)
+    assert (got.k, got.dim) == (ref.k, ref.dim) == (k, dim)
+    assert np.array_equal(got.perms, ref.perms)
+    t = np.random.default_rng(0).integers(0, dim, size=(4, 9))
+    assert np.array_equal(got(t), ref(t))
+
+
+def test_make_hash_family_matches_reference():
+    for kind, kw in (("mod_prime", {}), ("multiply_shift", {}),
+                     ("permutation", {"dim": 50})):
+        got = tuh.make_hash_family(kind, 12, 3, **kw)
+        ref = juh.make_hash_family(kind, 12, 3, **kw)
+        assert type(got).__name__ == type(ref).__name__
+        assert got.k == ref.k == 12
+    assert tuh.make_hash_family("multiply_shift", 12, 3).a == \
+        juh.make_hash_family("multiply_shift", 12, 3).a
+    for kind, kw, match in (("permutation", {}, "needs dim > 0"),
+                            ("permutation", {"dim": 0}, "needs dim > 0"),
+                            ("tabulation", {}, "unknown hash family")):
+        for mod in (tuh, juh):
+            with pytest.raises(ValueError, match=match):
+                mod.make_hash_family(kind, 4, 0, **kw)
+
+
 def test_oph_rejects_non_power_of_two_k():
     for k in (0, 1, 3, 100):
         with pytest.raises(ValueError):
@@ -197,6 +261,10 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
         from repro_torch.serving import HashedClassifierEngine
         from repro_torch.kernels import ops
         from repro_torch.data.synth_rcv1 import SynthRcv1Config, generate_arrays
+        from repro_torch.data.hashed_dataset import (preprocess_rows,
+                                                     preprocess_rows_packed)
+        from repro_torch.retrieval import BandedLSHIndex
+        from repro_torch.train.linear_trainer import train_bbit_liblinear
         cfg = BBitLinearConfig(k=16, b=8)
         params = init_bbit_linear(cfg, torch.Generator().manual_seed(0),
                                   device="cpu")
@@ -206,10 +274,17 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
                                         device="cpu",
                                         nnz_buckets=(4096,)) as eng:
                 assert np.isfinite(eng.score_docs(rows)).all()
+        served = ops.counts()["oph_pack_plain"]
+        assert preprocess_rows(rows, k=16, b=16, device="cpu").shape == (3, 16)
+        packed, _ = preprocess_rows_packed(rows, k=16, b=8, scheme="oph",
+                                           device="cpu")
+        index = BandedLSHIndex(k=16, b=8, rows_per_band=4, device="cpu")
+        index.insert([0, 1, 2], packed)
+        assert index.query(packed[1])[0][0] == 1
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        print("OK", ops.counts()["oph_pack_plain"])
+        print("OK", served)
     """)
     env = dict(os.environ, PYTHONPATH=repo_src)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

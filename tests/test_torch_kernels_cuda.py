@@ -5,7 +5,8 @@ torch:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Integer outputs (B1, B2) must be equal.  B5–B8 sum in another order than
+Integer outputs (B1-B4, B10) must be equal, and B3, B4 and B10 give
+the same bytes on two calls.  B5–B8 sum in another order than
 torch, so they are held to allclose at 1e-5 and to run-to-run equality
 (B6 and B8 bit-identical on two calls).  B9 with values of ones must
 equal its plain version byte for byte; with random values allclose at
@@ -17,7 +18,8 @@ import torch
 from repro_torch.core.oph import OPHHash
 from repro_torch.core.universal_hash import MultiplyShiftHash
 from repro_torch.core.bbit import pack_codes
-from repro_torch.kernels import bbit_linear, fused_encode, ops, vw_sketch
+from repro_torch.kernels import (bbit_linear, fused_encode, hamming,
+                                 minhash, ops, oph, vw_sketch)
 from repro_torch.models.linear import BBitLinearConfig, init_bbit_linear
 from repro_torch.serving import HashedClassifierEngine
 
@@ -31,6 +33,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     return torch.device("cuda", 0)
+
+
+def _full_rows(n, m, seed, dev):
+    """n rows of m ids, every id live (any n, 1 included)."""
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, 1 << 31, (n, m), dtype=torch.int32, generator=gen)
+    return idx.to(dev), torch.full((n,), m, dtype=torch.int32, device=dev)
 
 
 def _rows(n, m, seed, dev):
@@ -130,7 +139,8 @@ def _widened(n, k, bits, c, seed, dev):
 @pytest.mark.parametrize("c", [1, 4])
 @pytest.mark.parametrize("bits,k,n", [(1, 37, 67), (2, 64, 300),
                                       (4, 256, 1000), (8, 256, 4097),
-                                      (12, 37, 515), (8, 256, 16000)])
+                                      (12, 37, 515), (8, 256, 16000),
+                                      (13, 6, 4), (16, 37, 3000)])
 def test_widened_kernels_match_plain(cuda, c, bits, k, n):
     codes, weights, dout = _widened(n, k, bits, c, seed=bits + c, dev=cuda)
     v = 1 << bits
@@ -144,6 +154,29 @@ def test_widened_kernels_match_plain(cuda, c, bits, k, n):
     assert torch.equal(got, again) and torch.equal(dw, dw_again)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(dw, dw_want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", [1, 4])
+def test_widened_kernels_at_the_paper_width(cuda, c):
+    """configs/rcv1_bbit.py's k=500, b=16 (V=65536, 16 V tiles of dW):
+    a row sums 500 terms, so B7 and B8 are held to their plain versions
+    within 1e-5 of the sum of the absolute terms (+1e-6), the error
+    bound of a float32 sum taken in another order, and to the same
+    bytes on two calls."""
+    codes, weights, dout = _widened(16000, 500, 16, c, seed=c, dev=cuda)
+    v = 1 << 16
+    got = bbit_linear.bbit_linear_fwd(codes, weights)
+    again = bbit_linear.bbit_linear_fwd(codes, weights)
+    want = bbit_linear.bbit_linear_fwd_plain(codes, weights)
+    scale = bbit_linear.bbit_linear_fwd_plain(codes, weights.abs())
+    dw = bbit_linear.bbit_linear_bwd_dw(codes, dout, v)
+    dw_again = bbit_linear.bbit_linear_bwd_dw(codes, dout, v)
+    dw_want = bbit_linear.bbit_linear_bwd_dw_plain(codes, dout, v)
+    dw_scale = bbit_linear.bbit_linear_bwd_dw_plain(codes, dout.abs(), v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(dw, dw_again)
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    assert bool(((dw - dw_want).abs() <= 1e-5 * dw_scale + 1e-6).all())
 
 
 @pytest.mark.parametrize("c", [1, 4])
@@ -199,18 +232,125 @@ def test_vw_sketch_kernel_matches_plain(cuda, m, ones):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
-def test_training_path_runs_through_the_kernels(cuda):
+@pytest.mark.parametrize("b", [8, 16])
+def test_training_path_runs_through_the_kernels(cuda, b):
     from repro_torch.models.linear import BBitLinearConfig as Cfg
     from repro_torch.train.linear_trainer import train_bbit_liblinear
     rng = np.random.default_rng(3)
-    codes = rng.integers(0, 256, size=(600, 64)).astype(np.uint16)
-    labels = (codes[:, 0] > 127).astype(np.int32)
+    codes = rng.integers(0, 1 << b, size=(600, 64)).astype(np.uint16)
+    labels = (codes[:, 0] >= 1 << (b - 1)).astype(np.int32)
     ops.reset_counts()
     res = train_bbit_liblinear(codes[:400], labels[:400], codes[400:],
-                               labels[400:], Cfg(k=64, b=8), max_iter=5,
+                               labels[400:], Cfg(k=64, b=b), max_iter=5,
                                device=cuda)
     counts = ops.counts()
     assert counts["bbit_linear_fwd"] > 0 and counts["bbit_linear_bwd_dw"] > 0
     assert counts["bbit_linear_fwd_plain"] == 0
     assert counts["bbit_linear_bwd_dw_plain"] == 0
     assert res.train_acc > 0.9
+
+
+@pytest.mark.parametrize("k,n,m", [(1, 64, 100), (30, 37, 3000),
+                                   (500, 64, 8192), (256, 1, 50),
+                                   (500, 1, 1)])
+def test_minhash_kernel_matches_plain(cuda, k, n, m):
+    idx, nnz = (_rows(n, m, seed=k + n, dev=cuda) if n >= 3
+                else _full_rows(n, m, seed=k, dev=cuda))
+    a, b = MultiplyShiftHash.make(k, seed=k).params(cuda)
+    got = minhash.minhash(idx, nnz, a, b)
+    again = minhash.minhash(idx, nnz, a, b)
+    want = minhash.minhash_plain(idx, nnz, a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (n, k) and got.dtype == torch.int32
+    assert torch.equal(got, again) and torch.equal(got, want)
+    if n >= 3:
+        assert bool((got[0] == -1).all())         # nnz=0: 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("k,n,m", [(2, 64, 100), (256, 64, 8192),
+                                   (256, 1, 40), (16384, 8, 2048)])
+def test_oph_kernel_matches_plain(cuda, k, n, m):
+    idx, nnz = (_rows(n, m, seed=k + n, dev=cuda) if n >= 3
+                else _full_rows(n, m, seed=k, dev=cuda))
+    a, b = OPHHash.make(k, seed=k).params(cuda)
+    got = oph.oph(idx, nnz, a, b, k=k)
+    again = oph.oph(idx, nnz, a, b, k=k)
+    want = oph.oph_plain(idx, nnz, a, b, k=k)
+    torch.cuda.synchronize()
+    assert got.shape == (n, k) and got.dtype == torch.int32
+    assert torch.equal(got, again) and torch.equal(got, want)
+    if n >= 3:
+        assert bool((got[0] == -1).all())         # empty row: all sentinel
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (1, 256), (20000, 256), (37, 3),
+                                 (301, 45), (64, 2048), (5, 37)])
+def test_hamming_kernel_matches_plain(cuda, n, w):
+    rng = np.random.default_rng(n + w)
+    cands = torch.from_numpy(
+        rng.integers(0, 256, size=(n, w)).astype(np.uint8)).to(cuda)
+    query = cands[n // 2].clone()
+    got = hamming.hamming_distance(query, cands)
+    again = hamming.hamming_distance(query, cands)
+    want = hamming.hamming_distance_plain(query, cands)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and got.dtype == torch.int32
+    assert torch.equal(got, again) and torch.equal(got, want)
+    assert int(got[n // 2]) == 0
+    if n > 1:                     # rows from the second on: another base
+        assert torch.equal(hamming.hamming_distance(query, cands[1:]),
+                           want[1:])
+
+
+@pytest.mark.parametrize("k,b", [(24, 3), (30, 12)])
+def test_hamming_topk_launches_the_kernel_at_any_b(cuda, k, b):
+    """B10 popcounts whole bytes, so it serves codes that straddle them:
+    the ranking at b=3 and b=12 launches it and equals its plain
+    version's."""
+    rng = np.random.default_rng(k * b)
+    codes = rng.integers(0, 1 << b, size=(300, k)).astype(np.uint16)
+    codes[7] = codes[3]                       # a tie with the query's twin
+    cands = torch.from_numpy(pack_codes(codes, b)).to(cuda)
+    query = cands[3].clone()
+    ops.reset_counts()
+    idx, sims = ops.hamming_topk(query, cands, k=k, bits=b, topk=10)
+    counts = ops.counts()
+    assert counts["hamming_distance"] == 1
+    assert counts["hamming_distance_plain"] == 0
+    want = hamming.hamming_distance_plain(query, cands)
+    assert torch.equal(hamming.hamming_distance(query, cands), want)
+    order = torch.sort(want.cpu(), stable=True).indices[:10]
+    assert torch.equal(idx.cpu(), order.to(torch.int32))
+    assert idx[:2].tolist() == [3, 7] and bool((sims[:2] == 1.0).all())
+
+
+def test_raw_encode_and_search_run_through_the_kernels(cuda):
+    from repro_torch.core.bbit import pack_codes
+    from repro_torch.core.oph import split_zero_codes
+    from repro_torch.data.hashed_dataset import (preprocess_rows,
+                                                 preprocess_rows_packed)
+    from repro_torch.retrieval import BandedLSHIndex
+    rng = np.random.default_rng(1)
+    docs = [np.unique(rng.integers(0, 1 << 33, size=int(s)))
+            for s in rng.integers(1, 3000, size=50)]
+    ops.reset_counts()
+    wide = preprocess_rows(docs, k=500, b=16, seed=1, chunk=16, device=cuda)
+    zero = preprocess_rows(docs, k=64, b=12, scheme="oph_zero", chunk=16,
+                           device=cuda)
+    packed, _ = preprocess_rows_packed(docs, k=64, b=8, scheme="oph",
+                                       device=cuda)
+    index = BandedLSHIndex(k=64, b=8, rows_per_band=4, device=cuda)
+    index.insert(list(range(len(docs))), packed)
+    ids, sims = index.query(packed[7], top_k=3)
+    counts = ops.counts()
+    assert ids[0] == 7 and sims[0] == 1.0
+    assert counts["minhash"] == 4 and counts["oph"] == 4
+    assert counts["hamming_distance"] == 1
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
+    assert np.array_equal(wide, preprocess_rows(docs, k=500, b=16, seed=1,
+                                                chunk=16, device="cpu"))
+    assert np.array_equal(zero, preprocess_rows(
+        docs, k=64, b=12, scheme="oph_zero", chunk=16, device="cpu"))
+    codes = preprocess_rows(docs, k=64, b=8, scheme="oph", device=cuda)
+    assert np.array_equal(packed, pack_codes(split_zero_codes(codes)[0], 8))

@@ -94,11 +94,18 @@ def test_preprocess_rows_fixture_equals_reference(corpus, hashed):
 @pytest.mark.parametrize("kw", [dict(b=6), dict(b=16),
                                 dict(scheme="oph_zero"),
                                 dict(family="mod_prime")])
-def test_preprocess_rows_refuses_what_waits_for_b3_b4(corpus, kw):
+def test_preprocess_rows_beyond_the_packed_encode_equals_reference(corpus,
+                                                                   kw):
+    """The cases the packed encode (B1/B2) cannot give, through the
+    raw-minima encode (B3/B4) or, for ``mod_prime``, the exact numpy
+    path: the reference's codes byte for byte."""
     args = dict(b=8, scheme="minwise")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match="B3/B4"):
-        preprocess_rows(corpus[0][:4], k=32, device="cpu", **args)
+    rows = corpus[0][:24]
+    got = preprocess_rows(rows, k=32, seed=3, chunk=10, device="cpu", **args)
+    want = j_preprocess_rows(rows, k=32, seed=3, chunk=10, **args)
+    assert got.dtype == np.uint16 and got.shape == (24, 32)
+    assert np.array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +273,30 @@ def test_train_bbit_liblinear_matches_reference(hashed, loss):
     _agree(port, ref, "table")
     # the paper's thresholds (tests/test_linear_training.py), on the port
     assert port.test_acc > (0.9 if loss == "logistic" else 0.85)
+
+
+@pytest.mark.parametrize("k,b", [(30, 12), (32, 16)])
+def test_train_bbit_liblinear_matches_reference_at_wide_b(corpus, k, b):
+    """The abstract's 30 hashes at b=12 (V=4096, the reference kernels'
+    limit) and b=16 (V=65536, where the reference runs its gather and
+    the port's B7/B8 still launch on the card), on codes of the
+    raw-minima encode: the same TRON iterations, objective, accuracies
+    and tables allclose at 1e-3; on the CPU through the plain versions."""
+    rows, labels = corpus
+    codes = preprocess_rows(rows, k=k, b=b, seed=1, chunk=256, device="cpu")
+    assert np.array_equal(codes, j_preprocess_rows(rows, k=k, b=b, seed=1,
+                                                   chunk=256))
+    split = (codes[:N_TR], labels[:N_TR], codes[N_TR:], labels[N_TR:])
+    ref = j_train_bbit(*split, jlinear.BBitLinearConfig(k=k, b=b),
+                       loss="logistic", C=1.0, max_iter=30)
+    ops.reset_counts()
+    port = train_bbit_liblinear(*split, tlinear.BBitLinearConfig(k=k, b=b),
+                                loss="logistic", C=1.0, max_iter=30,
+                                device="cpu")
+    _agree(port, ref, "table")
+    counts = ops.counts()
+    assert counts["bbit_linear_fwd_plain"] > 0
+    assert counts["bbit_linear_bwd_dw_plain"] > 0
 
 
 def test_train_vw_liblinear_matches_reference(corpus, sketches):
