@@ -44,8 +44,12 @@ Phases, one line of output each (or more), any failure exits non-zero:
            TRON iterations at most), VW sketches through ops.vw_sketch at
            equal storage (m=64) and at m=2^14, train_vw_liblinear; the
            launch counters set to zero before and read after; test
-           accuracy, iterations, objective and seconds of each run.  The
-           sketches of both m byte for byte against core.vw's.  Then B7,
+           accuracy, iterations, objective and seconds of each run; B8's
+           plans built, one per b-bit fit (its training codes); each b-bit
+           fit again through the kernels' plain versions on the card,
+           which it must match in TRON iterations and objective (1e-3
+           relative).  The sketches of both m byte for byte against
+           core.vw's.  Then B7,
            B8 and B6 against their plain versions at this phase's own
            shapes: its codes (16,000 and 4,000 rows), trained tables and
            the objective's logistic dout, B6 at 1,024 and 16,000 packed
@@ -57,13 +61,17 @@ Phases, one line of output each (or more), any failure exits non-zero:
            codes;
   paper    the same corpus at configs/rcv1_bbit.py's width: preprocess_rows
            at k=500, b=16 (B3), TRON logistic and squared hinge over a
-           (500, 65536, 1) table (B7, and B8 over 16 V tiles); k=30, b=12
-           (the abstract's 30 hashes, B3, then B7/B8 at V=4096); oph_zero
-           at k=256, b=8 (B4), its codes against the host numpy encode;
-           no plain call at all; B7 and B8 against their plain versions
-           on the k=500 codes, the logistic fit's (500, 65536, 1) table
-           and its dout; the first 1,024-row chunk's k=500 codes against
-           B3's plain version; the reference tests' accuracy limits;
+           (500, 65536, 1) table (B7, and B8 from a plan of two radix
+           passes); k=30, b=12 (the abstract's 30 hashes, B3, then B7/B8
+           at V=4096); oph_zero at k=256, b=8 (B4), its codes against the
+           host numpy encode; no plain call at all; one B8 plan per fit;
+           the three fits again through the plain versions on the card
+           (the same TRON iterations, objectives within 1e-3 relative);
+           B7 and B8 against their plain versions on the k=500 codes, the
+           logistic fit's (500, 65536, 1) table and its dout, B8's bytes
+           equal from a fresh, a cached and a rebuilt plan; the first
+           1,024-row chunk's k=500 codes against B3's plain version; the
+           reference tests' accuracy limits;
   search   the corpus packed at k=256, b=8 (B2) into a BandedLSHIndex
            with 4 codes per band; 128 exact copies of indexed documents
            (rank 1, similarity 1.0) and 128 near-duplicates with 10 % of
@@ -80,7 +88,8 @@ Phases, one line of output each (or more), any failure exits non-zero:
            engine's shapes (64 rows x 2048 / 8192 lanes of real documents,
            B5 vs embedding_bag); B7 and B8 at 16,000 x 256 codes, V=256,
            C=1 (vs embedding_bag and bincount), and at the paper fits'
-           16,000 x 500 codes, V=65536; B6 at 1,024 and 16,000
+           16,000 x 500 codes, V=65536, B8 over its cached plan and,
+           as plan_ms, the plan kernel that builds it; B6 at 1,024 and 16,000
            packed rows (vs bincount on unpacked codes); B9 at one 256-row
            chunk of real documents, m=64 and m=2^14; B3 (k=500 and 256)
            and B4 (k=256) on the widest full 1,024-row chunk of the train
@@ -161,6 +170,12 @@ GRAD_TOL = dict(rtol=1e-5, atol=1e-8)
 # B6/B8 against their plain versions: |err| <= 1e-5 x the sum of the
 # absolute terms of each bin (+1e-6), the bound of a reordered float32 sum
 DW_SUM_TOL = 1e-5
+# a TRON fit through the kernels against the same fit through their plain
+# versions: the kernels reorder float32 sums, and TRON stops anywhere its
+# gradient falls below 1e-4 of its first (optim/tron.py grad_tol), which
+# leaves two paths' objectives apart by far more than their rounding
+# (8.9e-5 relative for a squared-hinge fit at k=256 on the H100)
+FIT_OBJECTIVE_RTOL = 1e-3
 KERNELS = {
     "minhash_pack": ("src/repro_torch/csrc/fused_encode.cu",
                      "src/repro/kernels/fused_encode.py:128"),
@@ -736,6 +751,15 @@ def phase_train(torch, dev, card: str, errs: dict):
     if stray:
         fail(f"train: the main path left the kernels: {stray}")
     print(f"train: launches {json.dumps(counts)}")
+    check_plan_builds("train", counts, sum(1 for name in runs
+                                           if name.startswith("bbit")))
+    plain_runs = {}
+    for scheme in ("minwise", "oph"):
+        for loss in ("logistic", "squared_hinge"):
+            name = f"bbit {scheme} {loss}"
+            plain_runs[name] = plain_fit(torch, dev, codes[scheme], labels,
+                                         K, B, loss)
+            same_fit("train", name, runs[name], plain_runs[name], card)
 
     c = codes["oph"]
     res, prof = profiled(torch, lambda: train_bbit_liblinear(
@@ -754,15 +778,64 @@ def phase_train(torch, dev, card: str, errs: dict):
     check_train_shapes(torch, dev, rows, labels, codes, runs, errs)
     grad = gradient_step(torch, dev, rows[:STREAM_BATCH], labels,
                          runs["bbit oph logistic"].params, cfg, errs)
-    summary = {"runs": {k: dict(test_acc=r.test_acc, train_acc=r.train_acc,
-                                n_iter=r.n_iter, objective=r.objective,
-                                seconds=r.train_seconds)
-                        for k, r in runs.items()},
+    summary = {"runs": fit_summary(runs), "plain_runs": fit_summary(plain_runs),
                "counts": counts, "grad": grad, "profile": prof}
     return summary, {"rows": rows, "labels": labels,
                      "codes": codes["minwise"],
                      "params": runs["bbit minwise logistic"].params,
                      "vw_wide": runs[f"vw m={VW_WIDE} logistic"]}
+
+
+def fit_summary(runs: dict) -> dict:
+    return {k: dict(test_acc=r.test_acc, train_acc=r.train_acc,
+                    n_iter=r.n_iter, objective=r.objective,
+                    seconds=r.train_seconds) for k, r in runs.items()}
+
+
+def check_plan_builds(phase: str, counts: dict, fits: int) -> None:
+    """B8 builds one plan per b-bit fit: TRON's ~51 dW calls of a fit run
+    on its one training codes tensor."""
+    builds = counts["bbit_linear_bwd_dw_plans"]
+    print(f"{phase}: bbit_linear_bwd_dw plans built {builds} for {fits} "
+          f"b-bit fits ({counts['bbit_linear_bwd_dw']} dW calls)")
+    if builds != fits:
+        fail(f"{phase}: {builds} B8 plans built for {fits} fits")
+
+
+def plain_fit(torch, dev, codes, labels, k: int, b: int, loss: str):
+    """``train_bbit_liblinear``'s fit with B7's plain version on the card
+    (``gather_sum``, whose torch autograd backward stands in for B8) in
+    place of the kernels: the same TRON, objective and data."""
+    from repro_torch.kernels import bbit_linear as bl
+    from repro_torch.models.linear import (BBitLinearConfig, _classes,
+                                           _finish, init_bbit_linear)
+    from repro_torch.train.linear_trainer import _fit, _on
+    cfg = BBitLinearConfig(k=k, b=b, n_classes=N_CLASSES)
+    n = TRAIN_ROWS
+
+    def forward(p, c):
+        return _finish(bl.bbit_linear_fwd_plain(c, p["table"]), p, cfg)
+
+    return _fit(forward, lambda p, c: _classes(forward(p, c), N_CLASSES),
+                init_bbit_linear(cfg, device=dev),
+                _on(codes[:n], dev, torch.int32), labels[:n],
+                _on(codes[n:], dev, torch.int32), labels[n:], loss=loss,
+                C=TRAIN_C, max_iter=TRAIN_ITERS, dev=dev)
+
+
+def same_fit(phase: str, name: str, res, plain, card: str) -> None:
+    """A fit through the kernels takes the plain path's TRON iterations
+    and ends within ``FIT_OBJECTIVE_RTOL`` of its objective."""
+    rel = abs(res.objective - plain.objective) / max(abs(plain.objective),
+                                                     1e-30)
+    print(f"{phase}: {name} kernels vs plain path on the card: tron_iters="
+          f"{res.n_iter} / {plain.n_iter} objective={res.objective} / "
+          f"{plain.objective} (rel {rel:.3g}) test_acc={res.test_acc} / "
+          f"{plain.test_acc} seconds={res.train_seconds} / "
+          f"{plain.train_seconds} card={card}")
+    if res.n_iter != plain.n_iter or rel > FIT_OBJECTIVE_RTOL:
+        fail(f"{phase}: {name} through the kernels departs from the plain "
+             "path")
 
 
 def raw_chunk(torch, dev, rows, first: bool = False):
@@ -1016,6 +1089,16 @@ def phase_paper(torch, dev, card: str, data: dict, errs: dict) -> dict:
     if stray:
         fail(f"paper: the main path left the kernels: {stray}")
     print(f"paper: launches {json.dumps(counts)}")
+    check_plan_builds("paper", counts, len(runs))
+    plain_runs = {}
+    for k, b, losses in ((PAPER_K, PAPER_B, ("logistic", "squared_hinge")),
+                         (ABSTRACT_K, ABSTRACT_B, ("logistic",))):
+        for loss in losses:
+            name = f"bbit minwise k={k} b={b} {loss}"
+            plain_runs[name] = plain_fit(torch, dev,
+                                         codes[f"minwise k={k} b={b}"],
+                                         labels, k, b, loss)
+            same_fit("paper", name, runs[name], plain_runs[name], card)
     for name, res in runs.items():
         print(f"paper: {name} test_acc={res.test_acc} train_acc="
               f"{res.train_acc} tron_iters={res.n_iter} objective="
@@ -1063,10 +1146,7 @@ def phase_paper(torch, dev, card: str, data: dict, errs: dict) -> dict:
           f"{len(rows)} docs ({empties} empty bins) equal the host numpy "
           "encode (encode_packed_numpy, unpacked, sentinel applied)")
     summary = {"counts": counts, "docs_per_s": rates,
-               "runs": {k: dict(test_acc=r.test_acc, train_acc=r.train_acc,
-                                n_iter=r.n_iter, objective=r.objective,
-                                seconds=r.train_seconds)
-                        for k, r in runs.items()}}
+               "runs": fit_summary(runs), "plain_runs": fit_summary(plain_runs)}
     return summary, {
         "codes": codes[f"minwise k={PAPER_K} b={PAPER_B}"],
         "params": runs[f"bbit minwise k={PAPER_K} b={PAPER_B} "
@@ -1088,17 +1168,24 @@ def check_paper_shapes(torch, dev, labels, codes, params, errs):
                 bl.bbit_linear_fwd(x, table))
     logits = bl.bbit_linear_fwd_plain(x, table) + params["bias"].detach()
     dout = logistic_dout(torch, logits, y, TRAIN_C)
-    e8 = _close(torch, "bbit_linear_bwd_dw", errs,
-                bl.bbit_linear_bwd_dw(x, dout, v),
-                bl.bbit_linear_bwd_dw_plain(x, dout, v),
-                bl.bbit_linear_bwd_dw(x, dout, v),
+    fn = bl.bbit_linear_bwd_dw
+    fn.clear_plans()
+    fresh = fn(x, dout, v)
+    cached = fn(x, dout, v)
+    fn.clear_plans()
+    rebuilt = fn(x, dout, v)
+    e8 = _close(torch, "bbit_linear_bwd_dw", errs, fresh,
+                bl.bbit_linear_bwd_dw_plain(x, dout, v), cached,
                 scale=bl.bbit_linear_bwd_dw_plain(x, dout.abs(), v))
+    same = torch.equal(fresh.view(torch.int32), rebuilt.view(torch.int32))
     print(f"check: k={PAPER_K} b={PAPER_B} trained table, V={v} C=1, n={n}:"
           f" bbit_linear_fwd max_abs_err={e7} allclose(1e-5); "
-          f"bbit_linear_bwd_dw (logistic dout, {-(-v // 4096)} V tiles) "
-          f"max_abs_err={e8} within 1e-5 of each bin's sum of |terms|, "
-          "run-to-run equal=True")
-    del x, table, logits, dout
+          f"bbit_linear_bwd_dw (logistic dout) max_abs_err={e8} within 1e-5 "
+          "of each bin's sum of |terms|; dW bytes equal from a fresh, a "
+          f"cached and a rebuilt plan={same}")
+    if not same:
+        fail("bbit_linear_bwd_dw differs between a fresh and a rebuilt plan")
+    del x, table, logits, dout, fresh, cached, rebuilt
     torch.cuda.empty_cache()
 
 
@@ -1318,14 +1405,15 @@ def phase_timing_train(torch, dev, data, paper, card: str,
     touched = int(torch.unique(flat).numel())
     out, main = {}, {}
 
-    def record(name, shape, ms, plain, bnd, lib, is_main=True):
+    def record(name, shape, ms, plain, bnd, lib, is_main=True, **extra):
         rec = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
-                   library_ms=lib)
+                   library_ms=lib, **extra)
         out.setdefault(name, {})[shape] = rec
         if is_main:
             main[name] = rec
-        print(f"timing: {name} {shape} ms={ms} plain_ms={plain} bound_ms="
-              f"{bnd[0]} ({bnd[1]}) library_ms={lib} card={card}")
+        more = "".join(f" {key}={val}" for key, val in extra.items())
+        print(f"timing: {name} {shape} ms={ms}{more} plain_ms={plain} "
+              f"bound_ms={bnd[0]} ({bnd[1]}) library_ms={lib} card={card}")
 
     shape = f"n={n} k={K} V={v} C=1"
     record("bbit_linear_fwd", shape,
@@ -1342,7 +1430,9 @@ def phase_timing_train(torch, dev, data, paper, card: str,
                    20),
            bound(4 * n * K + 4 * n + 4 * K * v, n * K, PEAK_F32_OPS_PER_S),
            time_ms(torch, lambda: torch.bincount(flat1, weights=w_rep,
-                                                 minlength=K * v), 200))
+                                                 minlength=K * v), 200),
+           plan_ms=time_ms(torch, lambda: bl.bbit_linear_dw_plan(codes, v),
+                           20))
     # the paper fits' shape: k=500 codes into a (500, 65536, 1) table
     pv = 1 << PAPER_B
     pcodes = torch.from_numpy(
@@ -1366,14 +1456,16 @@ def phase_timing_train(torch, dev, data, paper, card: str,
            is_main=False)
     record("bbit_linear_bwd_dw", shape,
            time_ms(torch, lambda: bl.bbit_linear_bwd_dw(pcodes, dout, pv),
-                   20),
+                   50),
            time_ms(torch, lambda: bl.bbit_linear_bwd_dw_plain(
                pcodes, dout, pv), 10),
            bound(4 * n * PAPER_K + 4 * n + 4 * PAPER_K * pv, n * PAPER_K,
                  PEAK_F32_OPS_PER_S),
            time_ms(torch, lambda: torch.bincount(
                pflat1, weights=pw_rep, minlength=PAPER_K * pv), 20),
-           is_main=False)
+           is_main=False,
+           plan_ms=time_ms(torch, lambda: bl.bbit_linear_dw_plan(pcodes, pv),
+                           10))
     del pcodes, pflat, pflat1, pw_rep
     torch.cuda.empty_cache()
     for rows_n in (STREAM_BATCH, TRAIN_ROWS):

@@ -1,53 +1,95 @@
 // b-bit linear layer kernels for Hopper (sm_90a): the forward from packed
 // (B5) or widened (B7) codes, and dW from widened (B8) or packed (B6) codes.
+// A widened code outside [0, V) adds nothing, in the forward and in dW, as
+// the TPU kernels' one-hot compare of such a code matches no column.
 //
 // B5 bbit_linear_packed_fwd replaces
 // src/repro/kernels/bbit_linear.py::bbit_linear_packed_fwd_pallas:
 //   logits[n, c] = sum_j W[j, code(n, j), c], the codes unpacked in
 //   registers from the LSB-first packed row, bins marked in the optional
-//   MSB-first empty mask skipped.
+//   MSB-first empty mask skipped.  Bound: device-memory bytes -- the
+//   packed rows, the mask and the table entries the codes select, each
+//   read once; one float add per (row, bin, class).  Design: a gather-sum
+//   like an embedding bag, one warp per row, lanes over the k bins.  The
+//   TPU kernel's one-hot MXU contraction streams the whole (k, 2^b, C)
+//   table per row block; here each lane reads only the entries its codes
+//   select, through L2.  Each lane sums its bins in order and the warp
+//   reduces in a fixed shuffle tree, with no float atomics, so a row's
+//   logits are the same bits on every run.
+//
 // B7 bbit_linear_fwd replaces bbit_linear.py::bbit_linear_fwd_pallas: the
-//   same sum from widened int32 (n, k) codes.
-// Bound (both): device-memory bytes -- the codes, the mask and the table
-//   entries the codes select, each read once; one float add per
-//   (row, bin, class).  Design: a gather-sum like an embedding bag, one warp
-//   per row, lanes over the k bins.  The TPU kernels' one-hot MXU
-//   contraction streams the whole (k, 2^b, C) table per row block; here each
-//   lane reads only the entries its codes select, through L2 (at k=256, b=8
-//   the table is 256*C KB, more than a block's shared memory).  Each lane
-//   sums its bins in order and the warp reduces in a fixed shuffle tree,
-//   with no float atomics, so a row's logits are the same bits on every run.
-//   A widened code outside [0, V) adds nothing, as the TPU kernel's one-hot
-//   compare of such a code matches no column.
+//   same sum from widened int32 (n, k) codes.  Bound: bytes -- the codes
+//   and the table entries they select, read once, and the logits.  What
+//   holds a gather back is where the table lies: at b=16 the (500, 65536)
+//   table is 131 MB, 2.6x the L2, and gathers that miss it at random pull
+//   a whole DRAM sector for 4 useful bytes; at b=8 the (256, 256) table
+//   sits in L2, and a gather that misses L1 still costs an L2 sector.
+//   Design, after the TPU kernel's own grid (row blocks, bin blocks, the
+//   bins the accumulation axis): a grid of (row tiles, bin groups), the
+//   group the slower index, so the blocks resident together read one
+//   group's slice of the table.  Where a 32-bin slice fits L1 (V x C <=
+//   512) a group is 32 bins; else one group of all k, as the gathers go
+//   to L2 or DRAM either way (kernels/bbit_linear.py::fwd_layout, from
+//   the shapes alone).  A thread takes one row of one group, 32 bins at a
+//   time: it loads the 32 codes (16 bytes at a time where rows are
+//   16-byte aligned) before any of their gathers, so 32 gathers are in
+//   flight, sums each chunk in a fixed tree and the chunks in order.
+//   With more than one group, each
+//   group writes its partial logits and a second kernel adds them in
+//   group order.  No float atomics: the same bits on every run.
 //
 // B8 bbit_linear_bwd_dw replaces bbit_linear.py::bbit_linear_bwd_dw_pallas:
-//   dW[j, v, c] = sum_n 1{codes[n, j] = v} * dout[n, c].
+//   dW[j, v, c] = sum_n 1{codes[n, j] = v} * dout[n, c].  Bound: bytes --
+//   the codes and dout read once, dW written once.  What holds it back: at
+//   V=65536 dW is 131 MB and mostly zeros, and a histogram per bin does not
+//   fit a block's shared memory.  Design: what depends on the codes alone
+//   is a plan, built once per codes tensor (TRON calls B8 about 51 times
+//   on the same training codes, and the wrapper caches the plan): for each
+//   bin j, the rows whose code lies in [0, V), ordered by (code, row).
+//   dw_plan_kernel is one pass of a stable LSD radix sort on 8-bit digits
+//   (one pass for V <= 256, two for V <= 65536), one block per bin: tiles
+//   of 256 rows are taken in row order, and a row's place among its tile's
+//   rows of the same digit is its rank in its warp (__match_any_sync) plus
+//   the counts of the warps before it.  The plan is perm (k, n), the rows,
+//   and scode (k, n), their codes (past a bin's kept entries, -1 and V),
+//   and offsets (k, 257), where each value of the last pass's digit starts
+//   (for V <= 256, each value's run).  dw_sum_kernel then runs on every
+//   call: a block owns a slice of up to 2,048 of one bin's values, about
+//   8,192 entries, and takes the slice's entries from the offsets.  It
+//   walks them in windows of 2,048, eight consecutive entries a thread
+//   with all their loads in flight, so a long run of one value (real
+//   codes hold long runs of rows sharing a code) is spread over the
+//   block like any other entries.  A
+//   segmented scan (a fixed shuffle tree in each warp, then the warps in
+//   order, after the carry of the run open at the window's start) gives
+//   each thread the sum of its first run's entries before it; the thread
+//   holding a run's last entry writes the run's sum to shared memory, and
+//   the slice, zeros included, is stored once.  Every sum's order depends
+//   on the shapes and the codes only, so dW is the same bytes from a plan
+//   just built or one cached.
+//
 // B6 bbit_linear_packed_bwd_dw replaces
-//   bbit_linear.py::bbit_linear_packed_bwd_dw_pallas: the same from packed
-//   codes, bins marked in the empty mask contributing nothing.
-// Bound (both): device-memory bytes -- the codes (or packed rows and mask)
-//   and dout read once, dW written once; one float add per (row, bin,
-//   class).  Design: a histogram per bin j.  A block owns 8 consecutive j
-//   (one warp each, its (V,) histogram of one class in shared memory) and a
-//   range of rows.  It stages 256 rows x 8 codes at a time (8 loads in
-//   flight per thread), read as whole 32-byte row segments (8 packed codes
-//   are b whole bytes, 8 mask bits one byte), then takes them in groups of
-//   32 rows.  In each warp __match_any_sync groups the lanes (rows) that
-//   hold the same code; the group's lowest lane sums their dout in lane order and
-//   adds it to the bin the warp owns alone.  There are no float atomics, so
-//   every bin sums in one fixed order.  The rows are split over blocks so
-//   that a (k / 8)-block grid still fills the card; each split writes its
-//   partial table and a second kernel adds the splits in split order.  The
-//   split count depends on the shapes only, so dW is the same bits on every
-//   run (ROADMAP B6: the streaming trainer's bit-identical resume).
-//   A histogram tile holds up to kDwVTile = 4096 values of v (8 x 4096
-//   floats = 128 KiB of dynamic shared memory); a wider table (b = 16:
-//   V = 65536) is cut into V tiles, a third grid axis: each block keeps
-//   the codes in its tile and skips the rest, so every bin is still summed
-//   by one warp in row order and dW stays the same bits on every run, at
-//   the price of reading the codes once per tile.  The classes are taken
-//   one after another, so any C works.  Neither the forward nor dW has a
-//   limit on V.
+//   bbit_linear.py::bbit_linear_packed_bwd_dw_pallas: the same dW from
+//   packed codes, bins marked in the empty mask contributing nothing.  The
+//   streaming trainer calls it on new codes every batch, where a plan
+//   would not pay back, so it keeps a histogram per bin.  Bound: bytes --
+//   the packed rows and mask and dout read once, dW written once.  Design:
+//   a block owns 8 consecutive j (one warp each, its (V,) histogram of one
+//   class in shared memory) and a range of rows.  It stages 256 rows x 8
+//   codes at a time (8 loads in flight per thread), read as whole 32-byte
+//   row segments (8 packed codes are b whole bytes, 8 mask bits one byte),
+//   then takes them in groups of 32 rows.  In each warp __match_any_sync
+//   groups the lanes (rows) that hold the same code; the group's lowest
+//   lane sums their dout in lane order and adds it to the bin the warp
+//   owns alone.  There are no float atomics, so every bin sums in one
+//   fixed order.  The rows are split over blocks so that a (k / 8)-block
+//   grid still fills the card; each split writes its partial table and a
+//   second kernel adds the splits in split order.  The split count depends
+//   on the shapes only, so dW is the same bits on every run (ROADMAP B6:
+//   the streaming trainer's bit-identical resume).  A histogram tile holds
+//   up to kDwVTile = 4096 values of v (8 x 4096 floats = 128 KiB of
+//   dynamic shared memory); a wider table is cut into V tiles, a third
+//   grid axis.  The classes are taken one after another, so any C works.
 #include <algorithm>
 
 #include "common.cuh"
@@ -55,15 +97,27 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kRowsPerBlock = 8;   // forward: one warp per row
-constexpr int kDwWarps = 8;        // dW: bins j per block, one warp each
-constexpr int kDwRows = 32;        // dW: rows per group, one per lane
-constexpr int kDwGroups = 8;       // dW: 32-row groups staged per pass
-constexpr int kDwVTile = 4096;     // dW: histogram values per V tile
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kRowsPerBlock = 8;     // B5: one warp per row
+constexpr int kFwdThreads = 256;     // B7: threads per block
+constexpr int kFwdChunk = 32;        // B7: bins a thread gathers at once
+constexpr int kPlanThreads = 256;    // B8 plan: threads of a bin's block
+constexpr int kPlanWarps = kPlanThreads / 32;
+constexpr int kRadix = 256;          // B8 plan: values of an 8-bit digit
+constexpr int kSumThreads = 256;     // B8 sum: threads per block
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kSumPer = 8;           // B8 sum: a thread's entries a window
+constexpr int kSumWindow = kSumThreads * kSumPer;
+constexpr int kSumMaxSpan = 2048;    // B8 sum: values of a block, at most
+constexpr int kDwWarps = 8;          // B6: bins j per block, one warp each
+constexpr int kDwRows = 32;          // B6: rows per group, one per lane
+constexpr int kDwGroups = 8;         // B6: 32-row groups staged per pass
+constexpr int kDwVTile = 4096;       // B6: histogram values per V tile
+static_assert(kRadix == kPlanThreads, "a plan thread owns one digit");
 
 __device__ __forceinline__ float warp_sum(float acc) {
   for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xFFFFFFFFu, acc, off);
+    acc += __shfl_down_sync(kFull, acc, off);
   }
   return acc;
 }
@@ -95,37 +149,383 @@ bbit_linear_packed_fwd_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
+// B7.  grid (ceil(n / kFwdThreads), ceil(k / group)), the bin group on y;
+// out is (groups, n, c): each group's partial logits (the logits
+// themselves when there is one group).  A thread takes one row's bins of
+// its group, 32 at a time, in order.  kVec: rows start 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(kFwdThreads)
 bbit_linear_fwd_kernel(const int32_t* __restrict__ codes,
-                       const float* __restrict__ w,
-                       float* __restrict__ out, int n, int k, int v, int c) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= n) return;  // whole warp
+                       const float* __restrict__ w, float* __restrict__ out,
+                       int n, int k, int v, int c, int group) {
+  const int row = blockIdx.x * kFwdThreads + threadIdx.x;
+  if (row >= n) return;
+  const int j_lo = blockIdx.y * group;
+  const int j_hi = min(k, j_lo + group);
   const int32_t* crow = codes + static_cast<size_t>(row) * k;
+  float* dst = out + (static_cast<size_t>(blockIdx.y) * n + row) * c;
   for (int cc = 0; cc < c; ++cc) {
     float acc = 0.f;
-    for (int j = lane; j < k; j += 32) {
-      const int code = crow[j];
-      if (static_cast<unsigned>(code) < static_cast<unsigned>(v)) {
-        acc += w[(static_cast<size_t>(j) * v + code) * c + cc];
+    for (int j0 = j_lo; j0 < j_hi; j0 += kFwdChunk) {
+      const int len = min(kFwdChunk, j_hi - j0);
+      int code[kFwdChunk];
+      if (kVec) {
+        const int4* src = reinterpret_cast<const int4*>(crow + j0);
+#pragma unroll
+        for (int q = 0; q < kFwdChunk / 4; ++q) {
+          int4 t = make_int4(-1, -1, -1, -1);
+          if (4 * q < len) t = __ldg(src + q);
+          code[4 * q] = t.x;
+          code[4 * q + 1] = t.y;
+          code[4 * q + 2] = t.z;
+          code[4 * q + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kFwdChunk; ++e) {
+          code[e] = e < len ? __ldg(crow + j0 + e) : -1;
+        }
       }
+      const float* wj = w + static_cast<size_t>(j0) * v * c + cc;
+      float x[kFwdChunk];
+#pragma unroll
+      for (int e = 0; e < kFwdChunk; ++e) {
+        const int cd = code[e];
+        x[e] = static_cast<unsigned>(cd) < static_cast<unsigned>(v)
+                   ? __ldg(wj + (static_cast<size_t>(e) * v + cd) * c)
+                   : 0.f;
+      }
+#pragma unroll
+      for (int w = kFwdChunk / 2; w > 0; w >>= 1) {
+#pragma unroll
+        for (int e = 0; e < w; ++e) x[e] += x[e + w];
+      }
+      acc += x[0];
     }
-    acc = warp_sum(acc);
-    if (lane == 0) out[static_cast<size_t>(row) * c + cc] = acc;
+    dst[cc] = acc;
   }
 }
 
-// Code of (row, j) for the dW kernel, or -1 where it adds nothing.
-struct WidenedCodes {
-  const int32_t* codes;
-  int k, v;
-  __device__ int operator()(int row, int j) const {
-    const int code = codes[static_cast<size_t>(row) * k + j];
-    return static_cast<unsigned>(code) < static_cast<unsigned>(v) ? code : -1;
-  }
-};
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
 
+// Exclusive prefix sum of one int per thread over a kPlanThreads block.
+__device__ int block_exclusive_sum(int x, int* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = x;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int t = lane < kPlanWarps ? warp_tot[lane] : 0;
+    int ti = t;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, ti, off);
+      if (lane >= off) ti += y;
+    }
+    if (lane < kPlanWarps) warp_tot[lane] = ti - t;
+  }
+  __syncthreads();
+  return incl - x + warp_tot[warp];
+}
+
+// Entry i of one bin for a plan pass, false past the bin's m_in entries or
+// for a code outside [0, v).  The first pass (icode == nullptr) reads the
+// bin's column of the (n, k) codes, row i at entry i; a later pass the
+// previous pass's output for the bin.
+__device__ __forceinline__ bool plan_entry(const int32_t* codes,
+                                           const int32_t* icode,
+                                           const int32_t* iperm, int i,
+                                           int m_in, int j, int k, int v,
+                                           int& code, int& row) {
+  if (i >= m_in) return false;
+  if (icode == nullptr) {
+    code = __ldg(codes + static_cast<size_t>(i) * k + j);
+    row = i;
+    return static_cast<unsigned>(code) < static_cast<unsigned>(v);
+  }
+  code = icode[i];
+  row = iperm[i];
+  return true;
+}
+
+// One pass of the plan's stable radix sort, block j for bin j: the bin's
+// entries ordered by the digit (code >> shift) & 255, ties in their input
+// order.  The first pass (in_code == nullptr) writes count[j], the number
+// of codes in [0, v); a later pass reads count[j] entries of in_*.  The
+// last pass fills the bin's tail past its entries with code v and row -1
+// and writes offsets[j] (257): where each digit's entries start, and
+// their count.
+__global__ void __launch_bounds__(kPlanThreads)
+dw_plan_kernel(const int32_t* __restrict__ codes,
+               const int32_t* __restrict__ in_code,
+               const int32_t* __restrict__ in_perm, int* __restrict__ count,
+               int32_t* __restrict__ out_code, int32_t* __restrict__ out_perm,
+               int32_t* __restrict__ offsets, int n, int k, int v, int shift,
+               int last) {
+  __shared__ int hist[kRadix];
+  __shared__ int run[kRadix];
+  __shared__ int wcnt[kPlanWarps][kRadix];
+  __shared__ int warp_tot[kPlanWarps];
+  __shared__ int total;
+  const int j = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool first = in_code == nullptr;
+  const int m_in = first ? n : count[j];
+  const size_t base = static_cast<size_t>(j) * n;
+  const int32_t* icode = first ? nullptr : in_code + base;
+  const int32_t* iperm = first ? nullptr : in_perm + base;
+  int32_t* ocode = out_code + base;
+  int32_t* operm = out_perm + base;
+
+  hist[threadIdx.x] = 0;
+  for (int w = 0; w < kPlanWarps; ++w) wcnt[w][threadIdx.x] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < m_in; i += kPlanThreads) {
+    int code, row;
+    if (plan_entry(codes, icode, iperm, i, m_in, j, k, v, code, row)) {
+      atomicAdd(&hist[(code >> shift) & (kRadix - 1)], 1);
+    }
+  }
+  __syncthreads();
+  const int h = hist[threadIdx.x];  // thread d owns digit d
+  const int start = block_exclusive_sum(h, warp_tot);
+  run[threadIdx.x] = start;
+  if (threadIdx.x == kPlanThreads - 1) total = start + h;
+  __syncthreads();
+
+  const unsigned lt = lanemask_lt();
+  for (int t0 = 0; t0 < m_in; t0 += kPlanThreads) {
+    int code = 0, row = 0;
+    const bool ok = plan_entry(codes, icode, iperm, t0 + threadIdx.x, m_in,
+                               j, k, v, code, row);
+    const int d = ok ? (code >> shift) & (kRadix - 1) : -1;
+    const unsigned peers = __match_any_sync(kFull, d);
+    const bool leader = lane == __ffs(peers) - 1;
+    if (ok && leader) wcnt[warp][d] = __popc(peers);
+    __syncthreads();
+    if (ok) {
+      int pos = run[d] + __popc(peers & lt);
+      for (int w = 0; w < warp; ++w) pos += wcnt[w][d];
+      ocode[pos] = code;
+      operm[pos] = row;
+    }
+    __syncthreads();  // every place is taken before the runs move on
+    if (ok && leader) {
+      atomicAdd(&run[d], __popc(peers));
+      wcnt[warp][d] = 0;
+    }
+    __syncthreads();
+  }
+  if (first && threadIdx.x == 0) count[j] = total;
+  if (last) {
+    int32_t* off = offsets + static_cast<size_t>(j) * (kRadix + 1);
+    off[threadIdx.x] = start;
+    if (threadIdx.x == 0) off[kRadix] = total;
+    for (int i = total + threadIdx.x; i < n; i += kPlanThreads) {
+      ocode[i] = v;
+      operm[i] = -1;
+    }
+  }
+}
+
+// The first entry in [lo, hi) of the sorted sc that is >= target (hi if
+// none), found by the whole block: each round probes kSumThreads evenly
+// spaced entries and keeps the stretch between the last one below target
+// and the next.
+__device__ int block_lower_bound(const int32_t* sc, int lo, int hi,
+                                 int target) {
+  while (lo < hi) {  // lo and hi are the same in every thread
+    const int step = (hi - lo + kSumThreads - 1) / kSumThreads;
+    const int p = lo + static_cast<int>(threadIdx.x) * step;
+    const int below = __syncthreads_count(p < hi && __ldg(sc + p) < target);
+    if (below == 0) {
+      hi = lo;
+    } else {
+      const int next = lo + (below - 1) * step + 1;
+      hi = min(hi, lo + below * step);
+      lo = next;
+    }
+  }
+  return lo;
+}
+
+// B8's sum.  grid (k, ceil(v / span)): block (j, y) owns
+// dW[j, y * span : (y + 1) * span, :] and writes each of its values once.
+// Its entries [s, e) (the bin's sorted entries with codes in the slice)
+// come from the offsets of the plan's last radix digit (code >> shift),
+// searched within a digit where the slice does not start or end on a
+// digit's boundary.  They are taken in windows of kSumWindow, thread t
+// the kSumPer consecutive entries from t * kSumPer, all loads in flight.
+// A run (a value's entries) may cross threads and windows: each thread sums
+// its entries of a run in order; a segmented scan over the threads (a
+// fixed shuffle tree in each warp, then the warps in order, after the
+// run's carry from earlier windows) gives each thread the sum of its
+// first run's entries before it.  The thread that holds a run's last
+// entry writes the run's sum to res; res, zeros included, is stored once.
+// Every sum's order depends on the shapes and the codes only.
+__global__ void __launch_bounds__(kSumThreads)
+dw_sum_kernel(const int32_t* __restrict__ scode,
+              const int32_t* __restrict__ perm,
+              const int32_t* __restrict__ offsets,
+              const float* __restrict__ dout, float* __restrict__ out, int n,
+              int v, int c, int span, int shift) {
+  __shared__ __align__(16) float res[kSumMaxSpan];    // the slice's sums
+  __shared__ int first_key[kSumThreads + 1];  // [kSumThreads]: the next one
+  __shared__ int last_key[kSumThreads];
+  __shared__ float upto[kSumThreads];  // a thread's last run's sum so far
+  __shared__ int warp_head[kSumWarps];
+  __shared__ float warp_tail[kSumWarps];
+  __shared__ int carry_key;            // the run open at a window's end
+  __shared__ float carry;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = blockIdx.x;
+  const int v0 = blockIdx.y * span;
+  const int nv = min(span, v - v0);
+  const int v1 = v0 + nv;
+  const int32_t* sc = scode + static_cast<size_t>(j) * n;
+  const int32_t* pm = perm + static_cast<size_t>(j) * n;
+  const int32_t* off = offsets + static_cast<size_t>(j) * (kRadix + 1);
+  const int digit = (1 << shift) - 1;
+  int s, e;
+  if ((v0 & digit) == 0) {
+    s = __ldg(off + (v0 >> shift));
+  } else {
+    const int r = v0 >> shift;
+    s = block_lower_bound(sc, __ldg(off + r), __ldg(off + r + 1), v0);
+  }
+  if (v1 == v) {
+    e = __ldg(off + kRadix);
+  } else if ((v1 & digit) == 0) {
+    e = __ldg(off + (v1 >> shift));
+  } else {
+    const int r = v1 >> shift;
+    e = block_lower_bound(sc, max(s, __ldg(off + r)), __ldg(off + r + 1),
+                          v1);
+  }
+  for (int cc = 0; cc < c; ++cc) {
+    for (int t = threadIdx.x; t < nv; t += kSumThreads) res[t] = 0.f;
+    if (threadIdx.x == 0) {
+      carry_key = -1;
+      carry = 0.f;
+    }
+    for (int w0 = s; w0 < e; w0 += kSumWindow) {
+      // this thread's entries; past e, key v (no value) and 0
+      const int base = w0 + threadIdx.x * kSumPer;
+      int key[kSumPer];
+      float x[kSumPer];
+#pragma unroll
+      for (int q = 0; q < kSumPer; ++q) {
+        const bool in = base + q < e;
+        key[q] = in ? __ldg(sc + base + q) : v;
+        x[q] = in ? __ldg(dout + static_cast<size_t>(__ldg(pm + base + q)) *
+                                     c + cc)
+                  : 0.f;
+      }
+      first_key[threadIdx.x] = key[0];
+      last_key[threadIdx.x] = key[kSumPer - 1];
+      if (threadIdx.x == 0) {
+        first_key[kSumThreads] =
+            w0 + kSumWindow < e ? __ldg(sc + w0 + kSumWindow) : v;
+      }
+      __syncthreads();  // keys and the carry are in
+      const int before =
+          threadIdx.x == 0 ? carry_key : last_key[threadIdx.x - 1];
+      // the thread's last run: its sum here, and whether it starts here
+      int head = 0;
+      float tail = 0.f;
+#pragma unroll
+      for (int q = 0; q < kSumPer; ++q) {
+        if (key[q] != (q == 0 ? before : key[q - 1])) {
+          head = 1;
+          tail = 0.f;
+        }
+        tail += x[q];
+      }
+      // segmented inclusive scan of (head, tail) over the warp
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int h = __shfl_up_sync(kFull, head, d);
+        const float t = __shfl_up_sync(kFull, tail, d);
+        if (lane >= d) {
+          if (!head) tail = t + tail;
+          head |= h;
+        }
+      }
+      if (lane == 31) {
+        warp_head[warp] = head;
+        warp_tail[warp] = tail;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // the warps' prefixes, in order, after the window's carry
+        int h = lane < kSumWarps ? warp_head[lane] : 1;
+        float t = lane < kSumWarps ? warp_tail[lane] : 0.f;
+        if (lane == 0 && !h) t = carry + t;
+#pragma unroll
+        for (int d = 1; d < kSumWarps; d <<= 1) {
+          const int hu = __shfl_up_sync(kFull, h, d);
+          const float tu = __shfl_up_sync(kFull, t, d);
+          if (lane >= d) {
+            if (!h) t = tu + t;
+            h |= hu;
+          }
+        }
+        const float before_sum = __shfl_up_sync(kFull, t, 1);
+        if (lane < kSumWarps) warp_tail[lane] = lane == 0 ? carry : before_sum;
+      }
+      __syncthreads();
+      if (!head) tail = warp_tail[warp] + tail;
+      upto[threadIdx.x] = tail;
+      __syncthreads();
+      // each run's sum, written by the thread with its last entry
+      float acc = key[0] == before
+                      ? (threadIdx.x == 0 ? carry : upto[threadIdx.x - 1])
+                      : 0.f;
+#pragma unroll
+      for (int q = 0; q < kSumPer; ++q) {
+        if (q > 0 && key[q] != key[q - 1]) acc = 0.f;
+        acc += x[q];
+        const int next =
+            q + 1 < kSumPer ? key[q + 1] : first_key[threadIdx.x + 1];
+        if (key[q] != next && key[q] < v1) res[key[q] - v0] = acc;
+      }
+      __syncthreads();  // the carry is read before it moves on
+      if (threadIdx.x == kSumThreads - 1) {
+        carry_key = key[kSumPer - 1];
+        carry = tail;
+      }
+    }
+    __syncthreads();  // res is complete
+    float* dst = out + (static_cast<size_t>(j) * v + v0) * c + cc;
+    if (c == 1 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      const int n4 = nv >> 2;
+      for (int q = threadIdx.x; q < n4; q += kSumThreads) {
+        reinterpret_cast<float4*>(dst)[q] =
+            reinterpret_cast<const float4*>(res)[q];
+      }
+      for (int t = 4 * n4 + threadIdx.x; t < nv; t += kSumThreads) {
+        dst[t] = res[t];
+      }
+    } else {
+      for (int t = threadIdx.x; t < nv; t += kSumThreads) {
+        dst[static_cast<size_t>(t) * c] = res[t];
+      }
+    }
+    __syncthreads();  // res is stored before the next class clears it
+  }
+}
+
+// Code of (row, j) for the B6 kernel, or -1 where it adds nothing.
 struct PackedCodes {
   const uint8_t* packed;
   const uint8_t* empty;  // nullptr: no mask
@@ -268,32 +668,105 @@ extern "C" int repro_bbit_linear_packed_fwd(const void* packed, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches B7: out (n, c), part (groups, n, c) scratch (unused when there
+// is one group).
 extern "C" int repro_bbit_linear_fwd(const void* codes, const void* w,
-                                     void* out, int n, int k, int v, int c,
+                                     void* part, void* out, int n, int k,
+                                     int v, int c, int group, int vec,
                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return 0;
-  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  repro_torch::bbit_linear_fwd_kernel<<<
-      blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(codes), static_cast<const float*>(w),
-      static_cast<float*>(out), n, k, v, c);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 0 || c == 0) return 0;
+  if (k == 0) {  // no bins: the logits are zeros
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(n) * c * sizeof(float), st));
+  }
+  if (group < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (k + group - 1) / group;
+  const dim3 grid((n + repro_torch::kFwdThreads - 1) / repro_torch::kFwdThreads,
+                  groups);
+  float* dst = static_cast<float*>(groups == 1 ? out : part);
+  const int32_t* cp = static_cast<const int32_t*>(codes);
+  const float* wp = static_cast<const float*>(w);
+  if (vec) {
+    repro_torch::bbit_linear_fwd_kernel<true>
+        <<<grid, repro_torch::kFwdThreads, 0, st>>>(cp, wp, dst, n, k, v, c,
+                                                    group);
+  } else {
+    repro_torch::bbit_linear_fwd_kernel<false>
+        <<<grid, repro_torch::kFwdThreads, 0, st>>>(cp, wp, dst, n, k, v, c,
+                                                    group);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(n) * c;
+  const int blocks =
+      static_cast<int>(std::min((total + 255) / 256, size_t{4096}));
+  repro_torch::sum_splits_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), total,
+      groups);
   return static_cast<int>(cudaGetLastError());
 }
 
-// part: (splits, k, v, c) scratch, unused when splits == 1.
-extern "C" int repro_bbit_linear_bwd_dw(const void* codes, const void* dout,
-                                        void* part, void* out, int n, int k,
-                                        int v, int c, int splits,
-                                        int rows_per_split, int device,
+// Builds B8's plan of int32 (n, k) codes: out_perm and out_code (k, n)
+// and offsets (k, 257) (the last pass's digit starts), in `passes` radix
+// passes (count (k,) and tmp_* (k, n) scratch, tmp_* unused with one
+// pass).  The passes alternate between out_* and tmp_* so that the last
+// one writes out_*.
+extern "C" int repro_bbit_linear_dw_plan(const void* codes, void* tmp_code,
+                                         void* tmp_perm, void* count,
+                                         void* out_code, void* out_perm,
+                                         void* offsets, int n, int k, int v,
+                                         int passes, int device,
+                                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (k == 0) return 0;
+  if (passes < 1 || passes > 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* outs[2] = {static_cast<int32_t*>(out_code),
+                      static_cast<int32_t*>(tmp_code)};
+  int32_t* perms[2] = {static_cast<int32_t*>(out_perm),
+                       static_cast<int32_t*>(tmp_perm)};
+  for (int p = 0; p < passes; ++p) {
+    const int to = (passes - 1 - p) & 1;  // 0: out_*, 1: tmp_*
+    const int32_t* in_code = p == 0 ? nullptr : outs[to ^ 1];
+    const int32_t* in_perm = p == 0 ? nullptr : perms[to ^ 1];
+    repro_torch::dw_plan_kernel<<<k, repro_torch::kPlanThreads, 0, st>>>(
+        static_cast<const int32_t*>(codes), in_code, in_perm,
+        static_cast<int*>(count), outs[to], perms[to],
+        static_cast<int32_t*>(offsets), n, k, v, 8 * p, p == passes - 1);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// B8's sum over a plan: out (k, v, c), span values of dW per block; shift
+// is the plan's last radix digit's, 8 x (passes - 1).
+extern "C" int repro_bbit_linear_dw_sum(const void* scode, const void* perm,
+                                        const void* offsets,
+                                        const void* dout, void* out, int n,
+                                        int k, int v, int c, int span,
+                                        int shift, int device,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  repro_torch::WidenedCodes code_at{static_cast<const int32_t*>(codes), k, v};
-  return repro_torch::launch_dw(code_at, dout, part, out, n, k, v, c, splits,
-                                rows_per_split,
-                                static_cast<cudaStream_t>(stream));
+  if (k == 0 || v == 0 || c == 0) return 0;
+  if (span < 1 || span > repro_torch::kSumMaxSpan || shift < 0 ||
+      shift > 24) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(k, (v + span - 1) / span);
+  repro_torch::dw_sum_kernel<<<grid, repro_torch::kSumThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(scode), static_cast<const int32_t*>(perm),
+      static_cast<const int32_t*>(offsets), static_cast<const float*>(dout),
+      static_cast<float*>(out), n, v, c, span, shift);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int repro_bbit_linear_packed_bwd_dw(

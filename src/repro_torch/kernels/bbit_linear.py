@@ -8,16 +8,30 @@ from widened int32 (n, k) codes (B7 ``bbit_linear_fwd``, B8
 ``bbit_linear_bwd_dw``) or straight from packed uint8 rows in the
 ``core.bbit`` layout (B5 ``bbit_linear_packed_fwd``, B6
 ``bbit_linear_packed_bwd_dw``), where an optional packbits empty mask
-(``oph_zero``) drops the marked bins.  Each wrapper launches its CUDA
-kernel of ``csrc/bbit_linear.cu`` on CUDA tensors and takes the plain
-version on CPU tensors.  The kernels sum in another order than torch,
-so the two agree to float32 rounding (allclose), not bit for bit; the
-kernels themselves sum in a fixed order, with no float atomics, and
-give the same bits on every run.
+(``oph_zero``) drops the marked bins.  A widened code outside [0, V)
+adds nothing, as in the reference's kernels.  Each wrapper launches its
+CUDA kernel of ``csrc/bbit_linear.cu`` on CUDA tensors and takes the
+plain version on CPU tensors.  The kernels sum in another order than
+torch, so the two agree to float32 rounding (allclose), not bit for
+bit; the kernels themselves sum in a fixed order, with no float atomics,
+and give the same bits on every run.
+
+B8 works from a plan of its codes: for each bin j, the rows whose code
+lies in [0, V), ordered by (code, row) (``bbit_linear_dw_plan``,
+``DwPlan``), after which each call sums runs of dout
+(``bbit_linear_dw_sum``).  TRON calls B8 about 51 times a fit on the
+same training codes, so the wrapper keeps the plans of the last
+``DW_PLAN_CACHE_ENTRIES`` codes tensors it saw (``_DwPlanCache``):
+8·n·k + 1,028·k bytes each (two int32 (k, n) tensors and 257 offsets a
+bin; 64.5 MB at 16,000 × 500 codes), and 8·n·k more of scratch while a
+plan with more than one radix pass (V > 256) is built.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,7 +41,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.counters import LaunchCount
 from repro_torch.kernels.fused_encode import check_bits
 
-# dW: bins per block (csrc kDwWarps), values per V tile (csrc kDwVTile),
+# B7: bins a thread gathers at once (csrc kFwdChunk), and the bytes of
+# a 32-bin slice of the table that still fit L1 beside other blocks
+FWD_CHUNK = 32
+FWD_L1_SLICE_BYTES = 64 << 10
+# B8: the plans kept; the entries a sum block aims at (four windows of
+# csrc kSumWindow) and its values at most (kSumMaxSpan)
+DW_PLAN_CACHE_ENTRIES = 4
+DW_SUM_TARGET_ENTRIES = 8192
+DW_SUM_MAX_SPAN = 2048
+MAX_GRID_Y = 65535
+# B6: bins per block (csrc kDwWarps), values per V tile (csrc kDwVTile),
 # and the grid the row splits aim at
 DW_BINS_PER_BLOCK = 8
 DW_V_TILE = 4096
@@ -36,31 +60,55 @@ DW_MIN_ROWS_PER_SPLIT = 256
 DW_MAX_SCRATCH_FLOATS = 1 << 26     # 256 MiB of partial tables
 
 
+def _kept(codes: torch.Tensor, vsize: int) -> torch.Tensor:
+    """Bool mask of the codes in [0, V): the ones that add anything."""
+    return (codes >= 0) & (codes < vsize)
+
+
 def gather_sum(codes: torch.Tensor, weights: torch.Tensor,
                 empty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Σ_j W[j, codes[:, j], :] over the bins not marked in bool
-    ``empty`` (n, k), in torch ops (differentiable in W)."""
-    j = torch.arange(codes.shape[1], device=codes.device)
-    gathered = weights[j[None, :], codes.to(torch.int64)].to(torch.float32)
+    ``empty`` (n, k) whose code lies in [0, V), in torch ops
+    (differentiable in W)."""
+    v = weights.shape[1]
+    codes = codes.to(torch.int64)
+    drop = ~_kept(codes, v)
     if empty is not None:
-        gathered = gathered.masked_fill(empty[:, :, None], 0.0)
-    return gathered.sum(dim=1)
+        drop = drop | empty
+    j = torch.arange(codes.shape[1], device=codes.device)
+    gathered = weights[j[None, :], codes.clamp(0, v - 1)].to(torch.float32)
+    return gathered.masked_fill(drop[:, :, None], 0.0).sum(dim=1)
 
 
 def _histogram(codes: torch.Tensor, dout: torch.Tensor, vsize: int,
                empty: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dW (k, V, C): ``dout`` rows added into the bins their codes pick,
-    skipping the bins marked in bool ``empty`` (n, k), in torch ops."""
+    skipping codes outside [0, V) and the bins marked in bool ``empty``
+    (n, k), in torch ops."""
     n, k = codes.shape
     c = dout.shape[1]
-    flat = (torch.arange(k, device=codes.device) * vsize)[None, :] \
-        + codes.to(torch.int64)
-    rows = dout.to(torch.float32)[:, None, :].expand(n, k, c)
+    codes = codes.to(torch.int64)
+    drop = ~_kept(codes, vsize)
     if empty is not None:
-        rows = rows.masked_fill(empty[:, :, None], 0.0)
+        drop = drop | empty
+    flat = (torch.arange(k, device=codes.device) * vsize)[None, :] \
+        + codes.clamp(0, vsize - 1)
+    rows = dout.to(torch.float32)[:, None, :].expand(n, k, c)
+    rows = rows.masked_fill(drop[:, :, None], 0.0)
     dw = torch.zeros((k * vsize, c), dtype=torch.float32, device=codes.device)
     dw.index_add_(0, flat.reshape(-1), rows.reshape(n * k, c))
     return dw.view(k, vsize, c)
+
+
+def fwd_layout(k: int, v: int, c: int) -> int:
+    """B7's bins per group for a (k, V, C) table, from the shapes alone:
+    32 where a 32-bin slice of the table fits L1 (``FWD_L1_SLICE_BYTES``),
+    so that the blocks resident on an SM share one slice; else all k in
+    one group, since the gathers then go to L2 or DRAM either way and
+    one group needs no second pass."""
+    if FWD_CHUNK * 4 * v * c <= FWD_L1_SLICE_BYTES:
+        return FWD_CHUNK
+    return max(k, 1)
 
 
 def bbit_linear_fwd_plain(codes: torch.Tensor, weights: torch.Tensor,
@@ -72,6 +120,19 @@ def bbit_linear_fwd_plain(codes: torch.Tensor, weights: torch.Tensor,
     return gather_sum(codes, weights, empty)
 
 
+def bbit_linear_fwd_grouped_plain(codes: torch.Tensor,
+                                  weights: torch.Tensor) -> torch.Tensor:
+    """B7's order of sums in torch ops: the partial logits of each bin
+    group of ``fwd_layout``, added in group order."""
+    k = codes.shape[1]
+    group = fwd_layout(k, weights.shape[1], weights.shape[2])
+    out = None
+    for j0 in range(0, max(k, 1), group):
+        part = gather_sum(codes[:, j0:j0 + group], weights[j0:j0 + group])
+        out = part if out is None else out + part
+    return out
+
+
 def bbit_linear_bwd_dw_plain(codes: torch.Tensor, dout: torch.Tensor,
                              vsize: int,
                              empty: Optional[torch.Tensor] = None
@@ -79,6 +140,119 @@ def bbit_linear_bwd_dw_plain(codes: torch.Tensor, dout: torch.Tensor,
     """B8's plain version (``ref.bbit_linear_bwd_dw``); bool ``empty``
     (n, k) drops the marked bins."""
     return _histogram(codes, dout, vsize, empty)
+
+
+def dw_plan_passes(vsize: int) -> int:
+    """Radix passes of 8 bits that B8's plan takes to sort codes in
+    [0, V): one for V ≤ 256, two for V ≤ 65536."""
+    return max(1, -(-max(vsize - 1, 0).bit_length() // 8))
+
+
+def dw_sum_span(n: int, vsize: int) -> int:
+    """Values of dW a block of B8's sum owns: the power of two nearest
+    below ``DW_SUM_TARGET_ENTRIES``·V/n (about that many entries), within
+    [32, ``DW_SUM_MAX_SPAN``] and at most V."""
+    want = max(DW_SUM_TARGET_ENTRIES * vsize // max(n, 1), 1)
+    span = 1 << (want.bit_length() - 1)
+    return max(1, min(vsize, DW_SUM_MAX_SPAN, max(32, span)))
+
+
+class DwPlan(NamedTuple):
+    """B8's plan of int32 codes (n, k), for a table of V values.  Row j
+    of ``perm`` (int32 (k, n)) holds the rows whose code of bin j lies
+    in [0, V), ordered by (code, row), then -1; row j of ``scode`` their
+    codes, then V; row j of ``offsets`` (int32 (k, 257)) where each
+    value d of the last radix digit (code >> 8·(passes − 1)) starts
+    among them, and at 256 their count."""
+    perm: torch.Tensor
+    scode: torch.Tensor
+    offsets: torch.Tensor
+
+
+def bbit_linear_dw_plan_plain(codes: torch.Tensor, vsize: int) -> DwPlan:
+    """B8's plan in torch ops (``DwPlan``)."""
+    keys = codes.to(torch.int64).t()
+    keys = torch.where(_kept(keys, vsize), keys, vsize)
+    scode, order = torch.sort(keys, dim=1, stable=True)
+    kept = scode < vsize
+    shift = 8 * (dw_plan_passes(vsize) - 1)
+    digits = torch.where(kept, scode >> shift, 256).contiguous()
+    bounds = torch.arange(257, device=codes.device).expand(
+        digits.shape[0], 257).contiguous()
+    offsets = torch.searchsorted(digits, bounds)
+    return DwPlan(torch.where(kept, order, -1).to(torch.int32).contiguous(),
+                  scode.to(torch.int32).contiguous(),
+                  offsets.to(torch.int32))
+
+
+def bbit_linear_dw_sum_plain(plan: DwPlan, dout: torch.Tensor,
+                             vsize: int) -> torch.Tensor:
+    """B8's sum over a plan in torch ops: dW f32 (k, V, C)."""
+    k = plan.perm.shape[0]
+    c = dout.shape[1]
+    kept = plan.scode < vsize
+    dev = plan.perm.device
+    flat = ((torch.arange(k, device=dev) * vsize)[:, None]
+            + plan.scode.to(torch.int64))[kept]
+    rows = dout.to(torch.float32)[plan.perm.to(torch.int64)[kept]]
+    dw = torch.zeros((k * vsize, c), dtype=torch.float32, device=dev)
+    dw.index_add_(0, flat, rows)
+    return dw.view(k, vsize, c)
+
+
+class _DwPlanCache:
+    """B8's plans by codes tensor, at most ``entries`` of them, the least
+    recently used dropped first.  An entry holds a weak reference to its
+    codes tensor and goes when the tensor dies; it serves only that same
+    tensor object, at the same ``_version`` (no in-place write since),
+    data pointer, shape and device, and the same V.  ``get`` builds a
+    missing plan with ``build(codes, vsize)`` and counts it in
+    ``builds``."""
+
+    def __init__(self, entries: int, builds: Optional[LaunchCount] = None):
+        self.entries = entries
+        self.builds = LaunchCount() if builds is None else builds
+        self._plans: "OrderedDict[int, tuple]" = OrderedDict()
+        self._lock = threading.RLock()   # a weakref callback may re-enter
+
+    @staticmethod
+    def _stamp(codes: torch.Tensor, vsize: int) -> tuple:
+        return (codes._version, codes.data_ptr(), tuple(codes.shape),
+                codes.device, vsize)
+
+    def get(self, codes: torch.Tensor, vsize: int,
+            build: Callable[[torch.Tensor, int], DwPlan]) -> DwPlan:
+        key, stamp = id(codes), self._stamp(codes, vsize)
+        with self._lock:
+            hit = self._plans.get(key)
+            if hit is not None and hit[0]() is codes and hit[1] == stamp:
+                self._plans.move_to_end(key)
+                return hit[2]
+        plan = build(codes, vsize)
+        self.builds.add()
+        ref = weakref.ref(codes, lambda r, key=key: self._drop(key, r))
+        with self._lock:
+            self._plans[key] = (ref, stamp, plan)
+            self._plans.move_to_end(key)
+            while len(self._plans) > self.entries:
+                self._plans.popitem(last=False)
+        return plan
+
+    def _drop(self, key: int, ref) -> None:
+        with self._lock:
+            hit = self._plans.get(key)
+            if hit is not None and hit[0] is ref:
+                del self._plans[key]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._plans.clear()
+
+    def __len__(self) -> int:
+        return len(self._plans)
+
+
+_DW_PLANS = _DwPlanCache(DW_PLAN_CACHE_ENTRIES)
 
 
 def bbit_linear_packed_fwd_plain(packed: torch.Tensor,
@@ -163,26 +337,48 @@ def _dw_buffers(n: int, k: int, v: int, c: int, device: torch.device):
     return out, part, splits, rows
 
 
-def bbit_linear_fwd(codes: torch.Tensor,
-                    weights: torch.Tensor) -> torch.Tensor:
-    """B7: logits f32 (n, C) from int32 codes (n, k) in [0, V) and a
-    table f32 (k, V, C)."""
-    if _build.on_cpu("bbit_linear_fwd", codes):
-        return bbit_linear_fwd_plain(codes, weights)
+def _check_codes(what: str, codes: torch.Tensor) -> None:
+    if codes.dtype != torch.int32 or codes.dim() != 2:
+        raise ValueError(f"{what}: codes must be int32 (n, k), got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+
+
+def _fwd_launch(codes: torch.Tensor, weights: torch.Tensor,
+                group: int) -> torch.Tensor:
+    """Launches B7 with ``group`` bins per group (``fwd_layout``'s, on
+    the main path)."""
     n, k = codes.shape
-    if codes.dtype != torch.int32:
-        raise ValueError(f"bbit_linear_fwd: codes must be int32, got "
-                         f"{codes.dtype}")
-    _check_table("bbit_linear_fwd", weights, k, 1)
-    _check_same_device("bbit_linear_fwd", codes, weights)
     v, c = weights.shape[1], weights.shape[2]
+    groups = -(-k // group)
+    if groups > MAX_GRID_Y:
+        raise ValueError(f"bbit_linear_fwd: {groups} bin groups, more than "
+                         f"{MAX_GRID_Y}")
     out = torch.empty((n, c), dtype=torch.float32, device=codes.device)
+    part = (torch.empty((groups, n, c), dtype=torch.float32,
+                        device=codes.device) if groups > 1 else out)
+    vec = k % 4 == 0 and codes.data_ptr() % 16 == 0
     lib = _build.load("bbit_linear")
     with torch.cuda.device(codes.device):
         code = lib.repro_bbit_linear_fwd(
-            codes.data_ptr(), weights.data_ptr(), out.data_ptr(), n, k, v, c,
+            codes.data_ptr(), weights.data_ptr(), part.data_ptr(),
+            out.data_ptr(), n, k, v, c, group, int(vec),
             codes.device.index, _build.stream(codes))
     _build.check("bbit_linear", code, "bbit_linear_fwd")
+    return out
+
+
+def bbit_linear_fwd(codes: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """B7: logits f32 (n, C) from int32 codes (n, k) and a table f32
+    (k, V, C); codes outside [0, V) add nothing."""
+    if _build.on_cpu("bbit_linear_fwd", codes):
+        return bbit_linear_fwd_plain(codes, weights)
+    _check_codes("bbit_linear_fwd", codes)
+    k = codes.shape[1]
+    _check_table("bbit_linear_fwd", weights, k, 1)
+    _check_same_device("bbit_linear_fwd", codes, weights)
+    out = _fwd_launch(codes, weights,
+                      fwd_layout(k, weights.shape[1], weights.shape[2]))
     bbit_linear_fwd.launches.add()
     return out
 
@@ -190,32 +386,99 @@ def bbit_linear_fwd(codes: torch.Tensor,
 bbit_linear_fwd.launches = LaunchCount()
 
 
-def bbit_linear_bwd_dw(codes: torch.Tensor, dout: torch.Tensor,
-                       vsize: int) -> torch.Tensor:
-    """B8: dW f32 (k, V, C) from int32 codes (n, k) and dout f32 (n, C);
-    codes outside [0, V) add nothing."""
-    if _build.on_cpu("bbit_linear_bwd_dw", codes):
-        return bbit_linear_bwd_dw_plain(codes, dout, vsize)
+def bbit_linear_dw_plan(codes: torch.Tensor, vsize: int) -> DwPlan:
+    """B8's plan of int32 codes (n, k) (``DwPlan``), built by the plan
+    kernel (a stable radix sort of each bin's rows by code) on a CUDA
+    tensor."""
+    if _build.on_cpu("bbit_linear_dw_plan", codes):
+        return bbit_linear_dw_plan_plain(codes, vsize)
+    _check_codes("bbit_linear_dw_plan", codes)
+    _check_same_device("bbit_linear_dw_plan", codes)
+    if vsize < 1:
+        raise ValueError(f"bbit_linear_dw_plan: vsize {vsize} < 1")
     n, k = codes.shape
-    if codes.dtype != torch.int32:
-        raise ValueError(f"bbit_linear_bwd_dw: codes must be int32, got "
-                         f"{codes.dtype}")
-    _check_dout("bbit_linear_bwd_dw", dout, n)
-    _check_same_device("bbit_linear_bwd_dw", codes, dout)
-    c = dout.shape[1]
-    out, part, splits, rows = _dw_buffers(n, k, vsize, c, codes.device)
+    dev = codes.device
+    passes = dw_plan_passes(vsize)
+    plan = DwPlan(torch.empty((k, n), dtype=torch.int32, device=dev),
+                  torch.empty((k, n), dtype=torch.int32, device=dev),
+                  torch.empty((k, 257), dtype=torch.int32, device=dev))
+    count = torch.empty((k,), dtype=torch.int32, device=dev)
+    tmp = (torch.empty((2, k, n), dtype=torch.int32, device=dev)
+           if passes > 1 else None)
     lib = _build.load("bbit_linear")
-    with torch.cuda.device(codes.device):
-        code = lib.repro_bbit_linear_bwd_dw(
-            codes.data_ptr(), dout.data_ptr(), part.data_ptr(),
-            out.data_ptr(), n, k, vsize, c, splits, rows,
-            codes.device.index, _build.stream(codes))
-    _build.check("bbit_linear", code, "bbit_linear_bwd_dw")
+    with torch.cuda.device(dev):
+        code = lib.repro_bbit_linear_dw_plan(
+            codes.data_ptr(), None if tmp is None else tmp[0].data_ptr(),
+            None if tmp is None else tmp[1].data_ptr(), count.data_ptr(),
+            plan.scode.data_ptr(), plan.perm.data_ptr(),
+            plan.offsets.data_ptr(), n, k, vsize, passes, dev.index,
+            _build.stream(codes))
+    _build.check("bbit_linear", code, "bbit_linear_dw_plan")
+    return plan
+
+
+def bbit_linear_dw_sum(plan: DwPlan, dout: torch.Tensor,
+                       vsize: int) -> torch.Tensor:
+    """B8's sum over a plan: dW f32 (k, V, C) from a ``DwPlan`` and dout
+    f32 (n, C); each launch counts on ``bbit_linear_bwd_dw.launches``."""
+    if _build.on_cpu("bbit_linear_dw_sum", plan.perm):
+        return bbit_linear_dw_sum_plain(plan, dout, vsize)
+    k, n = plan.perm.shape
+    if (any(t.dtype != torch.int32 for t in plan)
+            or plan.scode.shape != plan.perm.shape
+            or plan.offsets.shape != (k, 257)):
+        raise ValueError("bbit_linear_dw_sum: a plan is int32 perm and "
+                         "scode (k, n) and offsets (k, 257), got "
+                         f"{[(t.dtype, tuple(t.shape)) for t in plan]}")
+    _check_dout("bbit_linear_dw_sum", dout, n)
+    _check_same_device("bbit_linear_dw_sum", plan.perm, plan.scode,
+                       plan.offsets, dout)
+    out = _dw_sum_launch(plan, dout, vsize, dw_sum_span(n, vsize))
     bbit_linear_bwd_dw.launches.add()
     return out
 
 
+def _dw_sum_launch(plan: DwPlan, dout: torch.Tensor, vsize: int,
+                   span: int) -> torch.Tensor:
+    """Launches B8's sum with ``span`` values of dW a block
+    (``dw_sum_span``'s, on the main path)."""
+    k, n = plan.perm.shape
+    if -(-vsize // span) > MAX_GRID_Y:
+        raise ValueError(f"bbit_linear_dw_sum: V={vsize} needs more than "
+                         f"{MAX_GRID_Y} blocks of {span} values")
+    c = dout.shape[1]
+    dev = plan.perm.device
+    out = torch.empty((k, vsize, c), dtype=torch.float32, device=dev)
+    lib = _build.load("bbit_linear")
+    with torch.cuda.device(dev):
+        code = lib.repro_bbit_linear_dw_sum(
+            plan.scode.data_ptr(), plan.perm.data_ptr(),
+            plan.offsets.data_ptr(), dout.data_ptr(), out.data_ptr(), n, k,
+            vsize, c, span, 8 * (dw_plan_passes(vsize) - 1), dev.index,
+            _build.stream(plan.perm))
+    _build.check("bbit_linear", code, "bbit_linear_dw_sum")
+    return out
+
+
+def bbit_linear_bwd_dw(codes: torch.Tensor, dout: torch.Tensor,
+                       vsize: int) -> torch.Tensor:
+    """B8: dW f32 (k, V, C) from int32 codes (n, k) and dout f32 (n, C);
+    codes outside [0, V) add nothing.  On the card: the plan of
+    ``codes`` (built once per tensor and kept, see the module's
+    docstring), then the sum over it."""
+    if _build.on_cpu("bbit_linear_bwd_dw", codes):
+        return bbit_linear_bwd_dw_plain(codes, dout, vsize)
+    _check_codes("bbit_linear_bwd_dw", codes)
+    _check_dout("bbit_linear_bwd_dw", dout, codes.shape[0])
+    _check_same_device("bbit_linear_bwd_dw", codes, dout)
+    return bbit_linear_dw_sum(_DW_PLANS.get(codes, vsize,
+                                            bbit_linear_dw_plan),
+                              dout, vsize)
+
+
 bbit_linear_bwd_dw.launches = LaunchCount()
+bbit_linear_bwd_dw.plan_builds = _DW_PLANS.builds
+bbit_linear_bwd_dw.clear_plans = _DW_PLANS.clear
 
 
 def bbit_linear_packed_fwd(packed: torch.Tensor, weights: torch.Tensor, *,

@@ -8,8 +8,8 @@ The eligibility predicates are the limits of the kernels' own layouts:
   * the kernels that read or write packed codes byte by byte (B1, B2,
     B5, B6) need b ∈ {1, 2, 4, 8}, so codes never straddle a byte
     (``whole_byte_codes``);
-  * the widened linear kernels (B7, B8) take any V: dW cuts a wide
-    table into V tiles of its shared-memory histogram;
+  * the widened linear kernels (B7, B8) take any V below about 2^27
+    (B8's sum: at most 65,535 blocks of 2,048 values a bin);
   * the VW sketch kernel (B9) needs a power-of-two m;
   * the Hamming kernel (B10) takes packed rows of any b.
 
@@ -27,7 +27,9 @@ here catches a kernel's failure.
 ``bbit_linear`` and ``bbit_linear_packed`` are ``torch.autograd.Function``s
 (the reference's ``custom_vjp``s): the forward kernel (B7, B5) and, for
 the gradient in the table, the dW kernel (B8, B6).  Integer inputs carry
-no gradient.
+no gradient.  B8 keeps a plan of each codes tensor it sees (see
+``kernels/bbit_linear.py``); ``counts()`` shows the plans built as
+``bbit_linear_bwd_dw_plans``.
 """
 from __future__ import annotations
 
@@ -61,17 +63,20 @@ LAUNCHES: Dict[str, LaunchCount] = {
     "hamming_distance": _hd.hamming_distance.launches,
 }
 PLAIN: Dict[str, LaunchCount] = {name: LaunchCount() for name in LAUNCHES}
+PLAN_BUILDS = _bl.bbit_linear_bwd_dw.plan_builds
 
 
 def counts() -> Dict[str, int]:
-    """{kernel: launches, kernel + "_plain": plain calls}."""
+    """{kernel: launches, kernel + "_plain": plain calls,
+    "bbit_linear_bwd_dw_plans": B8's plans built}."""
     out = {name: c.value for name, c in LAUNCHES.items()}
     out.update({f"{name}_plain": c.value for name, c in PLAIN.items()})
+    out["bbit_linear_bwd_dw_plans"] = PLAN_BUILDS.value
     return out
 
 
 def reset_counts() -> None:
-    for c in (*LAUNCHES.values(), *PLAIN.values()):
+    for c in (*LAUNCHES.values(), *PLAIN.values(), PLAN_BUILDS):
         c.reset()
 
 

@@ -5,8 +5,8 @@ torch:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Integer outputs (B1-B4, B10) must be equal, and B3, B4 and B10 give
-the same bytes on two calls.  B5–B8 sum in another order than
+Integer outputs (B1-B4, B10, B8's plan) must be equal, and B3, B4 and
+B10 give the same bytes on two calls.  B5–B8 sum in another order than
 torch, so they are held to allclose at 1e-5 and to run-to-run equality
 (B6 and B8 bit-identical on two calls).  B9 with values of ones must
 equal its plain version byte for byte; with random values allclose at
@@ -177,6 +177,85 @@ def test_widened_kernels_at_the_paper_width(cuda, c):
     assert torch.equal(got, again) and torch.equal(dw, dw_again)
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
     assert bool(((dw - dw_want).abs() <= 1e-5 * dw_scale + 1e-6).all())
+
+
+def _with_strays(codes, v, seed):
+    """``codes`` with about 5 % of them moved outside [0, V)."""
+    rng = np.random.default_rng(seed)
+    out = codes.cpu().numpy().copy()
+    stray = rng.random(out.shape) < 0.05
+    out[stray] = rng.choice(np.array([-1, v, v + 7, -(1 << 20)], np.int32),
+                            size=int(stray.sum()))
+    return torch.from_numpy(out).to(codes.device)
+
+
+@pytest.mark.parametrize("bits,k,n", [(1, 37, 4099), (8, 256, 16000),
+                                      (12, 30, 515), (16, 500, 16000),
+                                      (16, 3, 1), (4, 5, 0), (17, 4, 300)])
+def test_dw_plan_kernel_matches_plain_plan(cuda, bits, k, n):
+    """B8's plan kernel (a stable radix sort of each bin's rows by code,
+    codes outside [0, V) left out, and the last pass's digit offsets)
+    equals the plain plan byte for byte, at one, two and three 8-bit
+    passes."""
+    codes, _, _ = _widened(n, k, min(bits, 16), 1, seed=bits + k, dev=cuda)
+    v = 1 << bits
+    codes = _with_strays(codes, v, seed=bits)
+    plan = bbit_linear.bbit_linear_dw_plan(codes, v)
+    want = bbit_linear.bbit_linear_dw_plan_plain(codes, v)
+    torch.cuda.synchronize()
+    assert plan.perm.shape == plan.scode.shape == (k, n)
+    assert all(torch.equal(a, b) for a, b in zip(plan, want))
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("bits,k,n", [(1, 37, 4099), (8, 256, 16000),
+                                      (16, 500, 16000), (12, 7, 33)])
+def test_bwd_dw_same_bytes_from_fresh_cached_and_rebuilt_plans(cuda, c, bits,
+                                                               k, n):
+    """B8's dW has the same bytes from a plan just built, from the cached
+    plan and from a plan built again after the cache was cleared, and
+    agrees with its plain version (codes outside [0, V) included)."""
+    codes, _, dout = _widened(n, k, bits, c, seed=c * bits, dev=cuda)
+    v = 1 << bits
+    codes = _with_strays(codes, v, seed=c)
+    fn = bbit_linear.bbit_linear_bwd_dw
+    fn.clear_plans()
+    builds = fn.plan_builds.value
+    fresh = fn(codes, dout, v)
+    cached = fn(codes, dout, v)
+    assert fn.plan_builds.value == builds + 1
+    fn.clear_plans()
+    rebuilt = fn(codes, dout, v)
+    assert fn.plan_builds.value == builds + 2
+    want = bbit_linear.bbit_linear_bwd_dw_plain(codes, dout, v)
+    scale = bbit_linear.bbit_linear_bwd_dw_plain(codes, dout.abs(), v)
+    torch.cuda.synchronize()
+    assert torch.equal(fresh, cached) and torch.equal(fresh, rebuilt)
+    assert bool(((fresh - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("n", [1, 4097])
+@pytest.mark.parametrize("bits,k,c", [(8, 37, 1), (8, 300, 1), (9, 70, 1),
+                                      (4, 130, 3)])
+def test_fwd_kernel_with_a_ragged_last_bin_group(cuda, n, bits, k, c):
+    """B7 where k is not a multiple of its bin group (32 bins where a
+    32-bin slice of the table fits L1): the partial logits of each
+    group, added in group order, match the plain versions, and the same
+    bytes on two calls; codes outside [0, V) add nothing."""
+    codes, weights, _ = _widened(n, k, bits, c, seed=n + k, dev=cuda)
+    v = 1 << bits
+    group = bbit_linear.fwd_layout(k, v, c)
+    assert 1 < -(-k // group) and k % group != 0
+    codes = _with_strays(codes, v, seed=k)
+    got = bbit_linear.bbit_linear_fwd(codes, weights)
+    again = bbit_linear.bbit_linear_fwd(codes, weights)
+    want = bbit_linear.bbit_linear_fwd_plain(codes, weights)
+    grouped = bbit_linear.bbit_linear_fwd_grouped_plain(codes, weights)
+    scale = bbit_linear.bbit_linear_fwd_plain(codes, weights.abs())
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for ref in (want, grouped):
+        assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
 
 
 @pytest.mark.parametrize("c", [1, 4])
