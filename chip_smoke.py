@@ -20,9 +20,10 @@ Phases, one line of output each (or more), any failure exits non-zero:
            {1, 2, 4, 8} with and without the mask, C in {1, 4}, ragged
            k=37 and n=4099, B7 allclose 1e-5, B6 and B8 within 1e-5 of
            each bin's sum of absolute terms (a bin sums up to 2,000 terms
-           at b=1) and the same bytes on two calls; vw_sketch (B9) at m in {2, 64, 1024, 16384}, byte for
+           at b=1) and the same bytes on two calls; vw_sketch (B9) at
+           m in {2, 64, 256, 1024, 16384} (both of its designs), byte for
            byte with values of ones, allclose (1e-5, 1e-4) with random
-           values;
+           values, the same bytes on two calls;
   engine   HashedClassifierEngine at the rcv1_oph width (k=256, b=8, 2
            classes) with seeded random weights, for minwise, oph and
            oph_zero: 384 synthetic expanded-rcv1 documents through
@@ -80,7 +81,9 @@ Phases, one line of output each (or more), any failure exits non-zero:
            20,000 rows; on every 8th query the full scan's distances and
            top-10 indices are held to B10's plain version (and, once, to
            a second call);
-  timing   each kernel at its main path's shapes with CUDA events, its
+  timing   the launch floor (torch.cuda._sleep(0), a kernel that does no
+           work, over 500 calls), then each kernel at its main path's
+           shapes with CUDA events, its
            plain version, its one-call PyTorch yardstick where there is
            one, and the bound (the larger of bytes over 3.35 TB/s and
            operations over the card's rate for their type: int32 for
@@ -90,8 +93,9 @@ Phases, one line of output each (or more), any failure exits non-zero:
            C=1 (vs embedding_bag and bincount), and at the paper fits'
            16,000 x 500 codes, V=65536, B8 over its cached plan and,
            as plan_ms, the plan kernel that builds it; B6 at 1,024 and 16,000
-           packed rows (vs bincount on unpacked codes); B9 at one 256-row
-           chunk of real documents, m=64 and m=2^14; B3 (k=500 and 256)
+           packed rows (vs bincount on unpacked codes); B9 at m=64 and
+           m=2^14 on the middle 256-row chunk of the length-sorted corpus
+           and on the widest full one; B3 (k=500 and 256)
            and B4 (k=256) on the widest full 1,024-row chunk of the train
            corpus; B10 over the 20,000 indexed rows and over a typical
            candidate set.
@@ -433,7 +437,7 @@ def check_vw_kernel(torch, dev, rng, errs):
     ones = torch.ones((n, mx), dtype=torch.float32, device=dev)
     vals = torch.from_numpy(
         rng.normal(size=(n, mx)).astype(np.float32)).to(dev)
-    for m in (2, 64, 1024, VW_WIDE):
+    for m in (2, 64, 256, 1024, VW_WIDE):
         got = vw.vw_sketch(idx, ones, nnz, m, seed=VW_SEED)
         want = vw.vw_sketch_plain(idx, ones, nnz, m, seed=VW_SEED)
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -1332,6 +1336,10 @@ def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
                                 generator=torch.Generator().manual_seed(0))
              ).to(dev)
     w_bytes, e_bytes = packed_width(K, B), packed_mask_width(K)
+    # the launch floor: a kernel that does no work, timed as every kernel
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0), 500)
+    print(f"timing: launch_floor_ms={floor} (torch.cuda._sleep(0), 500 "
+          f"calls) card={card}")
     out = {}
     for lane in NNZ_BUCKETS:
         idx, nnz, total_nnz = lane_batch(torch, dev, docs, lane)
@@ -1377,7 +1385,8 @@ def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
                   f"({r['bound_by']}) library_ms={r['library_ms']} "
                   f"card={card}")
         out[lane] = rec
-    return {"main": out[NNZ_BUCKETS[-1]], "shapes": out}
+    return {"main": out[NNZ_BUCKETS[-1]], "shapes": out,
+            "launch_floor_ms": floor}
 
 
 def phase_timing_train(torch, dev, data, paper, card: str,
@@ -1484,24 +1493,28 @@ def phase_timing_train(torch, dev, data, paper, card: str,
                time_ms(torch, lambda: torch.bincount(f1, weights=wr,
                                                      minlength=K * v), 200),
                is_main=rows_n == STREAM_BATCH)
+    # B9 on the middle chunk of the corpus (the main-path record) and on
+    # the widest full one (256 rows of 4,182-4,245 ids), where a row's
+    # threads walk the most ids
     rows = data["rows"]
     chunks = list(_length_sorted_chunks(rows, VW_CHUNK))
-    sel = chunks[len(chunks) // 2]
-    idx, nnz = pad_rows([rows[i] for i in sel])
-    total_nnz = int(nnz.sum())
-    idx = torch.from_numpy(idx).to(dev)
-    nnz = torch.from_numpy(nnz).to(dev)
-    ones = torch.ones(idx.shape, dtype=torch.float32, device=dev)
-    for m in (VW_EQUAL, VW_WIDE):
-        record("vw_sketch", f"rows={len(sel)} nnz_sum={total_nnz} "
-               f"pad={idx.shape[1]} m={m}",
-               time_ms(torch, lambda: vw.vw_sketch(idx, ones, nnz, m,
-                                                   seed=VW_SEED), 200),
-               time_ms(torch, lambda: vw.vw_sketch_plain(
-                   idx, ones, nnz, m, seed=VW_SEED), 20),
-               bound(8 * total_nnz + 4 * len(sel) + 4 * len(sel) * m,
-                     OPS_PER_VW_ID * total_nnz, int_rate),
-               None, is_main=m == VW_WIDE)
+    widest = [c for c in chunks if len(c) == VW_CHUNK][-1]
+    for sel, mid in ((chunks[len(chunks) // 2], True), (widest, False)):
+        idx, nnz = pad_rows([rows[i] for i in sel])
+        total_nnz = int(nnz.sum())
+        idx = torch.from_numpy(idx).to(dev)
+        nnz = torch.from_numpy(nnz).to(dev)
+        ones = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+        for m in (VW_EQUAL, VW_WIDE):
+            record("vw_sketch", f"rows={len(sel)} nnz_sum={total_nnz} "
+                   f"pad={idx.shape[1]} m={m}",
+                   time_ms(torch, lambda: vw.vw_sketch(idx, ones, nnz, m,
+                                                       seed=VW_SEED), 200),
+                   time_ms(torch, lambda: vw.vw_sketch_plain(
+                       idx, ones, nnz, m, seed=VW_SEED), 20),
+                   bound(8 * total_nnz + 4 * len(sel) + 4 * len(sel) * m,
+                         OPS_PER_VW_ID * total_nnz, int_rate),
+                   None, is_main=mid and m == VW_WIDE)
     return {"main": main, "shapes": out}
 
 
@@ -1625,6 +1638,7 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "int32_ops_per_s": int_rate,
+                       "launch_floor_ms": timing["launch_floor_ms"],
                        "kernels": kernels, "edge_max_abs_err": edge_errs,
                        "timing": timing["shapes"],
                        "timing_train": timing_train["shapes"],

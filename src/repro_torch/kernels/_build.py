@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                             I, I, I, I, P],
     },
     "vw_sketch": {
-        "repro_vw_sketch": [P, P, P, P, I, I, I, I, U, I, P],
+        "repro_vw_sketch": [P, P, P, P, I, I, I, I, I, U, I, P],
     },
     "minhash": {
         "repro_minhash": [P, P, P, P, P, I, I, I, I, P],
@@ -58,7 +58,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_oph": [P, P, P, P, P, I, I, I, I, I, P],
     },
     "hamming": {
-        "repro_hamming_distance": [P, P, P, I, I, I, I, P],
+        "repro_hamming_distance": [P, P, P, I, I, I, I, I, I, I, I, P],
     },
 }
 ERROR_FN = {name: f"repro_{name}_error" for name in SIGNATURES}

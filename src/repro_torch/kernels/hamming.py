@@ -11,10 +11,51 @@ plain version give the same int32 in any order.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.counters import LaunchCount
+
+WARPS_PER_BLOCK = 8
+# warps an SM keeps resident (2,048 threads); a scan larger than one wave
+# of them gives each warp 2 or 4 row groups
+WARPS_PER_SM = 64
+MAX_REPS = 4
+
+
+def load_word(w: int, *ptrs: int) -> int:
+    """Bytes a load of the kernel: 16 where w % 16 == 0 and every base
+    address is 16-byte aligned, else 4 where the same holds for 4, else
+    1."""
+    for word in (16, 4):
+        if w % word == 0 and all(p % word == 0 for p in ptrs):
+            return word
+    return 1
+
+
+def hamming_layout(n: int, w: int, word: int, sms: int) -> tuple:
+    """(lanes a row, row groups a warp, threads a block, blocks) for n
+    rows of w bytes read ``word`` bytes a load on a card of ``sms`` SMs:
+    the power of two of lanes that covers a row's words once, at most
+    32, so a group is 32 / lanes rows; 1, 2 or 4 groups a warp, the
+    fewest that fit one wave of resident warps; blocks of up to
+    ``WARPS_PER_BLOCK`` warps, enough of them to cover the rows."""
+    words = max(1, w // word)
+    lanes = min(32, 1 << (words - 1).bit_length())
+    groups = max(1, -(-n // (32 // lanes)))
+    reps = 1
+    while reps < MAX_REPS and -(-groups // reps) > sms * WARPS_PER_SM:
+        reps *= 2
+    warps = -(-groups // reps)
+    per_block = min(WARPS_PER_BLOCK, warps)
+    return lanes, reps, 32 * per_block, -(-warps // per_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _popcount_table(device) -> torch.Tensor:
@@ -48,15 +89,26 @@ def hamming_distance(query: torch.Tensor,
                          f"cands on {cands.device}")
     query, cands = query.contiguous(), cands.contiguous()
     n, w = cands.shape
-    aligned = int(w % 4 == 0 and cands.data_ptr() % 4 == 0)
+    word = load_word(w, query.data_ptr(), cands.data_ptr())
+    out = _launch(query, cands, word, hamming_layout(
+        n, w, word, _sm_count(cands.device.index)))
+    hamming_distance.launches.add()
+    return out
+
+
+def _launch(query: torch.Tensor, cands: torch.Tensor, word: int,
+            layout: tuple) -> torch.Tensor:
+    """One launch at ``word`` bytes a load and ``layout`` (lanes, row
+    groups a warp, threads, blocks) on checked, contiguous CUDA
+    inputs."""
+    n, w = cands.shape
     out = torch.empty((n,), dtype=torch.int32, device=cands.device)
     lib = _build.load("hamming")
     with torch.cuda.device(cands.device):
         code = lib.repro_hamming_distance(
-            query.data_ptr(), cands.data_ptr(), out.data_ptr(), n, w,
-            aligned, cands.device.index, _build.stream(cands))
+            query.data_ptr(), cands.data_ptr(), out.data_ptr(), n, w, word,
+            *layout, cands.device.index, _build.stream(cands))
     _build.check("hamming", code, "hamming_distance")
-    hamming_distance.launches.add()
     return out
 
 

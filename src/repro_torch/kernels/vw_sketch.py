@@ -6,9 +6,10 @@
     sign(t) = +1 if bit 31 of fmix32(t ^ (0x7FEB352D + seed)) is set, else −1
 
 with m a power of two (paper Eq. 14; ``ref.vw_sketch``).
-``vw_sketch`` launches the CUDA kernel of ``csrc/vw_sketch.cu`` on CUDA
-tensors and takes the plain version on CPU tensors.  The kernel sums
-each bucket in a fixed order, so it gives the same bits on every run.
+``vw_sketch`` launches a CUDA kernel of ``csrc/vw_sketch.cu`` on CUDA
+tensors and takes the plain version on CPU tensors; ``vw_layout`` picks
+the kernel's design from the shapes.  The kernels sum each bucket in an
+order fixed by the row, so they give the same bits on every run.
 With values of ones every bucket is a small integer and the kernel
 equals the plain version byte for byte; with general values the two sum
 in other orders and agree to float32 rounding.
@@ -23,9 +24,41 @@ from repro_torch.kernels.counters import LaunchCount
 
 BUCKET_MUL = 0x9E3779B1
 SIGN_XOR = 0x7FEB352D
-# buckets of one block's shared-memory sketch (64 KiB); a larger m is
-# split over blocks
-MAX_BUCKETS_PER_BLOCK = 1 << 14
+# The kernel's two designs (csrc/vw_sketch.cu).  "lanes": a block of G
+# threads a row, each thread with a private column of the row's m-float
+# sketch in shared memory (4·m·G bytes, at most LANES_SMEM_BYTES so that
+# three blocks fit an SM), about LANES_IDS_PER_THREAD ids a thread, at
+# most LANES_MAX_THREADS.  "slice": a block of 256 threads a slice of at
+# most SLICE_BUCKETS buckets of one row in shared memory, halved down to
+# SLICE_MIN_BUCKETS while the grid has fewer than SLICE_MIN_BLOCKS blocks.
+# Lanes up to LANES_MAX_M buckets, slices above (scripts/sweep_vw_sketch.py
+# times both, on the corpus's chunks).
+LANES, SLICE = 0, 1
+LANES_MAX_M = 256
+LANES_SMEM_BYTES = 64 << 10
+LANES_IDS_PER_THREAD = 8
+LANES_MAX_THREADS = 256
+SLICE_BUCKETS = 1 << 14
+SLICE_MIN_BUCKETS = 1 << 10
+SLICE_MIN_BLOCKS = 256
+
+
+def vw_layout(n: int, mx: int, m_buckets: int) -> tuple:
+    """(design, param) of the kernel for n rows padded to ``mx`` ids and
+    ``m_buckets`` buckets, from the shapes alone: (LANES, G threads a
+    row) for m ≤ LANES_MAX_M, G the power of two near mx /
+    LANES_IDS_PER_THREAD within [32, LANES_MAX_THREADS] and the
+    shared-memory budget; else (SLICE, buckets a block)."""
+    if m_buckets <= LANES_MAX_M:
+        most = max(32, min(LANES_MAX_THREADS,
+                           LANES_SMEM_BYTES // (4 * m_buckets)))
+        want = max(1, -(-mx // LANES_IDS_PER_THREAD))
+        g = 1 << (want - 1).bit_length()
+        return LANES, max(32, min(most, g))
+    mb = min(m_buckets, SLICE_BUCKETS)
+    while mb > SLICE_MIN_BUCKETS and n * (m_buckets // mb) < SLICE_MIN_BLOCKS:
+        mb //= 2
+    return SLICE, mb
 
 
 def bucket_words(indices: torch.Tensor, seed: int) -> torch.Tensor:
@@ -88,17 +121,26 @@ def vw_sketch(indices: torch.Tensor, values: torch.Tensor,
         if t.device != indices.device or not t.is_contiguous():
             raise ValueError("vw_sketch: inputs must be contiguous and on "
                              f"{indices.device}")
-    mb = min(m_buckets, MAX_BUCKETS_PER_BLOCK)
+    out = _launch(indices, values, nnz, m_buckets, seed,
+                  *vw_layout(n, mx, m_buckets))
+    vw_sketch.launches.add()
+    return out
+
+
+def _launch(indices, values, nnz, m_buckets: int, seed: int, design: int,
+            param: int) -> torch.Tensor:
+    """One launch of the kernel's ``design`` (LANES: ``param`` threads a
+    row; SLICE: ``param`` buckets a block) on checked CUDA inputs."""
+    n, mx = indices.shape
     out = torch.empty((n, m_buckets), dtype=torch.float32,
                       device=indices.device)
     lib = _build.load("vw_sketch")
     with torch.cuda.device(indices.device):
         code = lib.repro_vw_sketch(
             indices.data_ptr(), values.data_ptr(), nnz.data_ptr(),
-            out.data_ptr(), n, mx, m_buckets, mb, seed & MASK32,
+            out.data_ptr(), n, mx, m_buckets, design, param, seed & MASK32,
             indices.device.index, _build.stream(indices))
     _build.check("vw_sketch", code, "vw_sketch")
-    vw_sketch.launches.add()
     return out
 
 

@@ -6,11 +6,14 @@ torch:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Integer outputs (B1-B4, B10, B8's plan) must be equal, and B3, B4 and
-B10 give the same bytes on two calls.  B5–B8 sum in another order than
+B10 give the same bytes on two calls; B10 at every load width (16 bytes,
+4, 1) and on rows and a query that start on an odd address.  B5–B8 sum in another order than
 torch, so they are held to allclose at 1e-5 and to run-to-run equality
 (B6 and B8 bit-identical on two calls).  B9 with values of ones must
-equal its plain version byte for byte; with random values allclose at
-1e-5 and run-to-run equal."""
+equal its plain version byte for byte, in both of its designs (lanes and
+slices) and with nnz of 0, M, more than M and below 0; with random values
+allclose at 1e-5 and run-to-run equal; a row whose ids all hash to one
+bucket within 1e-5 of its sum of absolute terms."""
 import numpy as np
 import pytest
 import torch
@@ -290,13 +293,15 @@ def _vw_rows(n, mx, seed, dev, ones):
     val = (np.ones((n, mx), np.float32) if ones
            else rng.normal(size=(n, mx)).astype(np.float32))
     nnz = rng.integers(0, mx + 1, size=(n,)).astype(np.int32)
-    nnz[0] = 0
-    nnz[1] = mx
+    nnz[:4] = [0, mx, mx + 5, -3]         # empty, full, beyond M, negative
     return (torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev),
             torch.from_numpy(nnz).to(dev))
 
 
-@pytest.mark.parametrize("m", [2, 64, 1024, 16384, 65536])
+# both designs of vw_layout: lanes up to m=256 (the threshold), slices
+# above, several a row at m=65536
+@pytest.mark.parametrize("m", [1, 2, 64, 256, 512, 1024, 4096, 16384,
+                               65536])
 @pytest.mark.parametrize("ones", [True, False])
 def test_vw_sketch_kernel_matches_plain(cuda, m, ones):
     idx, val, nnz = _vw_rows(37, 3000, seed=m, dev=cuda, ones=ones)
@@ -309,6 +314,34 @@ def test_vw_sketch_kernel_matches_plain(cuda, m, ones):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m", [64, 16384])
+@pytest.mark.parametrize("mx", [512, 4480])
+def test_vw_sketch_kernel_one_bucket_row(cuda, m, mx):
+    """A row whose ids all hash to one bucket: with ones byte for byte,
+    with random values within 1e-5 of the sum of |terms| (+1e-6), the
+    bound of a reordered float32 sum, and the same bits on two calls."""
+    idx, val, nnz = _vw_rows(8, mx, seed=mx, dev=cuda, ones=False)
+    idx[5] = 12345
+    nnz[5] = mx
+    for v in (torch.ones_like(val), val):
+        got = vw_sketch.vw_sketch(idx, v, nnz, m, seed=2)
+        want = vw_sketch.vw_sketch_plain(idx, v, nnz, m, seed=2)
+        live = (torch.arange(mx, device=cuda)[None, :]
+                < nnz.to(torch.int64)[:, None])
+        scale = vw_sketch.scatter_rows(
+            vw_sketch.bucket_words(idx, 2) & (m - 1),
+            torch.where(live, v.abs(), 0.0), m)
+        torch.cuda.synchronize()
+        assert int((got[5] != 0).sum()) == 1
+        assert torch.equal(got, vw_sketch.vw_sketch(idx, v, nnz, m, seed=2))
+        assert bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.equal(vw_sketch.vw_sketch(idx, torch.ones_like(val), nnz,
+                                           m, seed=2).view(torch.int32),
+                       vw_sketch.vw_sketch_plain(
+                           idx, torch.ones_like(val), nnz, m,
+                           seed=2).view(torch.int32))
 
 
 @pytest.mark.parametrize("b", [8, 16])
@@ -362,23 +395,37 @@ def test_oph_kernel_matches_plain(cuda, k, n, m):
         assert bool((got[0] == -1).all())         # empty row: all sentinel
 
 
-@pytest.mark.parametrize("n,w", [(1, 1), (1, 256), (20000, 256), (37, 3),
-                                 (301, 45), (64, 2048), (5, 37)])
+# w: 16-byte loads (16, 256, 2048), 4-byte (1000), bytes (1, 3, 37, 45,
+# 250)
+@pytest.mark.parametrize("n,w", [
+    (n, w) for n in (0, 1, 3, 4099, 20000)
+    for w in (1, 3, 16, 45, 250, 256, 1000, 2048)]
+    + [(37, 3), (301, 45), (64, 2048), (5, 37)])
 def test_hamming_kernel_matches_plain(cuda, n, w):
     rng = np.random.default_rng(n + w)
     cands = torch.from_numpy(
         rng.integers(0, 256, size=(n, w)).astype(np.uint8)).to(cuda)
-    query = cands[n // 2].clone()
+    query = (cands[n // 2].clone() if n else torch.from_numpy(
+        rng.integers(0, 256, size=w).astype(np.uint8)).to(cuda))
     got = hamming.hamming_distance(query, cands)
     again = hamming.hamming_distance(query, cands)
     want = hamming.hamming_distance_plain(query, cands)
     torch.cuda.synchronize()
     assert got.shape == (n,) and got.dtype == torch.int32
     assert torch.equal(got, again) and torch.equal(got, want)
-    assert int(got[n // 2]) == 0
+    if n:
+        assert int(got[n // 2]) == 0
     if n > 1:                     # rows from the second on: another base
         assert torch.equal(hamming.hamming_distance(query, cands[1:]),
                            want[1:])
+    # rows that start one byte past an aligned base, and a query too
+    flat = torch.zeros(n * w + 2, dtype=torch.uint8, device=cuda)
+    flat[1:1 + n * w] = cands.reshape(-1)
+    odd = flat[1:1 + n * w].view(n, w)
+    qbuf = torch.zeros(w + 1, dtype=torch.uint8, device=cuda)
+    qbuf[1:] = query
+    assert qbuf[1:].data_ptr() % 2 == 1 and (not n or odd.data_ptr() % 2)
+    assert torch.equal(hamming.hamming_distance(qbuf[1:], odd), want)
 
 
 @pytest.mark.parametrize("k,b", [(24, 3), (30, 12)])
