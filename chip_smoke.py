@@ -89,7 +89,8 @@ Phases, one line of output each (or more), any failure exits non-zero:
            operations over the card's rate for their type: int32 for
            B1-B4, B9 and B10, float32 for B5-B8): B1, B2, B5 at the
            engine's shapes (64 rows x 2048 / 8192 lanes of real documents,
-           B5 vs embedding_bag); B7 and B8 at 16,000 x 256 codes, V=256,
+           B5 vs embedding_bag), B2 and B5 also at its one-row
+           bucket; B7 and B8 at 16,000 x 256 codes, V=256,
            C=1 (vs embedding_bag and bincount), and at the paper fits'
            16,000 x 500 codes, V=65536, B8 over its cached plan and,
            as plan_ms, the plan kernel that builds it; B6 at 1,024 and 16,000
@@ -130,6 +131,11 @@ NNZ_BUCKETS = (2048, 8192)           # launch/serve.py's lanes
 DOCS = 384                           # synthetic documents per scheme
 RATE_WINDOW_S = 3.0                  # docs/s: passes over at least this
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the sleep kernel that the timed calls queue behind, in clock cycles (about
+# 0.1 s): it must outlast the host's enqueue of all of them, or the card
+# waits for the host and the time is the host's (50M cycles did not cover
+# 500 calls of B5's wrapper on a slow host: 10.9 us a call, not 2.9)
+TIMING_SLEEP_CYCLES = 200_000_000
 # H100 SXM data-sheet peaks: HBM3 bytes/s, and float32 outside the
 # tensor cores (B5's adds)
 PEAK_BYTES_PER_S = 3.35e12
@@ -236,7 +242,7 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
+    torch.cuda._sleep(TIMING_SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -1319,9 +1325,50 @@ def lane_batch(torch, dev, docs, lane):
             int(nnz.sum()))
 
 
+def one_row(torch, F, fe, bl, table, idx, nnz, oa, ob, int_rate: float,
+            lane: int, card: str) -> dict:
+    """B2 and B5 on serving's one-row bucket: the first document of the
+    lane batch → {kernel: record}."""
+    from repro_torch.core.bbit import (packed_mask_width, packed_width,
+                                       unpack_codes_torch)
+    total_nnz = int(nnz.sum())
+    w_bytes, e_bytes = packed_width(K, B), packed_mask_width(K)
+    rec = {}
+    ms = time_ms(torch, lambda: fe.oph_pack(idx, nnz, oa, ob, k=K, bits=B),
+                 200)
+    plain = time_ms(torch, lambda: fe.oph_pack_plain(idx, nnz, oa, ob, k=K,
+                                                     bits=B), 10)
+    bnd = bound(4 * total_nnz + 4 + 8 + w_bytes + e_bytes,
+                OPS_PER_OPH_HASH * total_nnz, int_rate)
+    rec["oph_pack"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                           bound_by=bnd[1], library_ms=None)
+    packed, _ = fe.oph_pack(idx, nnz, oa, ob, k=K, bits=B)
+    flat = (torch.arange(K, device=idx.device)[None, :] * (1 << B)
+            + unpack_codes_torch(packed, K, B))
+    ms = time_ms(torch, lambda: bl.bbit_linear_packed_fwd(packed, table, k=K,
+                                                          bits=B), 500)
+    plain = time_ms(torch, lambda: bl.bbit_linear_packed_fwd_plain(
+        packed, table, k=K, bits=B), 50)
+    weight2d = table.view(K * (1 << B), 1)
+    lib = time_ms(torch, lambda: F.embedding_bag(flat, weight2d, mode="sum"),
+                  500)
+    bnd = bound(w_bytes + 4 * int(torch.unique(flat).numel()) + 4, K,
+                PEAK_F32_OPS_PER_S)
+    rec["bbit_linear_packed_fwd"] = dict(ms=ms, plain_ms=plain,
+                                         bound_ms=bnd[0], bound_by=bnd[1],
+                                         library_ms=lib)
+    for name, r in rec.items():
+        print(f"timing: {name} rows=1 lane={lane} nnz_sum={total_nnz} "
+              f"ms={r['ms']} plain_ms={r['plain_ms']} bound_ms="
+              f"{r['bound_ms']} ({r['bound_by']}) library_ms="
+              f"{r['library_ms']} card={card}")
+    return rec
+
+
 def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
-    """B1, B2 and B5 at the engine's shapes → {"main": {kernel: record
-    at the widest lane}, "shapes": {lane: {kernel: record}}}."""
+    """B1, B2 and B5 at the engine's shapes (B2 and B5 at its one-row
+    bucket too) → {"main": {kernel: record at the widest lane, 64 rows},
+    "shapes": {lane or "rows=1 lane=L": {kernel: record}}}."""
     import torch.nn.functional as F
     from repro_torch.core.bbit import (packed_mask_width, packed_width,
                                        unpack_codes_torch)
@@ -1385,6 +1432,9 @@ def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
                   f"({r['bound_by']}) library_ms={r['library_ms']} "
                   f"card={card}")
         out[lane] = rec
+        out[f"rows=1 lane={lane}"] = one_row(
+            torch, F, fe, bl, table, idx[:1].contiguous(),
+            nnz[:1].contiguous(), oa, ob, int_rate, lane, card)
     return {"main": out[NNZ_BUCKETS[-1]], "shapes": out,
             "launch_floor_ms": floor}
 

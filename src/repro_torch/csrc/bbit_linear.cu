@@ -9,13 +9,20 @@
 //   registers from the LSB-first packed row, bins marked in the optional
 //   MSB-first empty mask skipped.  Bound: device-memory bytes -- the
 //   packed rows, the mask and the table entries the codes select, each
-//   read once; one float add per (row, bin, class).  Design: a gather-sum
-//   like an embedding bag, one warp per row, lanes over the k bins.  The
-//   TPU kernel's one-hot MXU contraction streams the whole (k, 2^b, C)
-//   table per row block; here each lane reads only the entries its codes
-//   select, through L2.  Each lane sums its bins in order and the warp
-//   reduces in a fixed shuffle tree, with no float atomics, so a row's
-//   logits are the same bits on every run.
+//   read once; one float add per (row, bin, class).  At serving's 64 rows
+//   of k=256 that is about 15 ns, far below a launch, so what the kernel
+//   costs is its chain of dependent loads.  Design: a warp a row, a lane 8
+//   consecutive bins at a time: their 8 codes are exactly `bits` whole
+//   bytes (one 8-, 4-, 2- or 1-byte load where the rows start aligned,
+//   kVec, chosen by the wrapper from the shapes and the pointer) and their
+//   8 mask bits exactly one mask byte.  The lane unpacks in registers and
+//   starts its 8 table gathers before any add, so a row of k=256 costs one
+//   wave of packed loads and one of gathers; wider k steps 256 bins at a
+//   time, in order.  A lane sums its 8 values in a fixed tree, its steps
+//   in order, and the warp in a fixed shuffle tree: no float atomics, so
+//   a row's logits are the same bits on every run.  Blocks hold 1-8 rows
+//   (kernels/bbit_linear.py::packed_fwd_layout), so a few rows spread over
+//   as many SMs.  Classes are taken one after another.
 //
 // B7 bbit_linear_fwd replaces bbit_linear.py::bbit_linear_fwd_pallas: the
 //   same sum from widened int32 (n, k) codes.  Bound: bytes -- the codes
@@ -98,7 +105,7 @@ namespace repro_torch {
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kRowsPerBlock = 8;     // B5: one warp per row
+constexpr int kPackedFwdMaxRows = 8;  // B5: rows (warps) a block, at most
 constexpr int kFwdThreads = 256;     // B7: threads per block
 constexpr int kFwdChunk = 32;        // B7: bins a thread gathers at once
 constexpr int kPlanThreads = 256;    // B8 plan: threads of a bin's block
@@ -122,31 +129,89 @@ __device__ __forceinline__ float warp_sum(float acc) {
   return acc;
 }
 
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
+// The packed bytes of B5's bin group g (bins 8g .. 8g+7 of a row), as a
+// little-endian word: code e of the group is bits [e * BITS, (e+1) * BITS).
+// A whole group (full) is BITS bytes, one aligned load with kVec; the last
+// group of a k that is not a multiple of 8 reads only its bytes in the row.
+template <int BITS, bool kVec>
+__device__ __forceinline__ uint64_t packed_group(const uint8_t* prow, int g,
+                                                 bool full, int p_w) {
+  const uint8_t* src = prow + g * BITS;
+  if (kVec && full) {
+    if constexpr (BITS == 8) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(src));
+      return static_cast<uint64_t>(t.x) | (static_cast<uint64_t>(t.y) << 32);
+    } else if constexpr (BITS == 4) {
+      return __ldg(reinterpret_cast<const unsigned*>(src));
+    } else if constexpr (BITS == 2) {
+      return __ldg(reinterpret_cast<const unsigned short*>(src));
+    } else {
+      return __ldg(src);
+    }
+  }
+  uint64_t word = 0;
+#pragma unroll
+  for (int q = 0; q < BITS; ++q) {
+    if (full || g * BITS + q < p_w) {
+      word |= static_cast<uint64_t>(__ldg(src + q)) << (8 * q);
+    }
+  }
+  return word;
+}
+
+// B5.  blockDim.x / 32 rows a block, one warp a row.
+template <int BITS, bool kVec>
+__global__ void __launch_bounds__(kPackedFwdMaxRows * 32)
 bbit_linear_packed_fwd_kernel(const uint8_t* __restrict__ packed,
                               const float* __restrict__ w,
                               const uint8_t* __restrict__ empty,
-                              float* __restrict__ out,
-                              int n, int k, int bits, int v, int c,
-                              int p_w, int e_w) {
+                              float* __restrict__ out, int n, int k, int v,
+                              int c, int p_w, int e_w) {
+  constexpr uint32_t kMask = (1u << BITS) - 1u;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= n) return;  // whole warp: row is uniform across it
   const uint8_t* prow = packed + static_cast<size_t>(row) * p_w;
   const uint8_t* erow =
       empty == nullptr ? nullptr : empty + static_cast<size_t>(row) * e_w;
-  const int per = 8 / bits;
-  const uint32_t mask = (1u << bits) - 1u;
+  const int groups = (k + 7) >> 3;
   for (int cc = 0; cc < c; ++cc) {
     float acc = 0.f;
-    for (int j = lane; j < k; j += 32) {
-      if (erow != nullptr && ((erow[j >> 3] >> (7 - (j & 7))) & 1)) continue;
-      const uint32_t code = (prow[j / per] >> ((j % per) * bits)) & mask;
-      acc += w[(static_cast<size_t>(j) * v + code) * c + cc];
+    for (int g = lane; g < groups; g += 32) {
+      const int j0 = 8 * g;
+      const bool full = j0 + 8 <= k;
+      const uint64_t word = packed_group<BITS, kVec>(prow, g, full, p_w);
+      const uint32_t drop = erow == nullptr ? 0u : __ldg(erow + g);
+      const float* wj = w + static_cast<size_t>(j0) * v * c + cc;
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const uint32_t code = static_cast<uint32_t>(word >> (e * BITS)) & kMask;
+        const bool live = (full || j0 + e < k) && !((drop >> (7 - e)) & 1u);
+        x[e] = live ? __ldg(wj + (static_cast<size_t>(e) * v + code) * c)
+                    : 0.f;
+      }
+      acc += ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
     }
     acc = warp_sum(acc);
     if (lane == 0) out[static_cast<size_t>(row) * c + cc] = acc;
   }
+}
+
+template <int BITS>
+cudaError_t launch_packed_fwd(int blocks, int rows, bool vec,
+                              cudaStream_t st, const uint8_t* packed,
+                              const float* w, const uint8_t* empty,
+                              float* out, int n, int k, int v, int c,
+                              int p_w, int e_w) {
+  if (vec) {
+    bbit_linear_packed_fwd_kernel<BITS, true><<<blocks, rows * 32, 0, st>>>(
+        packed, w, empty, out, n, k, v, c, p_w, e_w);
+  } else {
+    bbit_linear_packed_fwd_kernel<BITS, false><<<blocks, rows * 32, 0, st>>>(
+        packed, w, empty, out, n, k, v, c, p_w, e_w);
+  }
+  return cudaGetLastError();
 }
 
 // B7.  grid (ceil(n / kFwdThreads), ceil(k / group)), the bin group on y;
@@ -649,23 +714,47 @@ int launch_dw(Codes code_at, const void* dout, void* part, void* out, int n,
 }  // namespace
 }  // namespace repro_torch
 
-using repro_torch::kRowsPerBlock;
-
+// Launches B5 with `rows` rows (warps) a block; vec: every row starts
+// aligned to `bits` bytes, so a whole group of 8 codes is one load.
 extern "C" int repro_bbit_linear_packed_fwd(const void* packed, const void* w,
                                             const void* empty, void* out,
                                             int n, int k, int bits, int v,
                                             int c, int p_w, int e_w,
-                                            int device, void* stream) {
+                                            int rows, int vec, int device,
+                                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
-  const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  repro_torch::bbit_linear_packed_fwd_kernel<<<
-      blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), static_cast<const float*>(w),
-      static_cast<const uint8_t*>(empty), static_cast<float*>(out), n, k,
-      bits, v, c, p_w, e_w);
-  return static_cast<int>(cudaGetLastError());
+  if (rows < 1 || rows > repro_torch::kPackedFwdMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (n + rows - 1) / rows;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* pp = static_cast<const uint8_t*>(packed);
+  const float* wp = static_cast<const float*>(w);
+  const uint8_t* ep = static_cast<const uint8_t*>(empty);
+  float* op = static_cast<float*>(out);
+  switch (bits) {
+    case 1:
+      err = repro_torch::launch_packed_fwd<1>(blocks, rows, vec, st, pp, wp,
+                                              ep, op, n, k, v, c, p_w, e_w);
+      break;
+    case 2:
+      err = repro_torch::launch_packed_fwd<2>(blocks, rows, vec, st, pp, wp,
+                                              ep, op, n, k, v, c, p_w, e_w);
+      break;
+    case 4:
+      err = repro_torch::launch_packed_fwd<4>(blocks, rows, vec, st, pp, wp,
+                                              ep, op, n, k, v, c, p_w, e_w);
+      break;
+    case 8:
+      err = repro_torch::launch_packed_fwd<8>(blocks, rows, vec, st, pp, wp,
+                                              ep, op, n, k, v, c, p_w, e_w);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 // Launches B7: out (n, c), part (groups, n, c) scratch (unused when there

@@ -17,15 +17,23 @@
 //   rotation densification or zero-coding, b-bit mask, pack, and the
 //   MSB-first empty-bin mask.  Bound: device-memory bytes (4 per nonzero
 //   read once, the packed row written once); about 11 integer operations
-//   per nonzero.  Design: one block per row holds its k bins in shared
-//   memory; threads stride over the nonzeros (coalesced) and atomicMin into
-//   the bins -- an integer min is exact in any order, so the result does not
-//   depend on scheduling.  Densify is one thread per bin searching forward
-//   for the next non-empty bin, a direct shared-memory gather in place of
-//   the TPU's O(k^2) lane compare-select.
+//   per nonzero.  At serving's 64 rows of about 3,000 ids both come to a
+//   fraction of a launch, so what the kernel costs is its chain of
+//   dependent steps.  Design: a row's block starts every id load of a
+//   pass before any hash -- 8 ids a thread, as two 16-byte int4 loads
+//   where the rows start 16-byte aligned (kVec), else 8 scalar loads --
+//   with threads enough for two passes over the padded row and one a bin
+//   (kernels/fused_encode.py::oph_pack_layout), then hashes them into its
+//   k bins in shared memory with atomicMin: an integer min is exact in
+//   any order, so the result does not depend on scheduling.  The finish
+//   is one pass of warps over the bins, compiled for each b: a ballot per
+//   32 bins gives the row's bitmap of non-empty bins and the empty mask
+//   (4 bytes a warp, bit-reversed); densify finds an empty bin's nearest
+//   non-empty bin to the right, circularly, from that bitmap a word at a
+//   time (k / 32 words at most); the codes are packed by an OR over the
+//   lanes of each 32-bit word and stored 4 bytes a thread.  B2's hash loop
+//   is its own; encode.cuh's oph_block stays B4's.
 //
-// The hash loops of both live in encode.cuh, shared with the raw-minima
-// kernels B3 (minhash.cu) and B4 (oph.cu); only the finish is this file's.
 #include "encode.cuh"
 
 namespace repro_torch {
@@ -65,62 +73,161 @@ minhash_pack_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-__global__ void __launch_bounds__(kOphThreads)
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kPackMaxThreads = 1024;  // B2: threads of a row's block, at most
+constexpr int kPackIds = 8;            // B2: ids a thread loads in one pass
+
+// B2's bin for an empty bin j of a densified row: the nearest non-empty
+// bin to the right, circularly, read from the row's bitmap `ne` (bit i of
+// word w: bin 32w + i is not empty), its minimum plus the distance times
+// kRotC; the sentinel when the whole row is empty.
+__device__ __forceinline__ uint32_t densify_bin(const uint32_t* bins,
+                                                const uint32_t* ne, int j,
+                                                int k) {
+  const int words = (k + 31) >> 5;
+  int w = j >> 5;
+  uint32_t word = ne[w] & ~((2u << (j & 31)) - 1u);  // bins above j
+  for (int s = 0; s < words && word == 0; ++s) {
+    w = w + 1 == words ? 0 : w + 1;
+    word = ne[w];
+  }
+  if (word == 0) return kSentinel;
+  const int src = 32 * w + __ffs(word) - 1;
+  const uint32_t d = static_cast<uint32_t>((src - j + k) & (k - 1));
+  return bins[src] + d * kRotC;
+}
+
+// B2.  A block a row.  Dynamic shared memory: the k bins and the bitmap
+// of ceil(k / 32) words.
+template <bool kVec, int kBits>
+__global__ void __launch_bounds__(kPackMaxThreads)
 oph_pack_kernel(const int32_t* __restrict__ idx,
                 const int32_t* __restrict__ nnz,
                 const uint32_t* __restrict__ a,
                 const uint32_t* __restrict__ b,
-                uint8_t* __restrict__ out,
-                uint8_t* __restrict__ eout,
-                int m, int k, int shift, int bits, int densify,
-                int out_w, int e_w) {
+                uint8_t* __restrict__ out, uint8_t* __restrict__ eout,
+                int m, int k, int shift, int densify, int out_w,
+                int e_w) {
   extern __shared__ uint32_t smem[];
-  uint32_t* bins = smem;                                   // k words
-  uint8_t* codes = reinterpret_cast<uint8_t*>(smem + k);   // k bytes
-
+  uint32_t* bins = smem;      // k words
+  uint32_t* ne = smem + k;    // ceil(k / 32) words
   const int row = blockIdx.x;
-  oph_block(idx, nnz, a[0], b[0], m, k, shift, bins);
+  const int threads = blockDim.x;
+  const int step = threads * kPackIds;  // ids of the row a pass
+  const int32_t* ids = idx + static_cast<size_t>(row) * m;
+  const uint32_t ha = __ldg(a), hb = __ldg(b);
+  const int len = min(max(__ldg(nnz + row), 0), m);
 
-  const uint32_t mask = (1u << bits) - 1u;
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    uint32_t v = bins[j];
-    uint32_t c;
-    if (densify) {
-      if (v == kSentinel) {
-        // nearest non-empty bin to the right, circularly; an all-empty row
-        // keeps the sentinel, whose low bits are all ones
-        for (int d = 1; d < k; ++d) {
-          const uint32_t s = bins[(j + d) & (k - 1)];
-          if (s != kSentinel) {
-            v = s + static_cast<uint32_t>(d) * kRotC;
-            break;
-          }
-        }
+  // this pass's ids: kVec, int4 q = threadIdx.x + u * threads covers ids
+  // [4q, 4q + 4); else id threadIdx.x + u * threads.  0 from len on.
+  int32_t got[kPackIds];
+  auto load = [&](int base) {
+    if (kVec) {
+      const int4* src = reinterpret_cast<const int4*>(ids + base);
+#pragma unroll
+      for (int u = 0; u < kPackIds / 4; ++u) {
+        const int q = threadIdx.x + u * threads;
+        int4 t = make_int4(0, 0, 0, 0);
+        if (base + 4 * q < len) t = __ldg(src + q);
+        got[4 * u] = t.x;
+        got[4 * u + 1] = t.y;
+        got[4 * u + 2] = t.z;
+        got[4 * u + 3] = t.w;
       }
-      c = v & mask;
     } else {
-      c = (v == kSentinel) ? 0u : (v & mask);
+#pragma unroll
+      for (int u = 0; u < kPackIds; ++u) {
+        const int i = base + threadIdx.x + u * threads;
+        got[u] = i < len ? __ldg(ids + i) : 0;
+      }
     }
-    codes[j] = static_cast<uint8_t>(c);
+  };
+  auto hash = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < kPackIds; ++u) {
+      const int i = kVec ? base + 4 * (threadIdx.x + (u / 4) * threads) + u % 4
+                         : base + threadIdx.x + u * threads;
+      if (i < len) {
+        const uint32_t h = fmix32(ha * static_cast<uint32_t>(got[u]) + hb);
+        atomicMin(&bins[h >> shift], h);
+      }
+    }
+  };
+
+  load(0);  // in flight while the bins are set
+  for (int j = threadIdx.x; j < k; j += threads) bins[j] = kSentinel;
+  __syncthreads();
+  hash(0);
+  for (int base = step; base < len; base += step) {
+    load(base);
+    hash(base);
   }
   __syncthreads();
 
-  const int per = 8 / bits;
-  for (int t = threadIdx.x; t < out_w; t += blockDim.x) {
-    uint32_t byte = 0;
-    for (int i = 0; i < per; ++i) {
-      const int j = t * per + i;
-      if (j < k) byte |= static_cast<uint32_t>(codes[j]) << (i * bits);
+  // the finish: warps over the bins, 32 at a time
+  const int lane = threadIdx.x & 31;
+  const int first = (threadIdx.x >> 5) * 32;
+  const int stride = threads;
+  if (densify) {
+    for (int j0 = first; j0 < k; j0 += stride) {
+      const int j = j0 + lane;
+      const unsigned live = __ballot_sync(kFull, j < k && bins[j] != kSentinel);
+      if (lane == 0) ne[j0 >> 5] = live;
     }
-    out[static_cast<size_t>(row) * out_w + t] = static_cast<uint8_t>(byte);
+    __syncthreads();
   }
-  for (int t = threadIdx.x; t < e_w; t += blockDim.x) {
-    uint32_t byte = 0;
-    for (int i = 0; i < 8; ++i) {
-      const int j = t * 8 + i;
-      if (j < k && bins[j] == kSentinel) byte |= 1u << (7 - i);
+  constexpr uint32_t kCodeMask = (1u << kBits) - 1u;
+  constexpr int kPerWord = 32 / kBits;  // codes a 32-bit word of the row
+  for (int j0 = first; j0 < k; j0 += stride) {
+    const int j = j0 + lane;
+    uint32_t v = j < k ? bins[j] : 0u;
+    const bool empty = j < k && v == kSentinel;
+    uint32_t code;
+    if (densify) {
+      if (empty) v = densify_bin(bins, ne, j, k);
+      code = v & kCodeMask;
+    } else {
+      code = empty ? 0u : (v & kCodeMask);
     }
-    eout[static_cast<size_t>(row) * e_w + t] = static_cast<uint8_t>(byte);
+    if (j >= k) code = 0u;
+    // the 32-bit word of the packed row that holds this code, in each of
+    // its kPerWord lanes
+    uint32_t word = code << ((lane % kPerWord) * kBits);
+#pragma unroll
+    for (int off = 1; off < kPerWord; off <<= 1) {
+      word |= __shfl_xor_sync(kFull, word, off);
+    }
+    if (k % 32 == 0) {  // whole words, 4-byte aligned rows
+      if (lane % kPerWord == 0) {
+        reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * out_w)
+            [(j0 + lane) / kPerWord] = word;
+      }
+    } else {  // k < 32: the row's bytes alone
+      const int byte = lane * kBits / 8;
+      if ((lane * kBits) % 8 == 0 && byte < out_w) {
+        out[static_cast<size_t>(row) * out_w + byte] = static_cast<uint8_t>(
+            word >> ((lane % kPerWord) * kBits));
+      }
+    }
+    // the empty mask, MSB-first: byte q of these 32 bins is byte 3 - q of
+    // the bit-reversed ballot
+    const unsigned flags = __brev(__ballot_sync(kFull, empty));
+    const int t = (j0 >> 3) + lane;
+    if (lane < 4 && t < e_w) {
+      eout[static_cast<size_t>(row) * e_w + t] =
+          static_cast<uint8_t>(flags >> (8 * (3 - lane)));
+    }
+  }
+}
+
+// B2's kernel for b bits and the load width.
+template <bool kVec>
+auto oph_pack_for(int bits) {
+  switch (bits) {
+    case 1: return oph_pack_kernel<kVec, 1>;
+    case 2: return oph_pack_kernel<kVec, 2>;
+    case 4: return oph_pack_kernel<kVec, 4>;
+    default: return oph_pack_kernel<kVec, 8>;
   }
 }
 
@@ -128,7 +235,6 @@ oph_pack_kernel(const int32_t* __restrict__ idx,
 }  // namespace repro_torch
 
 using repro_torch::kLanes;
-using repro_torch::kOphThreads;
 using repro_torch::kSlices;
 
 extern "C" int repro_minhash_pack(const void* idx, const void* nnz,
@@ -147,23 +253,32 @@ extern "C" int repro_minhash_pack(const void* idx, const void* nnz,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches B2: `threads` a block; vec: m % 4 == 0 and idx 16-byte aligned.
 extern "C" int repro_oph_pack(const void* idx, const void* nnz,
                               const void* a, const void* b, void* out,
                               void* eout, int n, int m, int k, int shift,
                               int bits, int densify, int out_w, int e_w,
-                              int device, void* stream) {
+                              int threads, int vec, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
-  const size_t smem = static_cast<size_t>(k) * (sizeof(uint32_t) + 1);
-  err = repro_torch::allow_smem(repro_torch::oph_pack_kernel, smem);
+  if (threads < 32 || threads > repro_torch::kPackMaxThreads ||
+      threads % 32 != 0 || (vec && m % 4 != 0) ||
+      (bits != 1 && bits != 2 && bits != 4 && bits != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      sizeof(uint32_t) * (static_cast<size_t>(k) + (k + 31) / 32);
+  auto kernel = vec ? repro_torch::oph_pack_for<true>(bits)
+                    : repro_torch::oph_pack_for<false>(bits);
+  err = repro_torch::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  repro_torch::oph_pack_kernel<<<n, kOphThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(nnz),
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint8_t*>(out), static_cast<uint8_t*>(eout), m, k, shift,
-      bits, densify, out_w, e_w);
+      densify, out_w, e_w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,7 @@ build raises; nothing falls back to the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,11 +37,12 @@ U = ctypes.c_uint
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "fused_encode": {
         "repro_minhash_pack": [P, P, P, P, P, I, I, I, I, I, I, P],
-        "repro_oph_pack": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
+        "repro_oph_pack": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                           I, P],
     },
     "bbit_linear": {
         "repro_bbit_linear_packed_fwd": [P, P, P, P, I, I, I, I, I, I, I,
-                                         I, P],
+                                         I, I, I, P],
         "repro_bbit_linear_fwd": [P, P, P, P, I, I, I, I, I, I, I, P],
         "repro_bbit_linear_dw_plan": [P, P, P, P, P, P, P, I, I, I, I, I,
                                       P],
@@ -59,6 +61,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "hamming": {
         "repro_hamming_distance": [P, P, P, I, I, I, I, I, I, I, I, P],
+    },
+    "launch_floor": {
+        "repro_empty_launch": [P, P, P, P, P, P, I, I, I, I, P],
     },
 }
 ERROR_FN = {name: f"repro_{name}_error" for name in SIGNATURES}
@@ -167,6 +172,12 @@ def on_cpu(what: str, t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {t.device}")
     return False
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream(t: torch.Tensor) -> int:

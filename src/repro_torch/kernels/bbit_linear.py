@@ -58,6 +58,10 @@ DW_V_TILE = 4096
 DW_TARGET_BLOCKS = 512
 DW_MIN_ROWS_PER_SPLIT = 256
 DW_MAX_SCRATCH_FLOATS = 1 << 26     # 256 MiB of partial tables
+# B5: rows (one warp each) a block, at most (csrc kPackedFwdMaxRows), and
+# the blocks an SM is given before a block takes more rows
+PACKED_FWD_MAX_ROWS = 8
+PACKED_FWD_BLOCKS_PER_SM = 8
 
 
 def _kept(codes: torch.Tensor, vsize: int) -> torch.Tensor:
@@ -481,6 +485,44 @@ bbit_linear_bwd_dw.plan_builds = _DW_PLANS.builds
 bbit_linear_bwd_dw.clear_plans = _DW_PLANS.clear
 
 
+def packed_fwd_layout(n: int, sms: int) -> int:
+    """B5's rows (warps) a block for n rows on a card of ``sms`` SMs: one,
+    so that a few rows spread over as many SMs, doubled (up to
+    ``PACKED_FWD_MAX_ROWS``) while the grid would give an SM more than
+    ``PACKED_FWD_BLOCKS_PER_SM`` blocks."""
+    rows = 1
+    while (rows < PACKED_FWD_MAX_ROWS
+           and -(-n // rows) > sms * PACKED_FWD_BLOCKS_PER_SM):
+        rows *= 2
+    return rows
+
+
+def packed_fwd_vec(bits: int, p_w: int, ptr: int) -> bool:
+    """True where every packed row starts aligned to ``bits`` bytes, so
+    B5 reads a lane's 8 codes (``bits`` whole bytes) with one load."""
+    return p_w % bits == 0 and ptr % bits == 0
+
+
+def _packed_fwd_launch(packed: torch.Tensor, weights: torch.Tensor, k: int,
+                       bits: int, empty: Optional[torch.Tensor], rows: int,
+                       vec: bool) -> torch.Tensor:
+    """One launch of B5 with ``rows`` rows a block and, if ``vec``, one
+    load a lane's codes, on checked CUDA inputs."""
+    n = packed.shape[0]
+    v, c = weights.shape[1], weights.shape[2]
+    out = torch.empty((n, c), dtype=torch.float32, device=packed.device)
+    lib = _build.load("bbit_linear")
+    with torch.cuda.device(packed.device):
+        code = lib.repro_bbit_linear_packed_fwd(
+            packed.data_ptr(), weights.data_ptr(),
+            None if empty is None else empty.data_ptr(), out.data_ptr(),
+            n, k, bits, v, c, packed.shape[1],
+            0 if empty is None else empty.shape[1], rows, int(vec),
+            packed.device.index, _build.stream(packed))
+    _build.check("bbit_linear", code, "bbit_linear_packed_fwd")
+    return out
+
+
 def bbit_linear_packed_fwd(packed: torch.Tensor, weights: torch.Tensor, *,
                            k: int, bits: int,
                            empty: Optional[torch.Tensor] = None
@@ -495,18 +537,11 @@ def bbit_linear_packed_fwd(packed: torch.Tensor, weights: torch.Tensor, *,
     _check_packed("bbit_linear_packed_fwd", packed, k, bits, empty)
     _check_table("bbit_linear_packed_fwd", weights, k, 1 << bits)
     _check_same_device("bbit_linear_packed_fwd", packed, weights, empty)
-    n = packed.shape[0]
-    v, c = weights.shape[1], weights.shape[2]
-    out = torch.empty((n, c), dtype=torch.float32, device=packed.device)
-    lib = _build.load("bbit_linear")
-    with torch.cuda.device(packed.device):
-        code = lib.repro_bbit_linear_packed_fwd(
-            packed.data_ptr(), weights.data_ptr(),
-            None if empty is None else empty.data_ptr(), out.data_ptr(),
-            n, k, bits, v, c, packed.shape[1],
-            0 if empty is None else empty.shape[1],
-            packed.device.index, _build.stream(packed))
-    _build.check("bbit_linear", code, "bbit_linear_packed_fwd")
+    out = _packed_fwd_launch(
+        packed, weights, k, bits, empty,
+        packed_fwd_layout(packed.shape[0],
+                          _build.sm_count(packed.device.index)),
+        packed_fwd_vec(bits, packed.shape[1], packed.data_ptr()))
     bbit_linear_packed_fwd.launches.add()
     return out
 

@@ -27,6 +27,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.counters import LaunchCount
 
 PACK_BITS = (1, 2, 4, 8)   # b where codes never straddle byte bounds
+# B2 (csrc/fused_encode.cu): ids a thread loads in one pass (kPackIds),
+# the passes a block's threads are sized for, and threads a block at most
+# (kPackMaxThreads) and at least (one warp); scripts/sweep_serving_kernels.py
+# times each threads a block at the engine's shapes
+OPH_PACK_IDS_PER_THREAD = 8
+OPH_PACK_PASSES = 2
+OPH_PACK_MAX_THREADS = 1024
+OPH_PACK_MIN_THREADS = 32
 
 
 def check_bits(bits: int) -> None:
@@ -120,6 +128,45 @@ def oph_pack_plain(indices: torch.Tensor, nnz: torch.Tensor,
     return pack_codes_torch(codes, bits), pack_mask_torch(empty)
 
 
+def oph_pack_layout(m: int, k: int) -> int:
+    """B2's threads a block (a block a row) for rows padded to m ids and k
+    bins: enough that ``OPH_PACK_PASSES`` passes of
+    ``OPH_PACK_IDS_PER_THREAD`` ids each cover the padded row, and one a
+    bin for the finish, as a power of two in [``OPH_PACK_MIN_THREADS``,
+    ``OPH_PACK_MAX_THREADS``]."""
+    want = max(-(-m // (OPH_PACK_IDS_PER_THREAD * OPH_PACK_PASSES)), k, 1)
+    threads = 1 << (want - 1).bit_length()
+    return max(OPH_PACK_MIN_THREADS, min(OPH_PACK_MAX_THREADS, threads))
+
+
+def oph_pack_vec(m: int, ptr: int) -> bool:
+    """True where every row of int32 ids starts 16-byte aligned, so B2
+    reads them 4 at a time (int4)."""
+    return m % 4 == 0 and ptr % 16 == 0
+
+
+def _oph_pack_launch(indices: torch.Tensor, nnz: torch.Tensor,
+                     a: torch.Tensor, b: torch.Tensor, k: int, bits: int,
+                     densify: bool, threads: int, vec: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of B2 with ``threads`` a block on checked CUDA inputs;
+    ``vec``: int4 loads (``oph_pack_vec``)."""
+    n, m = indices.shape
+    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
+                      device=indices.device)
+    eout = torch.empty((n, packed_mask_width(k)), dtype=torch.uint8,
+                       device=indices.device)
+    lib = _build.load("fused_encode")
+    with torch.cuda.device(indices.device):
+        code = lib.repro_oph_pack(
+            indices.data_ptr(), nnz.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), eout.data_ptr(), n, m, k, _check_k(k), bits,
+            int(densify), out.shape[1], eout.shape[1], threads, int(vec),
+            indices.device.index, _build.stream(indices))
+    _build.check("fused_encode", code, "oph_pack")
+    return out, eout
+
+
 def oph_pack(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, *, k: int, bits: int, densify: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,26 +177,17 @@ def oph_pack(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
     marks the raw empty bins in both modes.  a, b are int32 (1,) words.
     """
     check_bits(bits)
-    shift = _check_k(k)
+    _check_k(k)
     if _build.on_cpu("oph_pack", indices):
         return oph_pack_plain(indices, nnz, a, b, k=k, bits=bits,
                               densify=densify)
     _check_cuda_args("oph_pack", indices, nnz, a, b)
-    n, m = indices.shape
-    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
-                      device=indices.device)
-    eout = torch.empty((n, packed_mask_width(k)), dtype=torch.uint8,
-                       device=indices.device)
-    lib = _build.load("fused_encode")
-    with torch.cuda.device(indices.device):
-        code = lib.repro_oph_pack(
-            indices.data_ptr(), nnz.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), eout.data_ptr(), n, m, k, shift, bits,
-            int(densify), out.shape[1], eout.shape[1],
-            indices.device.index, _build.stream(indices))
-    _build.check("fused_encode", code, "oph_pack")
+    m = indices.shape[1]
+    out = _oph_pack_launch(indices, nnz, a, b, k, bits, densify,
+                           oph_pack_layout(m, k),
+                           oph_pack_vec(m, indices.data_ptr()))
     oph_pack.launches.add()
-    return out, eout
+    return out
 
 
 oph_pack.launches = LaunchCount()

@@ -11,8 +11,6 @@ plain version give the same int32 in any order.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
@@ -53,11 +51,6 @@ def hamming_layout(n: int, w: int, word: int, sms: int) -> tuple:
     return lanes, reps, 32 * per_block, -(-warps // per_block)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _popcount_table(device) -> torch.Tensor:
     """int32 (256,): the number of set bits of each byte value."""
     v = torch.arange(256, dtype=torch.int32, device=device)
@@ -91,7 +84,7 @@ def hamming_distance(query: torch.Tensor,
     n, w = cands.shape
     word = load_word(w, query.data_ptr(), cands.data_ptr())
     out = _launch(query, cands, word, hamming_layout(
-        n, w, word, _sm_count(cands.device.index)))
+        n, w, word, _build.sm_count(cands.device.index)))
     hamming_distance.launches.add()
     return out
 

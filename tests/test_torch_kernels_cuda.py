@@ -80,6 +80,87 @@ def test_oph_pack_kernel_matches_plain(cuda, bits, densify, k, m):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _serving_rows(n, m, k, seed, dev, offset=0):
+    """n rows of m ids for B2: with n >= 4, row 0 all empty (nnz 0), row 1
+    one id, row 2 k - 1 ids (fewer than the bins), row 3 the whole lane,
+    the rest random; one row: m - 7 ids.  ``offset`` int32s before the
+    first row, so that no row starts 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(0, m + 1, size=(n,)).astype(np.int32)
+    if n >= 4:
+        nnz[:4] = [0, 1, min(k - 1, m), m]
+    else:
+        nnz[:] = m - 7
+    buf = torch.from_numpy(rng.integers(0, 1 << 31, size=(n * m + offset,))
+                           .astype(np.int32))
+    idx = buf.to(dev)[offset:].view(n, m)
+    return idx, torch.from_numpy(nnz).to(dev)
+
+
+def _same_encode(got, want):
+    return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("bits", B_FUSED)
+@pytest.mark.parametrize("densify", [True, False])
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("m,offset", [(2048, 0), (8192, 0), (4099, 0),
+                                      (2048, 1)])
+def test_oph_pack_kernel_at_the_serving_buckets(cuda, bits, densify, n, m,
+                                                offset):
+    """The engine's row buckets and lanes at k=256, with empty rows, rows
+    of fewer ids than bins, and rows that do not start 16-byte aligned
+    (m=4099, or the ids one int32 past an aligned address: scalar
+    loads)."""
+    idx, nnz = _serving_rows(n, m, 256, seed=m + n + bits, dev=cuda,
+                             offset=offset)
+    a, b = OPHHash.make(256, seed=bits).params(cuda)
+    assert fused_encode.oph_pack_vec(m, idx.data_ptr()) == (
+        m % 4 == 0 and offset == 0)
+    got = fused_encode.oph_pack(idx, nnz, a, b, k=256, bits=bits,
+                                densify=densify)
+    want = fused_encode.oph_pack_plain(idx, nnz, a, b, k=256, bits=bits,
+                                       densify=densify)
+    torch.cuda.synchronize()
+    assert _same_encode(got, want)
+
+
+@pytest.mark.parametrize("bits", B_FUSED)
+@pytest.mark.parametrize("densify", [True, False])
+@pytest.mark.parametrize("k,m", [(2, 40), (16, 300), (256, 8192),
+                                 (16384, 4099)])
+def test_oph_pack_kernel_every_layout(cuda, bits, densify, k, m):
+    """Each threads a block and load width B2 can run at, all-empty rows
+    and nnz < k included, equal to the plain version."""
+    idx, nnz = _serving_rows(6, m, k, seed=k, dev=cuda)
+    a, b = OPHHash.make(k, seed=3).params(cuda)
+    want = fused_encode.oph_pack_plain(idx, nnz, a, b, k=k, bits=bits,
+                                       densify=densify)
+    for threads in (32, 256, 512, 1024):
+        for vec in {False, fused_encode.oph_pack_vec(m, idx.data_ptr())}:
+            got = fused_encode._oph_pack_launch(idx, nnz, a, b, k, bits,
+                                                densify, threads, vec)
+            torch.cuda.synchronize()
+            assert _same_encode(got, want), (threads, vec)
+
+
+@pytest.mark.parametrize("bits", B_FUSED)
+@pytest.mark.parametrize("densify", [True, False])
+def test_oph_pack_kernel_all_empty_rows_at_the_widest_k(cuda, bits,
+                                                         densify):
+    """k=16,384 bins: rows with no id, one id and a few (the densify
+    search crosses the whole row's bitmap)."""
+    idx, nnz = _serving_rows(4, 64, 16384, seed=bits, dev=cuda)
+    nnz = torch.tensor([0, 1, 3, 64], dtype=torch.int32, device=cuda)
+    a, b = OPHHash.make(16384, seed=bits).params(cuda)
+    got = fused_encode.oph_pack(idx, nnz, a, b, k=16384, bits=bits,
+                                densify=densify)
+    want = fused_encode.oph_pack_plain(idx, nnz, a, b, k=16384, bits=bits,
+                                       densify=densify)
+    torch.cuda.synchronize()
+    assert _same_encode(got, want)
+
+
 @pytest.mark.parametrize("c", [1, 4])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("bits,k", [(8, 256), (1, 37), (4, 64)])
@@ -102,6 +183,72 @@ def test_packed_fwd_kernel_matches_plain(cuda, c, masked, bits, k):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _packed_case(n, k, bits, c, masked, seed, dev, offset=0):
+    """Packed codes, a table and (if masked) an empty mask; ``offset``
+    bytes before the first packed row, so that rows start unaligned."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 1 << bits, size=(n, k)).astype(np.uint16)
+    flat = np.concatenate([np.zeros(offset, np.uint8),
+                           pack_codes(codes, bits).ravel()])
+    packed = torch.from_numpy(flat).to(dev)[offset:].view(n, -1)
+    weights = torch.from_numpy(
+        rng.normal(size=(k, 1 << bits, c)).astype(np.float32)).to(dev)
+    empty = None
+    if masked:
+        mask = rng.random((n, k)) < 0.3
+        mask[0] = True
+        empty = torch.from_numpy(np.packbits(mask, axis=1)).to(dev)
+    return packed, weights, empty
+
+
+@pytest.mark.parametrize("c", [1, 4])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("bits,k,offset", [(8, 256, 0), (8, 36, 0),
+                                           (1, 37, 0), (8, 256, 1),
+                                           (4, 64, 2), (2, 600, 0),
+                                           (8, 1000, 0)])
+def test_packed_fwd_kernel_at_the_serving_buckets(cuda, c, masked, n, bits,
+                                                  k, offset):
+    """The engine's row buckets, k not a multiple of 8 (k=36 at b=8, k=37
+    at b=1: a partial last group of codes), rows that start unaligned
+    (byte loads), k above one 256-bin step; allclose to the plain
+    version and the same bits on two calls."""
+    packed, weights, empty = _packed_case(n, k, bits, c, masked,
+                                          seed=n + k + c, dev=cuda,
+                                          offset=offset)
+    assert bbit_linear.packed_fwd_vec(bits, packed.shape[1],
+                                      packed.data_ptr()) == (
+        packed.shape[1] % bits == 0 and offset % bits == 0)
+    kw = dict(k=k, bits=bits, empty=empty)
+    got = bbit_linear.bbit_linear_packed_fwd(packed, weights, **kw)
+    again = bbit_linear.bbit_linear_packed_fwd(packed, weights, **kw)
+    want = bbit_linear.bbit_linear_packed_fwd_plain(packed, weights, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bits,k", [(8, 256), (1, 37), (8, 36), (4, 64)])
+def test_packed_fwd_kernel_every_layout(cuda, bits, k):
+    """Each rows a block and load width B5 can run at gives the same bits
+    (one row's sum does not depend on the block it runs in)."""
+    packed, weights, empty = _packed_case(67, k, bits, 4, True, seed=k,
+                                          dev=cuda)
+    want = bbit_linear.bbit_linear_packed_fwd_plain(
+        packed, weights, k=k, bits=bits, empty=empty)
+    first = None
+    for rows in (1, 2, 4, 8):
+        for vec in {False, bbit_linear.packed_fwd_vec(
+                bits, packed.shape[1], packed.data_ptr())}:
+            got = bbit_linear._packed_fwd_launch(packed, weights, k, bits,
+                                                 empty, rows, vec)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            first = got if first is None else first
+            assert torch.equal(got, first), (rows, vec)
 
 
 @pytest.mark.parametrize("scheme", ["minwise", "oph", "oph_zero"])
