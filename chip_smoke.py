@@ -89,12 +89,13 @@ Phases, one line of output each (or more), any failure exits non-zero:
            operations over the card's rate for their type: int32 for
            B1-B4, B9 and B10, float32 for B5-B8): B1, B2, B5 at the
            engine's shapes (64 rows x 2048 / 8192 lanes of real documents,
-           B5 vs embedding_bag), B2 and B5 also at its one-row
+           B5 vs embedding_bag), and at its one-row
            bucket; B7 and B8 at 16,000 x 256 codes, V=256,
            C=1 (vs embedding_bag and bincount), and at the paper fits'
            16,000 x 500 codes, V=65536, B8 over its cached plan and,
            as plan_ms, the plan kernel that builds it; B6 at 1,024 and 16,000
-           packed rows (vs bincount on unpacked codes); B9 at m=64 and
+           packed rows (vs bincount on unpacked codes), and at 1,024 rows
+           of the oph_zero encode with its empty mask; B9 at m=64 and
            m=2^14 on the middle 256-row chunk of the length-sorted corpus
            and on the widest full one; B3 (k=500 and 256)
            and B4 (k=256) on the widest full 1,024-row chunk of the train
@@ -1325,15 +1326,47 @@ def lane_batch(torch, dev, docs, lane):
             int(nnz.sum()))
 
 
-def one_row(torch, F, fe, bl, table, idx, nnz, oa, ob, int_rate: float,
+def check_timed(torch, fe, bl, table, idx, nnz, hashes, where: str):
+    """B1, B2 and B5 held to their plain versions at a shape that is timed
+    (each row bucket picks its own launch layout): B1's bytes, B2's bytes
+    and mask equal, B5's logits within TOL."""
+    a, b, oa, ob = hashes
+    if int_err(torch, fe.minhash_pack(idx, nnz, a, b, bits=B),
+               fe.minhash_pack_plain(idx, nnz, a, b, bits=B)):
+        fail(f"minhash_pack at {where} differs from its plain version")
+    got = fe.oph_pack(idx, nnz, oa, ob, k=K, bits=B)
+    want = fe.oph_pack_plain(idx, nnz, oa, ob, k=K, bits=B)
+    if int_err(torch, got[0], want[0]) or int_err(torch, got[1], want[1]):
+        fail(f"oph_pack at {where} differs from its plain version")
+    logits = bl.bbit_linear_packed_fwd(got[0], table, k=K, bits=B)
+    plain = bl.bbit_linear_packed_fwd_plain(got[0], table, k=K, bits=B)
+    if not torch.allclose(logits, plain, **TOL):
+        fail(f"bbit_linear_packed_fwd at {where} differs from its plain "
+             f"version by {float((logits - plain).abs().max())}")
+    print(f"timing: {where}: minhash_pack and oph_pack bytes equal, "
+          f"bbit_linear_packed_fwd within {TOL}")
+
+
+def one_row(torch, F, fe, bl, table, idx, nnz, hashes, int_rate: float,
             lane: int, card: str) -> dict:
-    """B2 and B5 on serving's one-row bucket: the first document of the
-    lane batch → {kernel: record}."""
+    """B1, B2 and B5 on serving's one-row bucket: the first document of
+    the lane batch → {kernel: record}.  ``hashes``: B1's (a, b), then
+    B2's."""
     from repro_torch.core.bbit import (packed_mask_width, packed_width,
                                        unpack_codes_torch)
+    a, b, oa, ob = hashes
+    check_timed(torch, fe, bl, table, idx, nnz, hashes,
+                f"rows=1 lane={lane}")
     total_nnz = int(nnz.sum())
     w_bytes, e_bytes = packed_width(K, B), packed_mask_width(K)
     rec = {}
+    ms = time_ms(torch, lambda: fe.minhash_pack(idx, nnz, a, b, bits=B), 200)
+    plain = time_ms(torch, lambda: fe.minhash_pack_plain(idx, nnz, a, b,
+                                                         bits=B), 3)
+    bnd = bound(4 * total_nnz + 4 + 8 * K + w_bytes,
+                OPS_PER_MINHASH * K * total_nnz, int_rate)
+    rec["minhash_pack"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                               bound_by=bnd[1], library_ms=None)
     ms = time_ms(torch, lambda: fe.oph_pack(idx, nnz, oa, ob, k=K, bits=B),
                  200)
     plain = time_ms(torch, lambda: fe.oph_pack_plain(idx, nnz, oa, ob, k=K,
@@ -1366,8 +1399,8 @@ def one_row(torch, F, fe, bl, table, idx, nnz, oa, ob, int_rate: float,
 
 
 def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
-    """B1, B2 and B5 at the engine's shapes (B2 and B5 at its one-row
-    bucket too) → {"main": {kernel: record at the widest lane, 64 rows},
+    """B1, B2 and B5 at the engine's shapes (at its one-row bucket too) →
+    {"main": {kernel: record at the widest lane, 64 rows},
     "shapes": {lane or "rows=1 lane=L": {kernel: record}}}."""
     import torch.nn.functional as F
     from repro_torch.core.bbit import (packed_mask_width, packed_width,
@@ -1390,6 +1423,8 @@ def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
     out = {}
     for lane in NNZ_BUCKETS:
         idx, nnz, total_nnz = lane_batch(torch, dev, docs, lane)
+        check_timed(torch, fe, bl, table, idx, nnz, (a, b, oa, ob),
+                    f"rows={ROWS} lane={lane}")
         rec = {}
         ms = time_ms(torch, lambda: fe.minhash_pack(idx, nnz, a, b, bits=B),
                      200)
@@ -1434,7 +1469,7 @@ def phase_timing(torch, dev, docs, card: str, int_rate: float) -> dict:
         out[lane] = rec
         out[f"rows=1 lane={lane}"] = one_row(
             torch, F, fe, bl, table, idx[:1].contiguous(),
-            nnz[:1].contiguous(), oa, ob, int_rate, lane, card)
+            nnz[:1].contiguous(), (a, b, oa, ob), int_rate, lane, card)
     return {"main": out[NNZ_BUCKETS[-1]], "shapes": out,
             "launch_floor_ms": floor}
 
@@ -1445,7 +1480,10 @@ def phase_timing_train(torch, dev, data, paper, card: str,
     too, beside their plain versions, one-call yardsticks and bounds →
     {"main": {kernel: record at its main path's shape}, "shapes":
     {kernel: {shape: record}}}."""
-    from repro_torch.core.bbit import pack_codes, packed_width
+    from repro_torch.core.bbit import (pack_codes, packed_mask_width,
+                                       packed_width, unpack_codes_torch,
+                                       unpack_mask_torch)
+    from repro_torch.core.schemes import make_scheme
     from repro_torch.data.hashed_dataset import _length_sorted_chunks
     from repro_torch.data.packing import pad_rows
     from repro_torch.kernels import bbit_linear as bl
@@ -1543,6 +1581,30 @@ def phase_timing_train(torch, dev, data, paper, card: str,
                time_ms(torch, lambda: torch.bincount(f1, weights=wr,
                                                      minlength=K * v), 200),
                is_main=rows_n == STREAM_BATCH)
+    # B6 with the oph_zero empty mask on the stream batch's own encode (the
+    # packed gradient's input); a dropped bin goes past the table in bincount
+    idx, nnz = pad_rows(data["rows"][:STREAM_BATCH])
+    packed, empty = make_scheme("oph_zero", K, HASH_SEED).encode_packed(
+        torch.from_numpy(idx).to(dev), torch.from_numpy(nnz).to(dev), B)
+    d = dout[:STREAM_BATCH].contiguous()
+    kw = dict(k=K, bits=B, empty=empty)
+    f1 = torch.where(unpack_mask_torch(empty, K), K * v,
+                     torch.arange(K, device=dev)[None, :] * v
+                     + unpack_codes_torch(packed, K, B)).reshape(-1)
+    wr = d[:, 0].repeat_interleave(K)
+    record("bbit_linear_packed_bwd_dw",
+           f"n={STREAM_BATCH} k={K} V={v} C=1 oph_zero mask",
+           time_ms(torch, lambda: bl.bbit_linear_packed_bwd_dw(
+               packed, d, v, **kw), 200),
+           time_ms(torch, lambda: bl.bbit_linear_packed_bwd_dw_plain(
+               packed, d, v, **kw), 20),
+           bound(STREAM_BATCH * (packed_width(K, B) + packed_mask_width(K))
+                 + 4 * STREAM_BATCH + 4 * K * v,
+                 int((~unpack_mask_torch(empty, K)).sum()),
+                 PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: torch.bincount(f1, weights=wr,
+                                                 minlength=K * v + 1), 200),
+           is_main=False)
     # B9 on the middle chunk of the corpus (the main-path record) and on
     # the widest full one (256 rows of 4,182-4,245 ids), where a row's
     # threads walk the most ids

@@ -1,18 +1,49 @@
 #!/usr/bin/env python3
-"""Times the widened b-bit linear kernels (B7 forward, B8 dW) on one
-NVIDIA GPU at the TRON fits' shapes, over the launch layouts their
-wrappers choose from, beside the one-call PyTorch yardsticks.
+"""Times the b-bit linear layer's dW kernels and widened forward on one
+NVIDIA GPU over the launch layouts their wrappers choose from, beside the
+one-call PyTorch yardsticks: B6 (dW from packed codes) at the packed
+gradient's shapes, B7 (forward) and B8 (dW) from widened codes at the
+TRON fits' shapes.
 
     python3 scripts/sweep_bbit_linear.py [--out sweep.json]
+    python3 scripts/sweep_bbit_linear.py --wrappers [--root DIR] [--out f]
+    python3 scripts/sweep_bbit_linear.py --stages [--out f]
 
-Shapes: 16,000 rows of random codes (numpy seed 0) at k=256, V=256 and
-k=500, V=65536, C=1.  For B7 it times ``_fwd_launch`` at each bin group;
-for B8 the plan kernel and ``_dw_sum_launch`` at each span of values a
-block, and ``bbit_linear_bwd_dw`` with its cached plan.  Each
-layout's result is held to the plain version (B7 within 1e-5 of each
-row's sum of absolute terms, B8 within 1e-5 of each bin's).  The layout
-``fwd_layout`` / ``dw_sum_span`` picks is marked.  Without a CUDA
-device it exits non-zero.
+B6 runs on ``chip_smoke.py``'s train corpus (20,000 synthetic documents,
+seed 11): the minwise codes of ``preprocess_rows`` (k=256, b=8, hash
+seed 1) of its first 1,024 rows (the stream batch) and 16,000 rows (the
+training rows), packed, without a mask, and the ``oph_zero`` encode of
+the same rows with its empty mask; dout normal (numpy seed 0), C=1,
+V=256.  Two inputs more at 1,024 rows bracket the sum over rows that
+share a code: every row the same code in every bin, and every code of a
+32-row group different.  Before any timing, numpy counts on the host how
+the train corpus's codes (minwise, oph, oph_zero) share values within the
+32-row groups a warp of B6 takes.  B6 runs at each warps a block and
+blocks a cluster along the rows (``_packed_dw_launch``), its result held
+within 1e-5 of each bin's sum of absolute terms of the plain version and
+the same bits on two calls; ``packed_dw_layout``'s choice is marked;
+``torch.bincount`` of the same sum beside it.  B7 and B8 run on 16,000
+rows of random codes (numpy seed 0) at k=256, V=256 and k=500, V=65536,
+C=1: B7 at each bin group (``_fwd_launch``), B8's plan kernel and its sum
+at each span of values a block (``_dw_sum_launch``), and
+``bbit_linear_bwd_dw`` with its cached plan, each held to its plain
+version (B7 within 1e-5 of each row's sum of absolute terms).
+
+``--wrappers`` times only B6's public wrapper at its six inputs, beside
+``torch.bincount``, and the device time of each kernel one call of it
+launches (``torch.profiler``), using the package under ``--root`` (a
+checkout; this one by default), so that two trees can be timed in turns
+on one card.  ``--stages`` builds this checkout's ``csrc/bbit_linear.cu``
+once more with ``-DREPRO_DW_STAGES`` (a library apart, under the build
+directory) and runs B6 through it at each of the six inputs, at the
+layout the wrapper picks: each block's ``clock64`` at the kernel's stage
+marks (set up, rows staged, groups summed, warps merged, cluster barrier
+passed, dW stored, last barrier passed), and the global timer at its
+start and end, printed as the median and largest over the blocks in µs
+at the card's maximum SM clock, beside the call's time when queued back
+to back and the span from the first block's start to the last one's
+end.  The calls are timed as ``chip_smoke.py`` times them.  Without a
+CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -25,41 +56,126 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 N = 16_000
 SHAPES = ((256, 8), (500, 16))      # (k, b): configs/rcv1_oph, rcv1_bbit
-
-
-def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Device time per call, the calls queued behind a sleep kernel."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+B6_ROWS = (1024, 16_000)            # stream_batch, the training rows
+B6_WARPS = (1, 2, 4, 8, 16)
+B6_PARTS = (1, 2, 4, 8)
+GROUP = 32                          # rows a warp of B6 takes at once
+# B6's stage marks (csrc/bbit_linear.cu, DW_MARK), in order
+STAGES = ("set up", "rows staged", "groups summed", "warps merged",
+          "cluster barrier", "dW stored", "last barrier")
+PROBE_MARKS = 10                    # int64 a block: 7 marks, 8 start, 9 end
 
 
 def within(got, want, scale) -> bool:
     return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
+def shared_codes(codes: np.ndarray, drop=None) -> dict:
+    """How the (n, k) codes share values within each 32-row group of a
+    bin (rows in ``drop`` (n, k) left out): the share of (group, bin)
+    pairs where two rows share a code, the mean share of a group's rows
+    whose code another row holds, the mean largest number of rows that
+    hold one code, and the share of pairs where all 32 rows hold one."""
+    n, k = codes.shape
+    g = n // GROUP
+    c = codes[:g * GROUP].reshape(g, GROUP, k).transpose(0, 2, 1)
+    c = c.reshape(g * k, GROUP).astype(np.int64)
+    if drop is not None:
+        d = drop[:g * GROUP].reshape(g, GROUP, k).transpose(0, 2, 1)
+        c = np.where(d.reshape(g * k, GROUP), -1 - np.arange(GROUP), c)
+    s = np.sort(c, axis=1)
+    same = s[:, 1:] == s[:, :-1]
+    shared = np.zeros_like(s, dtype=bool)
+    shared[:, 1:] |= same
+    shared[:, :-1] |= same
+    run = np.ones(len(s), np.int64)
+    cur = np.ones(len(s), np.int64)
+    for i in range(1, GROUP):
+        cur = np.where(same[:, i - 1], cur + 1, 1)
+        run = np.maximum(run, cur)
+    return {"pairs": int(len(s)),
+            "any_shared": float(same.any(axis=1).mean()),
+            "rows_shared": float(shared.mean()),
+            "largest_run": float(run.mean()),
+            "all_one_code": float((run == GROUP).mean())}
+
+
+def stage_probe(_build, dev):
+    """B6 built with its stage marks (-DREPRO_DW_STAGES) into the build
+    directory → run(packed, dout, empty, k, bits, v, warps, parts, vec)
+    → (dW, (blocks, 10) int64 marks of that launch)."""
+    import ctypes
+    import torch
+    out = _build.build_dir() / "bbit_linear_stages.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS,
+                    "-DREPRO_DW_STAGES", "-o", str(out),
+                    str(_build.CSRC / "bbit_linear.cu")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    launch = lib.repro_bbit_linear_packed_bwd_dw
+    launch.argtypes = _build.SIGNATURES["bbit_linear"][
+        "repro_bbit_linear_packed_bwd_dw"]
+    launch.restype = ctypes.c_int
+    lib.repro_bbit_linear_dw_stages.argtypes = [ctypes.c_void_p,
+                                                ctypes.c_int]
+    lib.repro_bbit_linear_dw_stages.restype = ctypes.c_int
+
+    def call(packed, dout, empty, k, bits, v, warps, parts, vec):
+        n, c = dout.shape
+        got = torch.empty((k, v, c), dtype=torch.float32, device=dev)
+        code = launch(packed.data_ptr(),
+                      None if empty is None else empty.data_ptr(),
+                      dout.data_ptr(), got.data_ptr(), n, k, bits, v, c,
+                      packed.shape[1],
+                      0 if empty is None else empty.shape[1], warps, parts,
+                      int(vec), dev.index, _build.stream(packed))
+        if code:
+            raise RuntimeError(f"B6 stage probe: CUDA error {code}")
+        return got
+
+    def run(*args):
+        got = call(*args)
+        torch.cuda.synchronize()
+        k, parts = args[3], args[7]
+        blocks = -(-k // 8) * parts
+        marks = np.zeros((blocks, PROBE_MARKS), np.int64)
+        code = lib.repro_bbit_linear_dw_stages(marks.ctypes.data, blocks)
+        if code:
+            raise RuntimeError(f"B6 stage probe: CUDA error {code}")
+        return got, marks
+
+    return call, run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the times here")
+    ap.add_argument("--wrappers", action="store_true",
+                    help="time only B6's public wrapper")
+    ap.add_argument("--stages", action="store_true",
+                    help="B6's stage marks at the wrapper's layouts")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose src/repro_torch to time")
     args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs      # puts this checkout's src on the path
+    sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     import torch
     if not torch.cuda.is_available():
         print("sweep_bbit_linear: no CUDA device", file=sys.stderr)
         return 2
     import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from repro_torch.core.bbit import (pack_codes, unpack_codes_torch,
+                                       unpack_mask_torch)
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.data.hashed_dataset import preprocess_rows
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import _build
     from repro_torch.kernels import bbit_linear as bl
 
     dev = torch.device("cuda", 0)
@@ -70,13 +186,141 @@ def main() -> int:
     rng = np.random.default_rng(0)
     rows = []
 
-    def note(kernel, shape, layout, ms, ok, chosen):
+    def note(kernel, shape, layout, ms, ok, chosen, **extra):
         rows.append(dict(kernel=kernel, shape=shape, layout=layout, ms=ms,
-                         ok=ok, chosen=chosen))
-        print(f"{kernel} {shape} {layout} ms={ms} ok={ok}"
-              f"{' (chosen)' if chosen else ''} card={card}")
+                         ok=ok, chosen=chosen, **extra))
+        more = "".join(f" {key}={val}" for key, val in extra.items())
+        print(f"{kernel} {shape} {layout} ms={ms} ok={ok}{more}"
+              f"{' (chosen)' if chosen else ''} card={card}", flush=True)
         if not ok:
             raise RuntimeError(f"{kernel} {shape} {layout} is wrong")
+
+    def timed(fn, iters):
+        return cs.time_ms(torch, fn, iters)
+
+    # B6's inputs: the train corpus's codes, and the two brackets
+    k, b = cs.K, cs.B
+    v = 1 << b
+    corpus, _ = cs.make_train_corpus()
+    docs = corpus[:max(B6_ROWS)]
+    codes = {s: preprocess_rows(docs, k=k, b=b, scheme=s, seed=cs.HASH_SEED,
+                                chunk=cs.PREPROCESS_CHUNK, device=dev)
+             for s in ("minwise", "oph")}
+    zero = make_scheme("oph_zero", k, cs.HASH_SEED)
+    zp, ze = [], []
+    for lo in range(0, len(docs), cs.PREPROCESS_CHUNK):
+        idx, nnz = pad_rows(docs[lo:lo + cs.PREPROCESS_CHUNK])
+        p, e = zero.encode_packed(torch.from_numpy(idx).to(dev),
+                                  torch.from_numpy(nnz).to(dev), b)
+        zp.append(p)
+        ze.append(e)
+    zero_packed, zero_empty = torch.cat(zp), torch.cat(ze)
+    zero_codes = unpack_codes_torch(zero_packed, k, b).cpu().numpy()
+    zero_drop = unpack_mask_torch(zero_empty, k).cpu().numpy()
+    for n in B6_ROWS:
+        for name, c, drop in (("minwise", codes["minwise"], None),
+                              ("oph", codes["oph"], None),
+                              ("oph_zero", zero_codes, zero_drop)):
+            count = shared_codes(c[:n], None if drop is None else drop[:n])
+            print(f"shared codes: {name} n={n} k={k} b={b}: "
+                  + " ".join(f"{key}={val}" for key, val in count.items()),
+                  flush=True)
+            rows.append(dict(kernel="shared_codes", shape=f"{name} n={n}",
+                             **count))
+
+    inputs = []
+    for n in B6_ROWS:
+        packed = torch.from_numpy(pack_codes(
+            codes["minwise"][:n].astype(np.uint16), b)).to(dev)
+        inputs.append((f"n={n} minwise", packed, None))
+        inputs.append((f"n={n} oph_zero mask", zero_packed[:n].contiguous(),
+                       zero_empty[:n].contiguous()))
+    n0 = B6_ROWS[0]
+    same = np.zeros((n0, k), np.uint16)
+    spread = (np.arange(n0)[:, None] + np.arange(k)[None, :]) % v
+    for name, c in (("same code", same), ("distinct codes", spread)):
+        inputs.append((f"n={n0} {name}", torch.from_numpy(
+            pack_codes(c.astype(np.uint16), b)).to(dev), None))
+    douts = {n: torch.from_numpy(np.random.default_rng(0).normal(
+        size=(n, 1)).astype(np.float32)).to(dev) for n in B6_ROWS}
+    if args.stages:
+        mhz = float(cs.nvidia_smi("clocks.max.sm").split()[0])
+        call, run = stage_probe(_build, dev)
+        for shape, packed, empty in inputs:
+            n = packed.shape[0]
+            d = douts[n]
+            kw = dict(k=k, bits=b, empty=empty)
+            want = bl.bbit_linear_packed_bwd_dw_plain(packed, d, v, **kw)
+            scale = bl.bbit_linear_packed_bwd_dw_plain(packed, d.abs(), v,
+                                                       **kw)
+            warps, parts = bl.packed_dw_layout(n)
+            vec = bl.packed_fwd_vec(b, packed.shape[1], packed.data_ptr())
+            probe = (packed, d, empty, k, b, v, warps, parts, vec)
+            ms = timed(lambda: call(*probe), 200)
+            got, marks = run(*probe)
+            us = marks[:, :len(STAGES)] / mhz      # cycles → µs
+            step = np.diff(us, axis=1, prepend=0.0)
+            note("bbit_linear_packed_bwd_dw stages",
+                 f"{shape} k={k} V={v} C=1", f"warps={warps} parts={parts}",
+                 ms, within(got, want, scale), True,
+                 blocks=len(marks),
+                 span_us=float(marks[:, 9].max() - marks[:, 8].min()) / 1e3,
+                 start_spread_us=float(marks[:, 8].max()
+                                       - marks[:, 8].min()) / 1e3,
+                 sm_mhz=mhz,
+                 **{f"{name} us (median/max)":
+                    f"{np.median(step[:, i]):.3f}/{step[:, i].max():.3f}"
+                    for i, name in enumerate(STAGES)},
+                 block_us=f"{np.median(us[:, -1]):.3f}/{us[:, -1].max():.3f}")
+        return finish(args, card, rows)
+    for shape, packed, empty in inputs:
+        n = packed.shape[0]
+        d = douts[n]
+        kw = dict(k=k, bits=b, empty=empty)
+        want = bl.bbit_linear_packed_bwd_dw_plain(packed, d, v, **kw)
+        scale = bl.bbit_linear_packed_bwd_dw_plain(packed, d.abs(), v, **kw)
+        flat = (torch.arange(k, device=dev)[None, :] * v
+                + unpack_codes_torch(packed, k, b).to(torch.int64))
+        if empty is not None:   # a dropped bin lands past the table
+            flat = torch.where(unpack_mask_torch(empty, k), k * v, flat)
+        flat = flat.reshape(-1)
+        w_rep = d[:, 0].repeat_interleave(k)
+        note("bincount", f"{shape} k={k} V={v} C=1", "library",
+             timed(lambda: torch.bincount(flat, weights=w_rep,
+                                          minlength=k * v + 1), 200),
+             True, False)
+        fn = lambda: bl.bbit_linear_packed_bwd_dw(packed, d, v, **kw)
+        got = fn()
+        ok = within(got, want, scale) and torch.equal(got, fn())
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        per = {}    # device µs a call, by kernel
+        for e in prof.key_averages():
+            us = float(getattr(e, "self_device_time_total", 0) or 0)
+            if us > 0 and e.device_type != DeviceType.CPU:
+                per[e.key[:60]] = us / 20
+        note("bbit_linear_packed_bwd_dw", f"{shape} k={k} V={v} C=1",
+             "wrapper", timed(fn, 200), ok, True,
+             kernels_us=json.dumps(per))
+        if args.wrappers:
+            continue
+        chosen = bl.packed_dw_layout(n)
+        vec = bl.packed_fwd_vec(b, packed.shape[1], packed.data_ptr())
+        for warps in B6_WARPS:
+            for parts in B6_PARTS:
+                fn = lambda: bl._packed_dw_launch(packed, d, v, k, b, empty,
+                                                  warps, parts, vec)
+                got = fn()
+                ok = within(got, want, scale) and torch.equal(got, fn())
+                note("bbit_linear_packed_bwd_dw", f"{shape} k={k} V={v} C=1",
+                     f"warps={warps} parts={parts}", timed(fn, 200), ok,
+                     (warps, parts) == chosen)
+    if args.wrappers:
+        return finish(args, card, rows)
 
     for k, b in SHAPES:
         v = 1 << b
@@ -94,9 +338,9 @@ def main() -> int:
             fn = lambda: bl._fwd_launch(codes, table, group)
             ok = within(fn(), want, scale)
             note("bbit_linear_fwd", shape, f"group={group}",
-                 time_ms(torch, fn, 50), ok, group == chosen)
+                 timed(fn, 50), ok, group == chosen)
         flat = torch.arange(k, device=dev)[None, :] * v + codes.to(torch.int64)
-        note("embedding_bag", shape, "", time_ms(torch, lambda: F.embedding_bag(
+        note("embedding_bag", shape, "", timed(lambda: F.embedding_bag(
             flat, table.view(k * v, 1), mode="sum"), 50), True, False)
         del want, scale
 
@@ -104,8 +348,8 @@ def main() -> int:
         dw_scale = bl.bbit_linear_bwd_dw_plain(codes, dout.abs(), v)
         plan = bl.bbit_linear_dw_plan(codes, v)
         note("bbit_linear_dw_plan", shape, f"passes={bl.dw_plan_passes(v)}",
-             time_ms(torch, lambda: bl.bbit_linear_dw_plan(codes, v), 20),
-             True, True)
+             timed(lambda: bl.bbit_linear_dw_plan(codes, v), 20), True,
+             True)
         chosen = bl.dw_sum_span(N, v)
         for span in (32, 64, 128, 256, 512, 1024, 2048):
             if span > v:
@@ -113,19 +357,24 @@ def main() -> int:
             fn = lambda: bl._dw_sum_launch(plan, dout, v, span)
             ok = within(fn(), dw_want, dw_scale)
             note("bbit_linear_dw_sum", shape, f"span={span}",
-                 time_ms(torch, fn, 50), ok, span == chosen)
+                 timed(fn, 50), ok, span == chosen)
         note("bbit_linear_bwd_dw", shape, "cached plan",
-             time_ms(torch, lambda: bl.bbit_linear_bwd_dw(codes, dout, v),
-                     50), True, True)
+             timed(lambda: bl.bbit_linear_bwd_dw(codes, dout, v), 50), True,
+             True)
         w_rep = dout[:, 0].repeat_interleave(k)
         flat1 = flat.reshape(-1)
-        note("bincount", shape, "", time_ms(torch, lambda: torch.bincount(
+        note("bincount", shape, "", timed(lambda: torch.bincount(
             flat1, weights=w_rep, minlength=k * v), 20), True, False)
         del dw_want, dw_scale, plan, flat, flat1, table
         torch.cuda.empty_cache()
+    return finish(args, card, rows)
+
+
+def finish(args, card: str, rows: list) -> int:
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "rows": rows}, f, indent=1)
+            json.dump({"card": card, "root": args.root, "rows": rows}, f,
+                      indent=1)
     print(f"card: {card}")
     return 0
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times the two kernels of every serving micro-batch, the OPH encode
-and pack (B2, ``oph_pack``) and the packed forward (B5,
-``bbit_linear_packed_fwd``), over the launch layouts their wrappers
-choose from, on one NVIDIA GPU, at the serving engine's shapes.
+"""Times the kernels of every serving micro-batch, the minwise and OPH
+encodes and packs (B1, ``minhash_pack``; B2, ``oph_pack``) and the
+packed forward (B5, ``bbit_linear_packed_fwd``), over the launch layouts
+their wrappers choose from, on one NVIDIA GPU, at the serving engine's
+shapes.
 
     python3 scripts/sweep_serving_kernels.py [--out sweep.json]
     python3 scripts/sweep_serving_kernels.py --wrappers [--root DIR] [--out f]
@@ -11,9 +12,14 @@ The shapes are ``chip_smoke.py``'s: its 384 synthetic expanded-rcv1
 documents (seed 0), the engine's row buckets 1 and 64 (``serve.py``'s
 ``(1, max_batch)`` without a profile) and its lanes of 2,048 and 8,192
 ids (``lane_batch``: real documents of each lane, padded to the lane),
-k=256, b=8, C=1 (``configs/rcv1_oph.py``).  B2 runs at each threads a
-block (a block a row), with 16-byte and with scalar id loads, every result held to
-``oph_pack_plain`` byte for byte; B5 on the codes B2 makes, at each
+k=256, b=8, C=1 (``configs/rcv1_oph.py``).  B1 runs at each hash lanes
+a thread, lanes a block and warps a block, and at the wrapper's layout
+with scalar id loads, also at 1,024 rows (the 64 rows of the 8,192 lane
+tiled), where many waves of blocks give its loop's rate; every result
+held to ``minhash_pack_plain`` byte for byte; the instruction mix of B1
+is counted from ``cuobjdump -sass`` of the built library.  B2 runs at
+each threads a block (a block a row), with 16-byte and with scalar id
+loads, every result held to ``oph_pack_plain`` byte for byte; B5 on the codes B2 makes, at each
 rows a block, with and without one load a lane's codes, every result
 allclose (1e-5) to ``bbit_linear_packed_fwd_plain`` and the same bits
 on two calls, beside ``embedding_bag`` of the same sum; the wrappers'
@@ -22,8 +28,9 @@ own choices are marked.  The launch floor is timed first:
 launched through the port's ctypes path at the grid, block and shared
 memory of each design (``csrc/launch_floor.cu``).
 
-``--wrappers`` times only the public wrappers (B2 with and without
-densify, B5 with and without the empty mask) at the four shapes, and
+``--wrappers`` times only the public wrappers (B1, also at 1,024 rows;
+B2 with and without densify; B5 with and without the empty mask) at the
+four shapes, and
 the floors, using the package under ``--root`` (a checkout; this one by
 default), so that two trees can be timed in turns on one card.  Without
 a CUDA device it exits non-zero.
@@ -31,9 +38,11 @@ a CUDA device it exits non-zero.
 from __future__ import annotations
 
 import argparse
-import importlib.util
+import collections
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -45,17 +54,37 @@ ROW_BUCKETS = (1, 64)             # launch/serve.py without a profile
 B5_ROWS = (1, 64, 1024)           # serving's buckets, stream_batch
 B2_THREADS = (128, 256, 512, 1024)
 B5_ROWS_A_BLOCK = (1, 2, 4, 8)
+B1_LANES_A_THREAD = (1, 2, 4, 8)
+B1_LANES_A_BLOCK = (1, 2, 4, 8, 16, 32, 64, 256)
+B1_WARPS = (2, 4, 8, 16)
+B1_STEADY_ROWS = 1024             # the 64 rows of the 8,192 lane, tiled
 ITERS = 500
+B1_OPS = ("IMAD", "IMAD.HI.U32", "SHF.R.U32.HI", "LOP3.LUT", "VIMNMX.U32",
+          "VIMNMX3.U32", "IMNMX.U32", "LDG.E.128.CONSTANT", "LDS",
+          "LDS.128")
 
 
-def load_chip_smoke():
-    """``chip_smoke.py`` of this checkout as a module (its corpus, lane
-    batches, timer and constants); it imports no package at load."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+def sass_counts(lib_path: str, kernel: str) -> dict:
+    """{function: {opcode: count}} of the functions of the library whose
+    name holds ``kernel``, from ``cuobjdump -sass`` ({} without it)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for body in text.split("Function : ")[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        ops = collections.Counter()
+        for line in body.splitlines():
+            hit = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?"
+                           r"([A-Z][A-Z0-9_.]*)", line)
+            if hit:
+                ops[hit.group(2)] += 1
+        out[name] = dict(ops)
+    return out
 
 
 def main() -> int:
@@ -66,7 +95,8 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose src/repro_torch to time")
     args = ap.parse_args()
-    cs = load_chip_smoke()       # puts this checkout's src on the path
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs      # puts this checkout's src on the path
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     import torch
     if not torch.cuda.is_available():
@@ -75,6 +105,7 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch.core.bbit import unpack_codes_torch
     from repro_torch.core.oph import OPHHash
+    from repro_torch.core.universal_hash import MultiplyShiftHash
     from repro_torch.kernels import _build
     from repro_torch.kernels import bbit_linear as bl
     from repro_torch.kernels import fused_encode as fe
@@ -101,6 +132,7 @@ def main() -> int:
          True, False)
     k, bits = cs.K, cs.B
     oa, ob = OPHHash.make(k, 1).params(dev)
+    ma, mb = MultiplyShiftHash.make(k, 1).params(dev)
     gen = torch.Generator().manual_seed(0)
     table = (0.01 * torch.randn((k, 1 << bits, 1), generator=gen)).to(dev)
     docs = cs.make_corpus(cs.DOCS, seed=0)
@@ -122,6 +154,13 @@ def main() -> int:
         geoms += [("B2", n, n, threads, smem) for n in ROW_BUCKETS
                   for threads in sorted({fe.oph_pack_layout(lane, k)
                                          for lane in cs.NNZ_BUCKETS})]
+        if hasattr(fe, "minhash_pack_layout"):
+            for n in ROW_BUCKETS:
+                for lane in cs.NNZ_BUCKETS:
+                    lpt, lt, w = fe.minhash_pack_layout(n, k, bits,
+                                                        _build.sm_count(0))
+                    geoms.append(("B1", n, n * -(-k // (lpt * lt)), 32 * w,
+                                  4 * lpt * lt * (w + 1)))
         stream = _build.stream(batches[(1, cs.NNZ_BUCKETS[0])][0])
         for name, n, blocks, threads, sm in geoms:
             def empty():
@@ -132,6 +171,48 @@ def main() -> int:
             note("launch_floor", f"empty kernel as {name} n={n}",
                  f"grid={blocks} threads={threads} smem={sm}",
                  timed(empty), True, False)
+
+    # B1 at each shape, and at 1,024 rows, where many waves of blocks give
+    # the loop's rate: the wrapper, then (not with --wrappers) each hash
+    # lanes a thread, lanes a block and warps a block, and scalar loads
+    b1_shapes = dict(batches)
+    idx, nnz = batches[(max(ROW_BUCKETS), max(cs.NNZ_BUCKETS))]
+    reps = -(-B1_STEADY_ROWS // idx.shape[0])
+    b1_shapes[(B1_STEADY_ROWS, max(cs.NNZ_BUCKETS))] = (
+        idx.repeat(reps, 1)[:B1_STEADY_ROWS].contiguous(),
+        nnz.repeat(reps)[:B1_STEADY_ROWS].contiguous())
+    for (n, lane), (idx, nnz) in b1_shapes.items():
+        shape = f"rows={n} lane={lane} nnz_sum={int(nnz.sum())}"
+        iters = ITERS if n <= max(ROW_BUCKETS) else 20
+        if n <= max(ROW_BUCKETS):
+            want = fe.minhash_pack_plain(idx, nnz, ma, mb, bits=bits)
+        else:   # the 64 rows' codes, tiled as the rows are
+            want = want.repeat(reps, 1)[:n].contiguous()
+        fn = lambda: fe.minhash_pack(idx, nnz, ma, mb, bits=bits)
+        note("minhash_pack", shape, "wrapper", timed(fn, iters),
+             torch.equal(fn(), want), True)
+        if args.wrappers:
+            continue
+        chosen = fe.minhash_pack_layout(n, k, bits, _build.sm_count(0))
+        vec0 = fe.oph_pack_vec(lane, idx.data_ptr())
+        designs = [(lpt, lanes // lpt, w, vec0) for lpt in B1_LANES_A_THREAD
+                   for lanes in B1_LANES_A_BLOCK for w in B1_WARPS
+                   if lpt <= lanes <= 32 * lpt and lanes * bits % 8 == 0]
+        designs += [(*chosen, False)] if vec0 else []
+        for lpt, lt, w, vec in designs:
+            fn = lambda: fe._minhash_pack_launch(idx, nnz, ma, mb, bits, lpt,
+                                                 lt, w, vec)
+            note("minhash_pack", shape,
+                 f"lanes_a_thread={lpt} threads={lt} warps={w} vec={vec}",
+                 timed(fn, iters), torch.equal(fn(), want),
+                 (lpt, lt, w, vec) == (*chosen, vec0))
+    lib = _build.library_path("fused_encode")
+    for name, ops in sass_counts(str(lib), "minhash_pack_kernel").items():
+        print(f"sass: {name}: {sum(ops.values())} instructions; "
+              + " ".join(f"{op}={ops.get(op, 0)}" for op in B1_OPS)
+              , flush=True)
+        rows.append(dict(kernel="minhash_pack", shape="sass", layout=name,
+                         ms=None, ok=True, chosen=False, sass=ops))
 
     # B2 at each shape, and the codes B5 runs on
     codes_of = {}

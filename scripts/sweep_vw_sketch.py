@@ -47,22 +47,6 @@ DESIGNS = {0: "lanes G=", 1: "slice mb="}
 HAM_W, HAM_ROWS = 256, (3, 20_000)     # k=256, b=8; typical and full scan
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    """Device time per call, the calls queued behind a sleep kernel."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def corpus_chunks(torch, dev):
     """[(name, (ids, ones, nnz))] of every length-sorted chunk of the
     corpus on the card, and the names of the middle, widest full and
@@ -95,6 +79,8 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose src/repro_torch to time")
     args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs      # puts this checkout's src on the path
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
     import torch
     if not torch.cuda.is_available():
@@ -122,7 +108,7 @@ def main() -> int:
         return torch.equal(got.view(torch.int32), want.view(torch.int32))
 
     note("launch_floor", "_sleep(0)", "",
-         time_ms(torch, lambda: torch.cuda._sleep(0), 500), True, False)
+         cs.time_ms(torch, lambda: torch.cuda._sleep(0), 500), True, False)
     every, picked = corpus_chunks(torch, dev)
     for shape, (idx, ones, nnz) in picked:
         n, mx = idx.shape
@@ -130,10 +116,10 @@ def main() -> int:
             want = vw.vw_sketch_plain(idx, ones, nnz, m, seed=SEED)
             fn = lambda: vw.vw_sketch(idx, ones, nnz, m, seed=SEED)
             note("vw_sketch", f"{shape} m={m}", "wrapper",
-                 time_ms(torch, fn, 200), same(fn(), want), True)
+                 cs.time_ms(torch, fn, 200), same(fn(), want), True)
             if args.wrappers:
                 continue
-            note("zeros", f"{shape} m={m}", "torch.zeros", time_ms(
+            note("zeros", f"{shape} m={m}", "torch.zeros", cs.time_ms(
                 torch, lambda: torch.zeros((n, m), device=dev), 200),
                 True, False)
             chosen = vw.vw_layout(n, mx, m)
@@ -146,7 +132,7 @@ def main() -> int:
                                         param)
                 note("vw_sketch", f"{shape} m={m}",
                      f"{DESIGNS[design]}{param}",
-                     time_ms(torch, fn, 200), same(fn(), want),
+                     cs.time_ms(torch, fn, 200), same(fn(), want),
                      (design, param) == chosen)
     if args.wrappers:
         for m in M_MAIN:
@@ -154,7 +140,7 @@ def main() -> int:
                 for _, (idx, ones, nnz) in every:
                     vw.vw_sketch(idx, ones, nnz, m, seed=SEED)
             note("vw_sketch", f"all {len(every)} chunks m={m}", "wrapper",
-                 time_ms(torch, one_pass, 5, warmup=1), True, True)
+                 cs.time_ms(torch, one_pass, 5, warmup=1), True, True)
     rng = np.random.default_rng(0)
     table = torch.from_numpy(rng.integers(
         0, 256, size=(max(HAM_ROWS), HAM_W)).astype(np.uint8)).to(dev)
@@ -164,7 +150,7 @@ def main() -> int:
         want = hd.hamming_distance_plain(query, cands)
         fn = lambda: hd.hamming_distance(query, cands)
         note("hamming_distance", f"n={n} w={HAM_W}", "wrapper",
-             time_ms(torch, fn, 500), torch.equal(fn(), want), True)
+             cs.time_ms(torch, fn, 500), torch.equal(fn(), want), True)
         if args.wrappers or n < 1000:
             continue
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -176,7 +162,7 @@ def main() -> int:
             layout = (lanes, reps, 32 * per_block, -(-warps // per_block))
             fn = lambda: hd._launch(query, cands, 16, layout)
             note("hamming_distance", f"n={n} w={HAM_W}",
-                 f"lanes={lanes} reps={reps}", time_ms(torch, fn, 500),
+                 f"lanes={lanes} reps={reps}", cs.time_ms(torch, fn, 500),
                  torch.equal(fn(), want), layout == chosen)
     if args.out:
         with open(args.out, "w") as f:

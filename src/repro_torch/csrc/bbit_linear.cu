@@ -79,27 +79,37 @@
 //   bbit_linear.py::bbit_linear_packed_bwd_dw_pallas: the same dW from
 //   packed codes, bins marked in the empty mask contributing nothing.  The
 //   streaming trainer calls it on new codes every batch, where a plan
-//   would not pay back, so it keeps a histogram per bin.  Bound: bytes --
-//   the packed rows and mask and dout read once, dW written once.  Design:
-//   a block owns 8 consecutive j (one warp each, its (V,) histogram of one
-//   class in shared memory) and a range of rows.  It stages 256 rows x 8
-//   codes at a time (8 loads in flight per thread), read as whole 32-byte
-//   row segments (8 packed codes are b whole bytes, 8 mask bits one byte),
-//   then takes them in groups of 32 rows.  In each warp __match_any_sync
-//   groups the lanes (rows) that hold the same code; the group's lowest
-//   lane sums their dout in lane order and adds it to the bin the warp
-//   owns alone.  There are no float atomics, so every bin sums in one
-//   fixed order.  The rows are split over blocks so that a (k / 8)-block
-//   grid still fills the card; each split writes its partial table and a
-//   second kernel adds the splits in split order.  The split count depends
-//   on the shapes only, so dW is the same bits on every run (ROADMAP B6:
-//   the streaming trainer's bit-identical resume).  A histogram tile holds
-//   up to kDwVTile = 4096 values of v (8 x 4096 floats = 128 KiB of
-//   dynamic shared memory); a wider table is cut into V tiles, a third
-//   grid axis.  The classes are taken one after another, so any C works.
+//   would not pay back, so it keeps histograms.  Bound: bytes -- the packed
+//   rows and mask and dout read once, dW written once; at the stream
+//   batch's 1,024 rows that is far below a launch, so what the kernel
+//   costs is its chain of dependent steps.  Design: one launch.  A block
+//   owns 8 consecutive bins, whose codes are `bits` whole bytes of a row
+//   (one load where rows start aligned, kVec) and whose mask bits one byte,
+//   and a span of the rows; the span is cut over a thread-block cluster of
+//   `parts` blocks (kernels/bbit_linear.py::packed_dw_layout, from the
+//   shapes alone).  The block first stages its rows' bytes, mask bytes and
+//   dout in shared memory, every load in flight at once.  A b-bit code
+//   takes 2^b values, so a bin's histogram has 2^b entries whatever V is,
+//   and dW's values from 2^b on are stored as zeros.  Each warp keeps its
+//   own histograms of the 8 bins and walks 32-row groups in 8 steps of 4
+//   rows: lane 4e + q takes bin e of row 4i + q at step i, reading the
+//   codes and douts of all 4 rows of the step (16-byte loads the bin's 4
+//   lanes share); the lowest lane of each code adds their douts in lane
+//   order and adds the sum to the warp's histogram.  No warp-wide match,
+//   no shuffles and no float atomics: the adds that may meet are a step
+//   apart, in order.  The warps' histograms are then added
+//   in warp order, and the cluster's blocks read each other's through
+//   distributed shared memory and add them in rank order.  Every sum's
+//   order depends on the shapes and codes only, so dW is the same bits on
+//   every run (the streaming trainer's bit-identical resume).  The classes
+//   are taken one after another, so any C works.
 #include <algorithm>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace repro_torch {
 namespace {
@@ -116,11 +126,47 @@ constexpr int kSumWarps = kSumThreads / 32;
 constexpr int kSumPer = 8;           // B8 sum: a thread's entries a window
 constexpr int kSumWindow = kSumThreads * kSumPer;
 constexpr int kSumMaxSpan = 2048;    // B8 sum: values of a block, at most
-constexpr int kDwWarps = 8;          // B6: bins j per block, one warp each
-constexpr int kDwRows = 32;          // B6: rows per group, one per lane
-constexpr int kDwGroups = 8;         // B6: 32-row groups staged per pass
-constexpr int kDwVTile = 4096;       // B6: histogram values per V tile
+constexpr int kDwBins = 8;           // B6: bins a block
+constexpr int kDwSteps = 8;          // B6: 4-row steps of a 32-row group
+constexpr int kDwLoads = 8;          // B6: rows a thread stages a pass
+constexpr int kDwStage = 1024;       // B6: rows a block stages at a time
+constexpr int kDwMaxWarps = 16;      // B6: warps a block, at most
+constexpr int kDwMaxParts = 8;       // B6: blocks a cluster along the rows
 static_assert(kRadix == kPlanThreads, "a plan thread owns one digit");
+
+#ifdef REPRO_DW_STAGES
+// B6's stage probe, built only with -DREPRO_DW_STAGES (a library apart,
+// scripts/sweep_bbit_linear.py --stages): each block's thread 0 writes its
+// clock64 at marks 0-6, counted from the block's start, and the global
+// timer (ns) at its start (8) and end (9); the last launch's marks are
+// read back by repro_bbit_linear_dw_stages
+constexpr int kDwProbeBlocks = 4096;
+constexpr int kDwProbeMarks = 10;
+__device__ long long dw_stage_marks[kDwProbeBlocks][kDwProbeMarks];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define DW_PROBE_START                                        \
+  const long long dw_t0 = clock64();                          \
+  const int dw_blk = blockIdx.y * gridDim.x + blockIdx.x;     \
+  if (threadIdx.x == 0 && dw_blk < kDwProbeBlocks) {          \
+    dw_stage_marks[dw_blk][8] = global_ns();                  \
+  }
+#define DW_MARK(s)                                            \
+  if (threadIdx.x == 0 && dw_blk < kDwProbeBlocks) {          \
+    dw_stage_marks[dw_blk][s] = clock64() - dw_t0;            \
+  }
+#define DW_PROBE_END                                          \
+  if (threadIdx.x == 0 && dw_blk < kDwProbeBlocks) {          \
+    dw_stage_marks[dw_blk][9] = global_ns();                  \
+  }
+#else
+#define DW_PROBE_START
+#define DW_MARK(s)
+#define DW_PROBE_END
+#endif
 
 __device__ __forceinline__ float warp_sum(float acc) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -590,87 +636,250 @@ dw_sum_kernel(const int32_t* __restrict__ scode,
   }
 }
 
-// Code of (row, j) for the B6 kernel, or -1 where it adds nothing.
-struct PackedCodes {
-  const uint8_t* packed;
-  const uint8_t* empty;  // nullptr: no mask
-  int bits, p_w, e_w;
-  __device__ int operator()(int row, int j) const {
-    if (empty != nullptr &&
-        ((empty[static_cast<size_t>(row) * e_w + (j >> 3)] >> (7 - (j & 7))) &
-         1)) {
-      return -1;
-    }
-    const int per = 8 / bits;
-    const uint8_t byte = packed[static_cast<size_t>(row) * p_w + j / per];
-    return (byte >> ((j % per) * bits)) & ((1 << bits) - 1);
-  }
-};
-
-// grid (ceil(k / kDwWarps), splits, ceil(v / v_tile)); part is
-// (splits, k, v, c).  Block z owns the values [z * v_tile, + v_tile).
-template <typename Codes>
-__global__ void __launch_bounds__(kDwWarps * 32)
-bbit_linear_dw_kernel(Codes code_at, const float* __restrict__ dout,
-                      float* __restrict__ part, int n, int k, int v, int c,
-                      int rows_per_split, int v_tile) {
-  constexpr int kStage = kDwRows * kDwGroups;  // rows staged per pass
-  extern __shared__ float hist[];              // kDwWarps x v_tile
-  __shared__ int tile[kStage][kDwWarps + 1];   // rows x 8 bins (+1: banks)
-  __shared__ float vals[kStage];               // dout of the staged rows
-  const int warp = threadIdx.x >> 5;
+// B6.  grid (ceil(k / 8), parts), a cluster of parts blocks along y: block
+// (x, rank) owns bins [8x, 8x + 8) and the rank-th of `parts` spans of the
+// 32-row groups.  It stages up to kDwStage rows of the span at a time --
+// each row's `bits` bytes of the 8 bins, its mask byte and dout, every
+// load of the stage in flight at once -- then warp w takes the stage's
+// groups w, w + warps, ... in 8 steps of 4 rows: lane 4e + q takes bin e
+// of row 4i + q at step i and reads the codes and douts of all 4 rows of
+// the step; the lowest lane of each code adds their douts in lane order
+// and adds the sum to the warp's histogram of the bin.
+// Dynamic shared memory: warps x 8 x 2^BITS floats ([warp][bin][value]),
+// then the stage.
+template <int BITS, bool kVec>
+__global__ void __launch_bounds__(kDwMaxWarps * 32)
+bbit_linear_packed_dw_kernel(const uint8_t* __restrict__ packed,
+                             const uint8_t* __restrict__ empty,
+                             const float* __restrict__ dout,
+                             float* __restrict__ out, int n, int k, int v,
+                             int c, int p_w, int e_w) {
+  constexpr int kVals = 1 << BITS;
+  constexpr int kCells = kDwBins * kVals;
+  constexpr uint32_t kMask = kVals - 1u;
+  DW_PROBE_START
+  extern __shared__ float hist[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x & 31;
-  const int j0 = blockIdx.x * kDwWarps;
-  const int j = j0 + warp;
-  const int lo = blockIdx.y * rows_per_split;
-  const int hi = min(n, lo + rows_per_split);
-  const int v0 = blockIdx.z * v_tile;
-  const int vt = min(v_tile, v - v0);
-  float* h = hist + warp * v_tile;
-  float* dst = part + static_cast<size_t>(blockIdx.y) * k * v * c;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int e = lane >> 2;          // the lane's bin of the block's 8
+  const int q = lane & 3;           // its row of each 4-row step
+  const int g8 = blockIdx.x;
+  const int j0 = kDwBins * g8;
+  const bool full = j0 + kDwBins <= k;
+  const bool live = j0 + e < k;
+  const int rank = blockIdx.y;
+  const int parts = gridDim.y;
+  const int groups = (n + 31) >> 5;
+  const int lo = groups / parts * rank + min(rank, groups % parts);
+  const int hi = lo + groups / parts + (rank < groups % parts ? 1 : 0);
+  float* h = hist + warp * kCells + e * kVals;  // the warp's bin e
+  uint64_t* s_word = reinterpret_cast<uint64_t*>(hist + warps * kCells);
+  float* s_d = reinterpret_cast<float*>(s_word + kDwStage);
+  uint8_t* s_mb = reinterpret_cast<uint8_t*>(s_d + kDwStage);
   for (int cc = 0; cc < c; ++cc) {
-    for (int i = lane; i < vt; i += 32) h[i] = 0.f;
-    for (int r0 = lo; r0 < hi; r0 += kStage) {
-      __syncthreads();  // the previous stage is consumed
-      // each thread loads kDwGroups codes at once, so their latencies
-      // overlap; consecutive threads read consecutive bins of a row
+    DW_MARK(0)
+    for (int r0 = 32 * lo; r0 < 32 * hi; r0 += kDwStage) {
+      const int rows = min(kDwStage, min(n, 32 * hi) - r0);
+      __syncthreads();  // the last stage (or class) is consumed
+      // kDwLoads rows a thread a pass, every load in flight before
+      // any store; the first pass's loads also before the histograms are
+      // cleared
+      for (int base = 0; base < rows; base += kDwLoads * blockDim.x) {
+        uint64_t word[kDwLoads];
+        uint32_t mb[kDwLoads];
+        float d[kDwLoads];
 #pragma unroll
-      for (int e = 0; e < kDwGroups; ++e) {
-        const int slot = threadIdx.x + e * kDwWarps * 32;
-        const int r = slot / kDwWarps;
-        const int jj = slot % kDwWarps;
-        const int row = r0 + r;
-        // this V tile's offset of the code, -1 outside the tile
-        const int code =
-            (row < hi && j0 + jj < k) ? code_at(row, j0 + jj) - v0 : -1;
-        tile[r][jj] = (code >= 0 && code < vt) ? code : -1;
-      }
-      for (int r = threadIdx.x; r < kStage; r += kDwWarps * 32) {
-        vals[r] = r0 + r < hi ? dout[static_cast<size_t>(r0 + r) * c + cc]
-                              : 0.f;
+        for (int u = 0; u < kDwLoads; ++u) {
+          const int i = base + u * blockDim.x + threadIdx.x;
+          const int row = r0 + i;
+          const bool ok = i < rows;
+          word[u] = ok ? packed_group<BITS, kVec>(
+                             packed + static_cast<size_t>(row) * p_w, g8,
+                             full, p_w)
+                       : 0u;
+          mb[u] = ok && empty != nullptr
+                      ? __ldg(empty + static_cast<size_t>(row) * e_w + g8)
+                      : 0u;
+          d[u] = ok ? __ldg(dout + static_cast<size_t>(row) * c + cc) : 0.f;
+        }
+        if (r0 == 32 * lo && base == 0) {
+          for (int i = threadIdx.x; i < warps * kCells / 4; i += blockDim.x) {
+            reinterpret_cast<float4*>(hist)[i] =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kDwLoads; ++u) {
+          const int i = base + u * blockDim.x + threadIdx.x;
+          if (i < rows) {
+            s_word[i] = word[u];
+            s_mb[i] = static_cast<uint8_t>(mb[u]);
+            s_d[i] = d[u];
+          }
+        }
       }
       __syncthreads();
-      // 32-row groups in row order: a bin sums its rows in row order
-      for (int g = 0; g < kStage; g += kDwRows) {
-        const int code = tile[g + lane][warp];
-        const unsigned peers = __match_any_sync(0xFFFFFFFFu, code);
-        if (code >= 0 && lane == __ffs(peers) - 1) {
-          float s = 0.f;
-          for (unsigned rest = peers; rest != 0u; rest &= rest - 1u) {
-            s += vals[g + __ffs(rest) - 1];
+      DW_MARK(1)
+      for (int g = warp; 32 * g < rows; g += warps) {
+        // first every step's code and sum, which need no histogram: step i
+        // takes rows 32g + 4i .. + 3, row 4i + q this lane's, and each
+        // lane reads all 4 (16-byte loads the bin's 4 lanes share).  A row
+        // past the stage, a bin past k or one the mask drops gets a code of
+        // its own, below 0, so that it shares no code; the lowest lane of
+        // each code sums the douts of its code in lane order
+        int code[kDwSteps];
+        float sum[kDwSteps];
+        bool lead[kDwSteps];
+#pragma unroll
+        for (int i = 0; i < kDwSteps; ++i) {
+          const int r = 32 * g + 4 * i;  // + 3 < kDwStage, a multiple of 32
+          const ulonglong2 w01 =
+              *reinterpret_cast<const ulonglong2*>(s_word + r);
+          const ulonglong2 w23 =
+              *reinterpret_cast<const ulonglong2*>(s_word + r + 2);
+          const float4 d4 = *reinterpret_cast<const float4*>(s_d + r);
+          const uint32_t m4 = *reinterpret_cast<const uint32_t*>(s_mb + r);
+          const uint64_t w[4] = {w01.x, w01.y, w23.x, w23.y};
+          const float d[4] = {d4.x, d4.y, d4.z, d4.w};
+          int pc[4];
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const bool keep =
+                live && r + p < rows && !((m4 >> (8 * p + 7 - e)) & 1u);
+            pc[p] = keep ? static_cast<int>(
+                               static_cast<uint32_t>(w[p] >> (e * BITS)) &
+                               kMask)
+                         : -1 - p;
           }
-          h[code] += s;
+          code[i] = q == 0 ? pc[0] : q == 1 ? pc[1] : q == 2 ? pc[2] : pc[3];
+          sum[i] = 0.f;
+          lead[i] = code[i] >= 0;
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            if (pc[p] == code[i]) {
+              sum[i] += d[p];
+              lead[i] = lead[i] && p >= q;
+            }
+          }
+        }
+        // then the adds, a step at a time: a later step may add to a value
+        // an earlier one did
+#pragma unroll
+        for (int i = 0; i < kDwSteps; ++i) {
+          if (lead[i]) h[code[i]] += sum[i];
+          __syncwarp();
         }
       }
     }
-    __syncwarp();
-    if (j < k) {
-      for (int i = lane; i < vt; i += 32) {
-        dst[(static_cast<size_t>(j) * v + v0 + i) * c + cc] = h[i];
+    if (lo >= hi) {  // no rows: the histograms are still to be cleared
+      for (int i = threadIdx.x; i < warps * kCells / 4; i += blockDim.x) {
+        reinterpret_cast<float4*>(hist)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
-    __syncwarp();  // read out before the next class zeroes the histogram
+    __syncthreads();
+    DW_MARK(2)
+    // the block's histograms: the warps added in warp order, into warp 0's
+    for (int i = threadIdx.x; i < kCells / 4; i += blockDim.x) {
+      float4 p[kDwMaxWarps];  // every warp's load in flight, then the sum
+#pragma unroll
+      for (int w = 0; w < kDwMaxWarps; ++w) {
+        p[w] = w < warps
+                   ? reinterpret_cast<const float4*>(hist + w * kCells)[i]
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float4 acc = p[0];
+#pragma unroll
+      for (int w = 1; w < kDwMaxWarps; ++w) {
+        if (w < warps) {
+          acc.x += p[w].x;
+          acc.y += p[w].y;
+          acc.z += p[w].z;
+          acc.w += p[w].w;
+        }
+      }
+      reinterpret_cast<float4*>(hist)[i] = acc;
+    }
+    DW_MARK(3)
+    cluster.sync();
+    DW_MARK(4)
+    // dW: this rank's share of the cells (4 a thread), the cluster's blocks
+    // added in rank order, every rank's load in flight before the sum; and
+    // its share of the values from 2^BITS on, zeros
+    for (int i = rank * blockDim.x + threadIdx.x; i < kCells / 4;
+         i += parts * blockDim.x) {
+      float4 p[kDwMaxParts];
+#pragma unroll
+      for (int r = 0; r < kDwMaxParts; ++r) {
+        p[r] = r < parts ? reinterpret_cast<const float4*>(
+                               cluster.map_shared_rank(hist, r))[i]
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float4 acc = p[0];
+#pragma unroll
+      for (int r = 1; r < kDwMaxParts; ++r) {
+        if (r < parts) {
+          acc.x += p[r].x;
+          acc.y += p[r].y;
+          acc.z += p[r].z;
+          acc.w += p[r].w;
+        }
+      }
+      const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int be = (4 * i + t) / kVals;
+        const int x = (4 * i + t) % kVals;
+        if (j0 + be < k) {
+          out[(static_cast<size_t>(j0 + be) * v + x) * c + cc] = vals[t];
+        }
+      }
+    }
+    DW_MARK(5)
+    const int rest = v - kVals;
+    for (int i = rank * blockDim.x + threadIdx.x; i < kDwBins * rest;
+         i += parts * blockDim.x) {
+      const int be = i / rest;
+      if (j0 + be < k) {
+        out[(static_cast<size_t>(j0 + be) * v + kVals + i % rest) * c + cc] =
+            0.f;
+      }
+    }
+    cluster.sync();  // the histograms are read before the next class clears them
+    DW_MARK(6)
   }
+  DW_PROBE_END
+}
+
+template <int BITS>
+int launch_packed_dw(const uint8_t* packed, const uint8_t* empty,
+                     const float* dout, float* out, int n, int k, int v,
+                     int c, int p_w, int e_w, int warps, int parts, bool vec,
+                     cudaStream_t stream) {
+  auto kernel = vec ? bbit_linear_packed_dw_kernel<BITS, true>
+                    : bbit_linear_packed_dw_kernel<BITS, false>;
+  const size_t smem = sizeof(float) * static_cast<size_t>(warps) * kDwBins *
+                          (1 << BITS) +
+                      kDwStage * (sizeof(uint64_t) + sizeof(float) + 1);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((k + kDwBins - 1) / kDwBins, parts);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = parts;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, packed, empty, dout, out, n, k, v, c,
+                           p_w, e_w);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[i] = sum over splits s, in order, of part[s][i].
@@ -683,32 +892,6 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
     for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
     out[i] = s;
   }
-}
-
-template <typename Codes>
-int launch_dw(Codes code_at, const void* dout, void* part, void* out, int n,
-              int k, int v, int c, int splits, int rows_per_split,
-              cudaStream_t stream) {
-  const int v_tile = std::min(v, kDwVTile);
-  const size_t smem = static_cast<size_t>(kDwWarps) * v_tile * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bbit_linear_dw_kernel<Codes>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((k + kDwWarps - 1) / kDwWarps, splits,
-                  (v + v_tile - 1) / v_tile);
-  float* dst = static_cast<float*>(splits == 1 ? out : part);
-  bbit_linear_dw_kernel<Codes><<<grid, kDwWarps * 32, smem, stream>>>(
-      code_at, static_cast<const float*>(dout), dst, n, k, v, c,
-      rows_per_split, v_tile);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(k) * v * c;
-  const int blocks = static_cast<int>(std::min((total + 255) / 256, size_t{4096}));
-  sum_splits_kernel<<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), total,
-      splits);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -858,19 +1041,53 @@ extern "C" int repro_bbit_linear_dw_sum(const void* scode, const void* perm,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches B6: out (k, v, c); `warps` warps a block, `parts` blocks a
+// cluster along the rows; vec: every row starts aligned to `bits` bytes.
 extern "C" int repro_bbit_linear_packed_bwd_dw(
-    const void* packed, const void* empty, const void* dout, void* part,
-    void* out, int n, int k, int bits, int v, int c, int p_w, int e_w,
-    int splits, int rows_per_split, int device, void* stream) {
+    const void* packed, const void* empty, const void* dout, void* out, int n,
+    int k, int bits, int v, int c, int p_w, int e_w, int warps, int parts,
+    int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  repro_torch::PackedCodes code_at{static_cast<const uint8_t*>(packed),
-                                   static_cast<const uint8_t*>(empty), bits,
-                                   p_w, e_w};
-  return repro_torch::launch_dw(code_at, dout, part, out, n, k, v, c, splits,
-                                rows_per_split,
-                                static_cast<cudaStream_t>(stream));
+  if (k == 0 || c == 0) return 0;
+  if (warps < 1 || warps > repro_torch::kDwMaxWarps || parts < 1 ||
+      parts > repro_torch::kDwMaxParts ||
+      (bits != 1 && bits != 2 && bits != 4 && bits != 8) || v < (1 << bits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint8_t* pp = static_cast<const uint8_t*>(packed);
+  const uint8_t* ep = static_cast<const uint8_t*>(empty);
+  const float* dp = static_cast<const float*>(dout);
+  float* op = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 1:
+      return repro_torch::launch_packed_dw<1>(pp, ep, dp, op, n, k, v, c, p_w,
+                                              e_w, warps, parts, vec, st);
+    case 2:
+      return repro_torch::launch_packed_dw<2>(pp, ep, dp, op, n, k, v, c, p_w,
+                                              e_w, warps, parts, vec, st);
+    case 4:
+      return repro_torch::launch_packed_dw<4>(pp, ep, dp, op, n, k, v, c, p_w,
+                                              e_w, warps, parts, vec, st);
+    case 8:
+      return repro_torch::launch_packed_dw<8>(pp, ep, dp, op, n, k, v, c, p_w,
+                                              e_w, warps, parts, vec, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
+
+#ifdef REPRO_DW_STAGES
+// Copies the stage marks of the first `blocks` blocks of the last B6
+// launch (block y * gridDim.x + x; 10 int64 each) to host memory `dst`.
+extern "C" int repro_bbit_linear_dw_stages(void* dst, int blocks) {
+  const size_t n = std::max(0, std::min(blocks, repro_torch::kDwProbeBlocks));
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      dst, repro_torch::dw_stage_marks,
+      n * repro_torch::kDwProbeMarks * sizeof(long long)));
+}
+#endif
 
 extern "C" const char* repro_bbit_linear_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,6 +1,6 @@
-// The hash loops shared by the fused encode kernels (B1, B2 in
-// fused_encode.cu) and the raw-minima kernels (B3 in minhash.cu, B4 in
-// oph.cu): one body each, and a finish of each kernel's own.
+// The hash loops of the raw-minima kernels (B3 in minhash.cu, B4 in
+// oph.cu); the fused encode kernels (B1, B2 in fused_encode.cu) have loops
+// of their own.
 #pragma once
 
 #include "common.cuh"

@@ -3,14 +3,25 @@
 // B1 minhash_pack replaces src/repro/kernels/fused_encode.py::minhash_pack_pallas.
 //   Per row: the min over the first nnz ids of fmix32(a_j*t + b_j) for each
 //   of k hash lanes, masked to b bits and packed 8/b codes per byte,
-//   LSB-first.  Bound: 32-bit integer ALU work, about 10 operations per
+//   LSB-first.  Bound: 32-bit integer work, about 10 operations per
 //   (nonzero, lane) pair -- n*nnz*k hashes; the ids are read once from
-//   device memory (L2 serves the k/32 blocks of a row).  Design: a block
-//   owns 32 hash lanes of one row (one lane per thread of a warp, minima in
-//   registers) and 8 warps split the row's nonzeros between them; ids are
-//   staged in shared memory in coalesced tiles and read as broadcasts.  No
-//   work is done for lanes >= k.  Rows x lane-chunks give the card
-//   n*ceil(k/32) blocks.
+//   device memory.  What holds the loop back is the integer ALU pipe, at
+//   half the issue rate: a hash is 3 multiplies (IMAD, on the FMA pipe)
+//   and 3 shifts, 3 xors and its share of a min on the ALU pipe, so the
+//   loop cannot pass about 2/3 of the issue-rate bound (taking shifts to
+//   the FMA pipe as umulhi was slower on the H100).  Design: a thread owns
+//   L consecutive hash lanes (1-8) and loads its ids 4 at a time (one
+//   16-byte load where the rows start 16-byte aligned, kVec), every load
+//   of a pass in flight before any hash; each id feeds L independent hash
+//   chains, and two hashes share one three-input min (VIMNMX3).  A block
+//   takes L lt lanes of one row (whole bytes of codes); the 32 / lt threads
+//   of a warp that share lanes and the warps take different 4-id groups of
+//   the row, then fold their minima by shuffles and through shared memory,
+//   and the block packs its bytes.  The grid is rows x lane slices: few
+//   lanes a block where there are few rows, so that one row spreads over
+//   the card (kernels/fused_encode.py::minhash_pack_layout).  An integer
+//   min is exact in any order, so the result does not depend on
+//   scheduling.
 //
 // B2 oph_pack replaces src/repro/kernels/fused_encode.py::oph_pack_pallas.
 //   One hash per nonzero; bin = h >> (32 - log2 k); per-bin min; then
@@ -34,46 +45,145 @@
 //   lanes of each 32-bit word and stored 4 bytes a thread.  B2's hash loop
 //   is its own; encode.cuh's oph_block stays B4's.
 //
-#include "encode.cuh"
+#include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr uint32_t kRotC = 0x9E3779B1u;  // core/oph.py::_ROT_C
 
-__global__ void __launch_bounds__(kLanes * kSlices)
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMinMaxWarps = 16;  // B1: warps a block, at most
+
+// B1.  grid (n, ceil(k / (L lt))): block (row, slice) takes hash lanes
+// [L lt slice, + L lt) of its row, L a thread (t = lane % lt); the 32 / lt
+// threads of a warp that share lanes and the warps take different 4-id
+// groups of the row (id slice s = lane / lt, then the warp: groups s, s +
+// slices, ...).  Dynamic shared memory: (warps + 1) x L lt minima.
+template <int L, bool kVec>
+__global__ void __launch_bounds__(kMinMaxWarps * 32)
 minhash_pack_kernel(const int32_t* __restrict__ idx,
                     const int32_t* __restrict__ nnz,
                     const uint32_t* __restrict__ a,
                     const uint32_t* __restrict__ b,
-                    uint8_t* __restrict__ out,
-                    int m, int k, int bits, int out_w) {
-  __shared__ MinhashSmem sm;
-  __shared__ uint32_t mins[kLanes];
-  minhash_block(idx, nnz, a, b, m, k, sm, mins);
+                    uint8_t* __restrict__ out, int m, int k, int bits,
+                    int out_w, int lt) {
+  // 4-id groups a thread loads in one pass, by its hash lanes: every load
+  // of a pass in flight, in few enough registers
+  constexpr int U = L <= 2 ? 4 : (L == 4 ? 2 : 1);
+  extern __shared__ uint32_t smem[];
+  const int lanes = lt * L;               // hash lanes of the block
+  const int warps = blockDim.x >> 5;
+  uint32_t* part = smem;                  // [warp][lane of the block]
+  uint32_t* fin = smem + warps * lanes;   // the block's minima
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = lane & (lt - 1);
+  const int subs = 32 / lt;
+  const int slices = warps * subs;
+  const int s = warp * subs + lane / lt;
+  const int row = blockIdx.x;
+  const int j0 = blockIdx.y * lanes + t * L;
+  const int len = min(max(__ldg(nnz + row), 0), m);
+  const int groups = (len + 3) >> 2;
+  const int32_t* ids = idx + static_cast<size_t>(row) * m;
 
-  // kLanes is a multiple of 8, so this block's codes fill whole bytes;
-  // lanes >= k pack as code 0.
-  const uint32_t mask = (1u << bits) - 1u;
-  const int bytes = kLanes * bits / 8;
-  const int per = 8 / bits;
-  if (threadIdx.x < bytes) {
-    const int col = blockIdx.y * bytes + threadIdx.x;
-    if (col < out_w) {
-      uint32_t byte = 0;
-      for (int i = 0; i < per; ++i) {
-        const int lane = threadIdx.x * per + i;
-        const int j = blockIdx.y * kLanes + lane;
-        const uint32_t c = j < k ? (mins[lane] & mask) : 0u;
-        byte |= c << (i * bits);
+  uint32_t acc[L], ha[L], hb[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    const int j = j0 + l;
+    acc[l] = kSentinel;
+    ha[l] = j < k ? __ldg(a + j) : 0u;
+    hb[l] = j < k ? __ldg(b + j) : 0u;
+  }
+  if (j0 < k) {
+    for (int g0 = s; g0 < groups; g0 += slices * U) {
+      // every load of the pass in flight before any hash; an id past len
+      // repeats the first of its group, which leaves the minima as they are
+      uint32_t id[U][4];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int g = g0 + u * slices;
+        int4 q = make_int4(0, 0, 0, 0);
+        if (g < groups) {
+          if (kVec) {
+            q = __ldg(reinterpret_cast<const int4*>(ids) + g);
+          } else {
+            q.x = __ldg(ids + 4 * g);
+            if (4 * g + 1 < len) q.y = __ldg(ids + 4 * g + 1);
+            if (4 * g + 2 < len) q.z = __ldg(ids + 4 * g + 2);
+            if (4 * g + 3 < len) q.w = __ldg(ids + 4 * g + 3);
+          }
+        }
+        id[u][0] = static_cast<uint32_t>(q.x);
+        id[u][1] = static_cast<uint32_t>(4 * g + 1 < len ? q.y : q.x);
+        id[u][2] = static_cast<uint32_t>(4 * g + 2 < len ? q.z : q.x);
+        id[u][3] = static_cast<uint32_t>(4 * g + 3 < len ? q.w : q.x);
       }
-      out[static_cast<size_t>(blockIdx.x) * out_w + col] =
-          static_cast<uint8_t>(byte);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (g0 + u * slices < groups) {
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) {
+              // two hashes a min: one three-input VIMNMX3 for both
+              acc[l] = min(acc[l],
+                           min(fmix32(ha[l] * id[u][e] + hb[l]),
+                               fmix32(ha[l] * id[u][e + 1] + hb[l])));
+            }
+          }
+        }
+      }
     }
+  }
+  // fold the id slices: the warp's by shuffles, then the warps
+#pragma unroll
+  for (int off = lt; off < 32; off <<= 1) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      acc[l] = min(acc[l], __shfl_xor_sync(kFull, acc[l], off));
+    }
+  }
+  if (lane < lt) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) part[warp * lanes + t * L + l] = acc[l];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < lanes; i += blockDim.x) {
+    uint32_t v = part[i];
+    for (int w = 1; w < warps; ++w) v = min(v, part[w * lanes + i]);
+    fin[i] = v;
+  }
+  __syncthreads();
+  // the block's lanes are lanes * bits / 8 whole bytes of the row; a byte
+  // a thread, LSB-first; lanes >= k pack as code 0
+  const int per = 8 / bits;
+  const uint32_t mask = (1u << bits) - 1u;
+  const int bytes = lanes * bits / 8;
+  for (int q = threadIdx.x; q < bytes; q += blockDim.x) {
+    const int col = blockIdx.y * bytes + q;
+    if (col >= out_w) break;
+    uint32_t byte = 0;
+    for (int i = 0; i < per; ++i) {
+      const int l = q * per + i;
+      if (blockIdx.y * lanes + l < k) byte |= (fin[l] & mask) << (i * bits);
+    }
+    out[static_cast<size_t>(row) * out_w + col] = static_cast<uint8_t>(byte);
   }
 }
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
+// B1's kernel for the hash lanes a thread and the load width.
+template <bool kVec>
+auto minhash_pack_for(int lanes_per_thread) {
+  switch (lanes_per_thread) {
+    case 1: return minhash_pack_kernel<1, kVec>;
+    case 2: return minhash_pack_kernel<2, kVec>;
+    case 4: return minhash_pack_kernel<4, kVec>;
+    default: return minhash_pack_kernel<8, kVec>;
+  }
+}
+
 constexpr int kPackMaxThreads = 1024;  // B2: threads of a row's block, at most
 constexpr int kPackIds = 8;            // B2: ids a thread loads in one pass
 
@@ -234,22 +344,33 @@ auto oph_pack_for(int bits) {
 }  // namespace
 }  // namespace repro_torch
 
-using repro_torch::kLanes;
-using repro_torch::kSlices;
-
+// Launches B1: `lpt` hash lanes a thread (1, 2, 4 or 8), lt threads'
+// lanes a block (a power of two in [1, 32]; lpt * lt * bits a multiple of
+// 8, whole bytes), `warps` warps; vec: m % 4 == 0 and idx 16-byte aligned.
 extern "C" int repro_minhash_pack(const void* idx, const void* nnz,
                                   const void* a, const void* b, void* out,
                                   int n, int m, int k, int bits, int out_w,
+                                  int lpt, int lt, int warps, int vec,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0 || k == 0) return 0;
-  const dim3 grid(n, (k + kLanes - 1) / kLanes);
-  repro_torch::minhash_pack_kernel<<<grid, kLanes * kSlices, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  const int lanes = lpt * lt;
+  if ((lpt != 1 && lpt != 2 && lpt != 4 && lpt != 8) || lt < 1 || lt > 32 ||
+      (lt & (lt - 1)) != 0 || warps < 1 ||
+      warps > repro_torch::kMinMaxWarps || (vec && m % 4 != 0) ||
+      (bits != 1 && bits != 2 && bits != 4 && bits != 8) ||
+      lanes * bits % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(n, (k + lanes - 1) / lanes);
+  const size_t smem = sizeof(uint32_t) * lanes * (warps + 1);
+  auto kernel = vec ? repro_torch::minhash_pack_for<true>(lpt)
+                    : repro_torch::minhash_pack_for<false>(lpt);
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(nnz),
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<uint8_t*>(out), m, k, bits, out_w);
+      static_cast<uint8_t*>(out), m, k, bits, out_w, lt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,7 +36,8 @@ U = ctypes.c_uint
 # exported C functions of each library: name -> argtypes (restype int)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "fused_encode": {
-        "repro_minhash_pack": [P, P, P, P, P, I, I, I, I, I, I, P],
+        "repro_minhash_pack": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                               P],
         "repro_oph_pack": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
                            I, P],
     },
@@ -47,7 +48,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_bbit_linear_dw_plan": [P, P, P, P, P, P, P, I, I, I, I, I,
                                       P],
         "repro_bbit_linear_dw_sum": [P, P, P, P, P, I, I, I, I, I, I, I, P],
-        "repro_bbit_linear_packed_bwd_dw": [P, P, P, P, P, I, I, I, I, I, I,
+        "repro_bbit_linear_packed_bwd_dw": [P, P, P, P, I, I, I, I, I, I, I,
                                             I, I, I, I, P],
     },
     "vw_sketch": {

@@ -51,13 +51,15 @@ DW_PLAN_CACHE_ENTRIES = 4
 DW_SUM_TARGET_ENTRIES = 8192
 DW_SUM_MAX_SPAN = 2048
 MAX_GRID_Y = 65535
-# B6: bins per block (csrc kDwWarps), values per V tile (csrc kDwVTile),
-# and the grid the row splits aim at
-DW_BINS_PER_BLOCK = 8
-DW_V_TILE = 4096
-DW_TARGET_BLOCKS = 512
-DW_MIN_ROWS_PER_SPLIT = 256
-DW_MAX_SCRATCH_FLOATS = 1 << 26     # 256 MiB of partial tables
+# B6: bins a block (csrc kDwBins), rows a group (8 steps of 4), the warps
+# a block takes, and blocks a cluster along the rows at most (kDwMaxParts);
+# scripts/sweep_bbit_linear.py times each at the packed gradient's shapes.
+# No card property enters the choice, so dW's order of sums is the same on
+# every card
+PACKED_DW_BINS = 8
+PACKED_DW_ROWS = 32
+PACKED_DW_WARPS = 4
+PACKED_DW_MAX_PARTS = 8
 # B5: rows (one warp each) a block, at most (csrc kPackedFwdMaxRows), and
 # the blocks an SM is given before a block takes more rows
 PACKED_FWD_MAX_ROWS = 8
@@ -314,33 +316,6 @@ def _check_packed(what: str, packed: torch.Tensor, k: int, bits: int,
                          f"{tuple(empty.shape)}")
 
 
-def dw_row_splits(n: int, k: int, v: int, c: int) -> Tuple[int, int]:
-    """(splits, rows per split) of the dW kernels' rows: enough blocks
-    (bin groups x V tiles x splits) to fill the card, at least 256 rows
-    each, a bounded scratch.  A
-    function of the shapes only, so dW sums in the same order on every
-    run."""
-    n = max(n, 1)
-    blocks = -(-k // DW_BINS_PER_BLOCK) * -(-v // DW_V_TILE)
-    splits = min(-(-DW_TARGET_BLOCKS // blocks),
-                 -(-n // DW_MIN_ROWS_PER_SPLIT),
-                 max(1, DW_MAX_SCRATCH_FLOATS // max(k * v * c, 1)))
-    rows = -(-n // splits)
-    rows = -(-rows // 32) * 32          # a whole number of 32-row tiles
-    return -(-n // rows), rows
-
-
-def _dw_buffers(n: int, k: int, v: int, c: int, device: torch.device):
-    """→ (out (k, V, C), scratch of the row splits' partial tables or
-    ``out`` itself when there is one split, splits, rows per split)."""
-    splits, rows = dw_row_splits(n, k, v, c)
-    out = torch.empty((k, v, c), dtype=torch.float32, device=device)
-    part = (out if splits == 1 else
-            torch.empty((splits, k, v, c), dtype=torch.float32,
-                        device=device))
-    return out, part, splits, rows
-
-
 def _check_codes(what: str, codes: torch.Tensor) -> None:
     if codes.dtype != torch.int32 or codes.dim() != 2:
         raise ValueError(f"{what}: codes must be int32 (n, k), got "
@@ -549,6 +524,41 @@ def bbit_linear_packed_fwd(packed: torch.Tensor, weights: torch.Tensor, *,
 bbit_linear_packed_fwd.launches = LaunchCount()
 
 
+def packed_dw_layout(n: int) -> Tuple[int, int]:
+    """B6's (warps a block, blocks a cluster along the rows) for n rows,
+    from the shape alone, so that dW sums in the same order on every run
+    and every card.  The cluster: as many blocks as there are 32-row
+    groups, a power of two up to ``PACKED_DW_MAX_PARTS``; the warps: one a
+    32-row group of a block's span, at most ``PACKED_DW_WARPS``.  The grid
+    has ceil(k / 8) such clusters."""
+    groups = max(-(-n // PACKED_DW_ROWS), 1)
+    parts = 1
+    while 2 * parts <= min(groups, PACKED_DW_MAX_PARTS):
+        parts *= 2
+    return min(-(-groups // parts), PACKED_DW_WARPS), parts
+
+
+def _packed_dw_launch(packed: torch.Tensor, dout: torch.Tensor, vsize: int,
+                      k: int, bits: int, empty: Optional[torch.Tensor],
+                      warps: int, parts: int, vec: bool) -> torch.Tensor:
+    """One launch of B6 on checked CUDA inputs: ``warps`` warps a block,
+    ``parts`` blocks a cluster along the rows (``packed_dw_layout``'s, on
+    the main path); ``vec``: one load a row's 8 codes
+    (``packed_fwd_vec``)."""
+    n, c = dout.shape
+    out = torch.empty((k, vsize, c), dtype=torch.float32,
+                      device=packed.device)
+    lib = _build.load("bbit_linear")
+    with torch.cuda.device(packed.device):
+        code = lib.repro_bbit_linear_packed_bwd_dw(
+            packed.data_ptr(), None if empty is None else empty.data_ptr(),
+            dout.data_ptr(), out.data_ptr(), n, k, bits, vsize, c,
+            packed.shape[1], 0 if empty is None else empty.shape[1], warps,
+            parts, int(vec), packed.device.index, _build.stream(packed))
+    _build.check("bbit_linear", code, "bbit_linear_packed_bwd_dw")
+    return out
+
+
 def bbit_linear_packed_bwd_dw(packed: torch.Tensor, dout: torch.Tensor,
                               vsize: int, *, k: int, bits: int,
                               empty: Optional[torch.Tensor] = None
@@ -567,17 +577,10 @@ def bbit_linear_packed_bwd_dw(packed: torch.Tensor, dout: torch.Tensor,
         raise ValueError(f"bbit_linear_packed_bwd_dw: vsize {vsize} < "
                          f"2^{bits}")
     _check_same_device("bbit_linear_packed_bwd_dw", packed, dout, empty)
-    c = dout.shape[1]
-    out, part, splits, rows = _dw_buffers(n, k, vsize, c, packed.device)
-    lib = _build.load("bbit_linear")
-    with torch.cuda.device(packed.device):
-        code = lib.repro_bbit_linear_packed_bwd_dw(
-            packed.data_ptr(), None if empty is None else empty.data_ptr(),
-            dout.data_ptr(), part.data_ptr(), out.data_ptr(), n, k, bits,
-            vsize, c, packed.shape[1],
-            0 if empty is None else empty.shape[1], splits, rows,
-            packed.device.index, _build.stream(packed))
-    _build.check("bbit_linear", code, "bbit_linear_packed_bwd_dw")
+    warps, parts = packed_dw_layout(n)
+    out = _packed_dw_launch(packed, dout, vsize, k, bits, empty, warps, parts,
+                            packed_fwd_vec(bits, packed.shape[1],
+                                           packed.data_ptr()))
     bbit_linear_packed_bwd_dw.launches.add()
     return out
 

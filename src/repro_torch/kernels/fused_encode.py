@@ -27,6 +27,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.counters import LaunchCount
 
 PACK_BITS = (1, 2, 4, 8)   # b where codes never straddle byte bounds
+# B1 (csrc/fused_encode.cu): hash lanes a thread at most, the blocks an SM
+# is given before a block takes more lanes, the warps the grid aims at, the
+# id slices a block aims at, and warps a block at least and at most
+# (kMinMaxWarps); scripts/sweep_serving_kernels.py times each layout at the
+# engine's shapes
+MINHASH_PACK_MAX_LANES_PER_THREAD = 8
+MINHASH_PACK_BLOCKS_PER_SM = 8
+MINHASH_PACK_WARPS_A_GRID = 2048
+MINHASH_PACK_MIN_SLICES = 16
+MINHASH_PACK_MIN_WARPS = 4
+MINHASH_PACK_MAX_WARPS = 16
 # B2 (csrc/fused_encode.cu): ids a thread loads in one pass (kPackIds),
 # the passes a block's threads are sized for, and threads a block at most
 # (kPackMaxThreads) and at least (one warp); scripts/sweep_serving_kernels.py
@@ -77,6 +88,53 @@ def minhash_pack_plain(indices: torch.Tensor, nnz: torch.Tensor,
     return pack_codes_torch(z & ((1 << bits) - 1), bits)
 
 
+def minhash_pack_layout(n: int, k: int, bits: int,
+                        sms: int) -> Tuple[int, int, int]:
+    """B1's (hash lanes a thread, threads of them a block, warps a block)
+    for n rows, k lanes and b bits on a card of ``sms`` SMs.  The lanes a block: the fewest (a power of two, whole bytes of
+    codes, at most 256) that keep the grid of n · ceil(k / lanes) blocks
+    within ``MINHASH_PACK_BLOCKS_PER_SM`` an SM, so that a few rows spread
+    over the card; a thread takes up to 8 of them.  The warps: enough that
+    the grid holds ``MINHASH_PACK_WARPS_A_GRID`` warps and a block
+    ``MINHASH_PACK_MIN_SLICES`` id slices (32 / threads a warp), a power of
+    two in [``MINHASH_PACK_MIN_WARPS``, ``MINHASH_PACK_MAX_WARPS``].  The
+    row length does not enter: the engine's lanes of 2,048 and 8,192 ids
+    share the layout of their row bucket."""
+    lanes = max(8 // bits, 1)
+    while lanes < 256 and n * -(-k // lanes) > sms * MINHASH_PACK_BLOCKS_PER_SM:
+        lanes *= 2
+    lpt = min(lanes, MINHASH_PACK_MAX_LANES_PER_THREAD)
+    lt = lanes // lpt
+    blocks = max(n * -(-k // lanes), 1)
+    want = max(-(-MINHASH_PACK_WARPS_A_GRID // blocks),
+               -(-MINHASH_PACK_MIN_SLICES * lt // 32), 1)
+    warps = 1 << (want - 1).bit_length()
+    return lpt, lt, max(MINHASH_PACK_MIN_WARPS,
+                        min(warps, MINHASH_PACK_MAX_WARPS))
+
+
+def _minhash_pack_launch(indices: torch.Tensor, nnz: torch.Tensor,
+                         a: torch.Tensor, b: torch.Tensor, bits: int,
+                         lpt: int, lt: int, warps: int,
+                         vec: bool) -> torch.Tensor:
+    """One launch of B1 on checked CUDA inputs: ``lpt`` hash lanes a
+    thread, ``lt`` such threads and ``warps`` warps a block
+    (``minhash_pack_layout``'s, on the main path), ``vec`` int4 id loads
+    (``oph_pack_vec``)."""
+    n, m = indices.shape
+    k = a.shape[0]
+    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
+                      device=indices.device)
+    lib = _build.load("fused_encode")
+    with torch.cuda.device(indices.device):
+        code = lib.repro_minhash_pack(
+            indices.data_ptr(), nnz.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, m, k, bits, out.shape[1], lpt, lt, warps,
+            int(vec), indices.device.index, _build.stream(indices))
+    _build.check("fused_encode", code, "minhash_pack")
+    return out
+
+
 def minhash_pack(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, *, bits: int) -> torch.Tensor:
     """uint8 (n, ceil(k·bits/8)) packed b-bit min-hash codes.
@@ -89,16 +147,10 @@ def minhash_pack(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
         return minhash_pack_plain(indices, nnz, a, b, bits=bits)
     _check_cuda_args("minhash_pack", indices, nnz, a, b)
     n, m = indices.shape
-    k = a.shape[0]
-    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
-                      device=indices.device)
-    lib = _build.load("fused_encode")
-    with torch.cuda.device(indices.device):
-        code = lib.repro_minhash_pack(
-            indices.data_ptr(), nnz.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n, m, k, bits, out.shape[1],
-            indices.device.index, _build.stream(indices))
-    _build.check("fused_encode", code, "minhash_pack")
+    lpt, lt, warps = minhash_pack_layout(
+        n, a.shape[0], bits, _build.sm_count(indices.device.index))
+    out = _minhash_pack_launch(indices, nnz, a, b, bits, lpt, lt, warps,
+                               oph_pack_vec(m, indices.data_ptr()))
     minhash_pack.launches.add()
     return out
 
@@ -140,8 +192,8 @@ def oph_pack_layout(m: int, k: int) -> int:
 
 
 def oph_pack_vec(m: int, ptr: int) -> bool:
-    """True where every row of int32 ids starts 16-byte aligned, so B2
-    reads them 4 at a time (int4)."""
+    """True where every row of int32 ids starts 16-byte aligned, so B2 (and
+    B1) read them 4 at a time (int4)."""
     return m % 4 == 0 and ptr % 16 == 0
 
 

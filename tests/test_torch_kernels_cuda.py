@@ -6,10 +6,13 @@ torch:
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Integer outputs (B1-B4, B10, B8's plan) must be equal, and B3, B4 and
-B10 give the same bytes on two calls; B10 at every load width (16 bytes,
+B10 give the same bytes on two calls; B1 at the engine's row buckets and
+lanes and at every launch layout it has; B10 at every load width (16 bytes,
 4, 1) and on rows and a query that start on an odd address.  B5–B8 sum in another order than
 torch, so they are held to allclose at 1e-5 and to run-to-run equality
-(B6 and B8 bit-identical on two calls).  B9 with values of ones must
+(B6 and B8 bit-identical on two calls; B6 also within 1e-5 of each bin's
+sum of absolute terms, at every layout, on rows that all share a code
+and with V beyond 4,096).  B9 with values of ones must
 equal its plain version byte for byte, in both of its designs (lanes and
 slices) and with nnz of 0, M, more than M and below 0; with random values
 allclose at 1e-5 and run-to-run equal; a row whose ids all hash to one
@@ -64,6 +67,83 @@ def test_minhash_pack_kernel_matches_plain(cuda, bits, k, m):
     want = fused_encode.minhash_pack_plain(idx, nnz, a, b, bits=bits)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _minwise_rows(n, m, seed, dev, offset=0):
+    """n rows of m ids for B1: with n >= 5, row 0 empty (nnz 0), row 1 a
+    negative nnz, row 2 more than m, row 3 one id, row 4 the whole lane,
+    the rest random; one row: m - 7 ids.  ``offset`` int32s before the
+    first row, so that no row starts 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(0, m + 1, size=(n,)).astype(np.int32)
+    if n >= 5:
+        nnz[:5] = [0, -3, m + 5, 1, m]
+    else:
+        nnz[:] = m - 7
+    buf = torch.from_numpy(rng.integers(0, 1 << 31, size=(n * m + offset,))
+                           .astype(np.int32))
+    return (buf.to(dev)[offset:].view(n, m),
+            torch.from_numpy(nnz).to(dev))
+
+
+@pytest.mark.parametrize("bits", B_FUSED)
+@pytest.mark.parametrize("k", [8, 37, 256, 500, 1000])
+@pytest.mark.parametrize("n", [1, 64])
+@pytest.mark.parametrize("m,offset", [(2048, 0), (8192, 0), (4099, 0),
+                                      (2048, 1)])
+def test_minhash_pack_kernel_at_the_serving_buckets(cuda, bits, k, n, m,
+                                                    offset):
+    """The engine's row buckets and lanes, k up to 1,000 (not a multiple
+    of the 8 lanes a thread, and more lanes than a block), empty rows,
+    a negative nnz and one above m, and rows that do not start 16-byte
+    aligned (m=4099, or the ids one int32 past an aligned address: scalar
+    loads); equal to the plain version byte for byte."""
+    idx, nnz = _minwise_rows(n, m, seed=m + n + k + bits, dev=cuda,
+                             offset=offset)
+    a, b = MultiplyShiftHash.make(k, seed=bits).params(cuda)
+    assert fused_encode.oph_pack_vec(m, idx.data_ptr()) == (
+        m % 4 == 0 and offset == 0)
+    got = fused_encode.minhash_pack(idx, nnz, a, b, bits=bits)
+    want = fused_encode.minhash_pack_plain(idx, nnz, a, b, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nnz", [0, -3, 1, 3, 4, 5, 2048, 2100])
+def test_minhash_pack_kernel_one_row_edges(cuda, nnz):
+    """One row whose nnz is 0, negative, less than a 4-id group, a few
+    groups and a partial one, the lane, or above it."""
+    idx, _ = _minwise_rows(1, 2048, seed=nnz + 7, dev=cuda)
+    n_t = torch.tensor([nnz], dtype=torch.int32, device=cuda)
+    a, b = MultiplyShiftHash.make(256, seed=5).params(cuda)
+    for bits in B_FUSED:
+        got = fused_encode.minhash_pack(idx, n_t, a, b, bits=bits)
+        want = fused_encode.minhash_pack_plain(idx, n_t, a, b, bits=bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), bits
+
+
+@pytest.mark.parametrize("bits", [1, 8])
+@pytest.mark.parametrize("k,m,offset", [(256, 8192, 0), (37, 300, 1),
+                                        (500, 4099, 0)])
+def test_minhash_pack_kernel_every_layout(cuda, bits, k, m, offset):
+    """Each hash lanes a thread, threads of them and warps a block, and
+    load width that B1 can run at, equal to the plain version byte for
+    byte."""
+    idx, nnz = _minwise_rows(6, m, seed=k, dev=cuda, offset=offset)
+    a, b = MultiplyShiftHash.make(k, seed=3).params(cuda)
+    want = fused_encode.minhash_pack_plain(idx, nnz, a, b, bits=bits)
+    vecs = {False, fused_encode.oph_pack_vec(m, idx.data_ptr())}
+    for lpt in (1, 2, 4, 8):
+        for lt in (1, 2, 4, 8, 16, 32):
+            if lpt * lt * bits % 8:
+                continue              # a block's codes are whole bytes
+            for warps in (1, 4, 16):
+                for vec in vecs:
+                    got = fused_encode._minhash_pack_launch(
+                        idx, nnz, a, b, bits, lpt, lt, warps, vec)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, want), (lpt, lt, warps, vec)
 
 
 @pytest.mark.parametrize("bits", B_FUSED)
@@ -408,30 +488,117 @@ def test_fwd_kernel_with_a_ragged_last_bin_group(cuda, n, bits, k, c):
         assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
 
 
-@pytest.mark.parametrize("c", [1, 4])
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("bits,k,n", [(1, 37, 67), (2, 64, 300),
-                                      (4, 256, 1000), (8, 256, 4097),
-                                      (8, 256, 1024), (8, 256, 16000)])
-def test_packed_bwd_kernel_matches_plain(cuda, c, masked, bits, k, n):
-    rng = np.random.default_rng(c + bits + masked)
+def _dw_within(got, want, scale):
+    """dW against its plain version: within 1e-5 of each bin's sum of
+    absolute terms (+1e-6), the bound of a float32 sum taken in another
+    order (chip_smoke.py's DW_SUM_TOL)."""
+    return bool(((got - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def _packed_dw_case(n, k, bits, c, masked, seed, dev, same=False):
+    """Packed codes (every row the same codes if ``same``), dout (n, c) and
+    (if masked) an empty mask with about 30 % of the bins marked."""
+    rng = np.random.default_rng(seed)
     codes = rng.integers(0, 1 << bits, size=(n, k)).astype(np.uint16)
-    packed = torch.from_numpy(pack_codes(codes, bits)).to(cuda)
-    dout = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(cuda)
+    if same:
+        codes[:] = codes[0]
+    packed = torch.from_numpy(pack_codes(codes, bits)).to(dev)
+    dout = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(dev)
     empty = None
     if masked:
         mask = rng.random((n, k)) < 0.3
         mask[0] = True
-        empty = torch.from_numpy(np.packbits(mask, axis=1)).to(cuda)
+        empty = torch.from_numpy(np.packbits(mask, axis=1)).to(dev)
+    return packed, dout, empty
+
+
+def _check_packed_dw(packed, dout, empty, vsize, k, bits, close=False):
+    """The same bits on two calls, within DW_SUM_TOL of the plain version
+    (and, if ``close``, within rtol = atol = 1e-5 of it too)."""
     kw = dict(k=k, bits=bits, empty=empty)
-    got = bbit_linear.bbit_linear_packed_bwd_dw(packed, dout, 1 << bits, **kw)
-    again = bbit_linear.bbit_linear_packed_bwd_dw(packed, dout, 1 << bits,
-                                                  **kw)
-    want = bbit_linear.bbit_linear_packed_bwd_dw_plain(packed, dout,
-                                                       1 << bits, **kw)
+    got = bbit_linear.bbit_linear_packed_bwd_dw(packed, dout, vsize, **kw)
+    again = bbit_linear.bbit_linear_packed_bwd_dw(packed, dout, vsize, **kw)
+    want = bbit_linear.bbit_linear_packed_bwd_dw_plain(packed, dout, vsize,
+                                                       **kw)
+    scale = bbit_linear.bbit_linear_packed_bwd_dw_plain(packed, dout.abs(),
+                                                        vsize, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert _dw_within(got, want, scale)
+    if close:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# (bits, k, n): the first six from before the stream-batch cases, then one
+# row, a partial 32-row group, the stream batch (1,024), a partial last
+# group past it and the training rows (16,000), k not a multiple of the 8
+# bins a block
+_PACKED_DW_FIRST = [(1, 37, 67), (2, 64, 300), (4, 256, 1000),
+                    (8, 256, 4097), (8, 256, 1024), (8, 256, 16000)]
+_PACKED_DW_CASES = _PACKED_DW_FIRST + [
+    (bits, k, n) for bits, k in [(1, 37), (2, 64), (4, 100), (8, 256),
+                                 (8, 37)]
+    for n in [1, 31, 1024, 4097, 16000]
+    if (bits, k, n) not in _PACKED_DW_FIRST]
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bits,k,n", _PACKED_DW_CASES)
+def test_packed_bwd_kernel_matches_plain(cuda, c, masked, bits, k, n):
+    """B6 with C in {1, 3, 4}, with and without the empty mask: the same
+    bits on two calls and within 1e-5 of each bin's sum of absolute terms
+    of the plain version; the first six shapes also within rtol = atol =
+    1e-5 of it (at a few bits and thousands of rows a value sums thousands
+    of terms, and a reordered float32 sum of them misses a flat 1e-5)."""
+    packed, dout, empty = _packed_dw_case(n, k, bits, c, masked,
+                                          seed=c + bits + masked, dev=cuda)
+    _check_packed_dw(packed, dout, empty, 1 << bits, k, bits,
+                     close=(bits, k, n) in _PACKED_DW_FIRST)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [31, 1024, 4097])
+def test_packed_bwd_kernel_beyond_a_4096_table(cuda, masked, n):
+    """V=8,192 at b=8: the values from 256 on are zeros."""
+    packed, dout, empty = _packed_dw_case(n, 40, 8, 2, masked, seed=n,
+                                          dev=cuda)
+    _check_packed_dw(packed, dout, empty, 8192, 40, 8)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bits,n", [(8, 1024), (8, 16000), (1, 4097)])
+def test_packed_bwd_kernel_every_row_the_same_code(cuda, masked, bits, n):
+    """Every row holds the same code in each bin: in each 32-row group the
+    lowest lane of the code sums 4 rows a step, over 8 steps."""
+    packed, dout, empty = _packed_dw_case(n, 256, bits, 1, masked, seed=bits,
+                                          dev=cuda, same=True)
+    _check_packed_dw(packed, dout, empty, 1 << bits, 256, bits)
+
+
+@pytest.mark.parametrize("bits,k,n", [(8, 256, 1024), (4, 37, 4097),
+                                      (1, 64, 100)])
+def test_packed_bwd_kernel_every_layout(cuda, bits, k, n):
+    """Each warps a block and cluster of blocks along the rows B6 can run
+    at, with and without one load a row's codes: within 1e-5 of each
+    bin's sum of absolute terms, the same bits on two calls."""
+    packed, dout, empty = _packed_dw_case(n, k, bits, 3, True, seed=k,
+                                          dev=cuda)
+    kw = dict(k=k, bits=bits, empty=empty)
+    v = 1 << bits
+    want = bbit_linear.bbit_linear_packed_bwd_dw_plain(packed, dout, v, **kw)
+    scale = bbit_linear.bbit_linear_packed_bwd_dw_plain(packed, dout.abs(), v,
+                                                        **kw)
+    for warps in (1, 2, 8, 16):
+        for parts in (1, 2, 4, 8):
+            for vec in {False, bbit_linear.packed_fwd_vec(
+                    bits, packed.shape[1], packed.data_ptr())}:
+                run = lambda: bbit_linear._packed_dw_launch(
+                    packed, dout, v, k, bits, empty, warps, parts, vec)
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (warps, parts, vec)
+                assert _dw_within(got, want, scale), (warps, parts, vec)
 
 
 def _vw_rows(n, mx, seed, dev, ones):
