@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving path, of the paper's
 experiment (TRON over b-bit codes and VW sketches, at the rcv1_oph width
-and at the paper's own k=500, b=16) and of banded-LSH search on one
-NVIDIA GPU.
+and at the paper's own k=500, b=16), of its streaming path (packed shard
+archives, one-pass SGD with checkpoints and a supervised restart) and of
+banded-LSH search on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -60,6 +61,33 @@ Phases, one line of output each (or more), any failure exits non-zero:
            for oph_zero with its empty mask (B5 + B6, and B6 alone against
            its plain version), against the gradient through widened
            codes;
+  stream   the paper's streaming path at configs/rcv1_oph.py's streaming
+           settings on the train phase's first 16,000 documents, cut to
+           8 shards of 2,000 rows (the config's 16 would hold fewer rows
+           than a batch of 1,024): preprocess_and_save writes oph and
+           oph_zero (B2) and minwise (B1) archives under build/, each
+           equal to preprocess_rows (B3/B4) byte for byte and passing
+           verify_shard; fit_streaming (B5 forward, B6 dW; AdamW, Polyak
+           tail averaging, prefetch 2, checkpoints every 4 shards) fits
+           the oph archive uninterrupted (its steps timed on the host by
+           a StepWatchdog), under run_supervised through a crash injected
+           at step 9 (exactly one restart), inline (prefetch 0) and under
+           torch.profiler (the device's busy share and the host's top
+           ops), all bitwise equal, and the oph_zero archive (B5/B6 with
+           the mask; progressive accuracy above 0.5); the held-out 4,000
+           rows scored through B2 + B5 above 0.9; train_bbit_sgd (B7, B8
+           with a plan a minibatch, counted, not held to one plan); the
+           launch counters set to zero before and read after all of it.
+           Then, in turns, the encode with one and two chunks in flight
+           and the fit at prefetch 0 and 2, each with and without
+           checkpoints; the same fit on the CPU: the same steps and rows,
+           params allclose (1e-4, 1e-5), progressive accuracy within
+           1e-3; and where the two part: both fits replayed step by step
+           (ending on each fit's bits), with the gap after each step, B6
+           and the card's gradient against the plain versions at the same
+           params, and at the element of the largest gap its gradient,
+           the rows that hit it, how far their douts cancel and AdamW's
+           ratio;
   paper    the same corpus at configs/rcv1_bbit.py's width: preprocess_rows
            at k=500, b=16 (B3), TRON logistic and squared hinge over a
            (500, 65536, 1) table (B7, and B8 from a plan of two radix
@@ -116,6 +144,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -166,6 +195,12 @@ VW_EQUAL = K * B // 32               # 2048 bits = 64 float32 buckets
 VW_WIDE = 1 << 14
 VW_CHUNK = 256
 STREAM_BATCH = 1024                  # configs/rcv1_oph.py stream_batch
+# the stream phase: 16,000 training rows in 8 shards of 2,000 (the
+# config's 16 shards would hold 1,000 rows, fewer than a batch), two steps
+# a shard, and the supervised fit's crash on the second step of shard 5,
+# after the checkpoint at shard 4
+STREAM_SHARDS, STREAM_STEPS, STREAM_CRASH_STEP = 8, 16, 9
+STREAM_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
 PREPROCESS_CHUNK = 1024              # preprocess_rows' chunk
 PAPER_K, PAPER_B = 500, 16           # configs/rcv1_bbit.py
 ABSTRACT_K, ABSTRACT_B = 30, 12      # examples/compare_vw_bbit.py:26
@@ -530,10 +565,10 @@ def serve_rate(eng, docs) -> dict:
 
 def profiled(torch, fn):
     """Runs ``fn`` under torch.profiler → (its result, {"wall_ms",
-    "device_ms", "top"}): the wall time and the device time per
-    device-side event (kernels, copies).  A CPU op's self device time
-    repeats the time of the kernels it launched, so only device events
-    are summed."""
+    "device_ms", "top", "host_top"}): the wall time, the device time per
+    device-side event (kernels, copies), and the host ops with the most
+    self CPU time (ms).  A CPU op's self device time repeats the time of
+    the kernels it launched, so only device events are summed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -542,14 +577,18 @@ def profiled(torch, fn):
         result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ops_us = {}
+    ops_us, host_us = {}, {}
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total", 0) or 0)
         if us > 0 and e.device_type != DeviceType.CPU:
             ops_us[e.key[:70]] = us
+        elif e.device_type == DeviceType.CPU:
+            host_us[e.key[:70]] = (e.self_cpu_time_total / 1e3, e.count)
     return result, {"wall_ms": wall_ms,
                     "device_ms": sum(ops_us.values()) / 1e3,
-                    "top": sorted(ops_us.items(), key=lambda kv: -kv[1])[:8]}
+                    "top": sorted(ops_us.items(), key=lambda kv: -kv[1])[:8],
+                    "host_top": sorted(host_us.items(),
+                                       key=lambda kv: -kv[1][0])[:8]}
 
 
 def phase_engine(torch, dev, docs, card: str) -> dict:
@@ -1044,6 +1083,415 @@ def gradient_step(torch, dev, docs, labels, params, cfg, errs) -> dict:
               f" max_abs_err={err} allclose(rtol 1e-5, atol 1e-8)={ok}")
         if not ok:
             fail(f"gradient {scheme}: packed and widened gradients differ")
+    return out
+
+
+def fit_line(res) -> dict:
+    return dict(seconds=res.train_seconds, steps=res.n_steps,
+                rows=res.examples_seen,
+                rows_per_s=res.examples_seen / res.train_seconds,
+                progressive_acc=res.progressive_acc,
+                shards=res.shards_processed)
+
+
+def phase_stream(torch, dev, card: str, data: dict) -> dict:
+    """The paper's streaming path at configs/rcv1_oph.py's width on the
+    train phase's corpus, cut to 8 shards of 2,000 rows; its archives are
+    written under build/ and removed after."""
+    import shutil
+    work = os.path.join(ROOT, "build", "chip_smoke_stream")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        return stream_in(torch, dev, card, data, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def stream_in(torch, dev, card: str, data: dict, work: str) -> dict:
+    from repro_torch.configs.rcv1_oph import CONFIG
+    from repro_torch.data.hashed_dataset import (
+        load_hashed, preprocess_and_save, preprocess_rows,
+        preprocess_rows_packed, shard_row_counts, verify_shard)
+    from repro_torch.ft import faults
+    from repro_torch.ft.watchdog import StepWatchdog
+    from repro_torch.kernels import ops
+    from repro_torch.models.linear import bbit_scores_packed
+    from repro_torch.train.linear_trainer import train_bbit_sgd
+    from repro_torch.train.metrics import accuracy, trees_bitwise_equal
+    from repro_torch.train.streaming import fit_streaming
+    from repro_torch.train.supervisor import run_supervised
+
+    rows, labels = data["rows"], data["labels"]
+    n = TRAIN_ROWS
+    cfg = CONFIG.linear_config()
+    kw = CONFIG.stream_kwargs(seed=CONFIG.seed)
+    if ((cfg.k, cfg.b, CONFIG.scheme, kw["batch_size"])
+            != (K, B, "oph", STREAM_BATCH)):
+        fail(f"stream: configs/rcv1_oph.py is not k={K}, b={B}, oph, "
+             f"batch {STREAM_BATCH}")
+    out = {"card": card, "settings": dict(kw, shards=STREAM_SHARDS,
+                            chunk=CONFIG.preprocess_chunk,
+                            crash_step=STREAM_CRASH_STEP)}
+    ckpt_root = os.path.join(work, "ckpt")
+
+    # -- the main path on the card: every launch counted from here ----
+    ops.reset_counts()
+    roots, pre_s = {}, {}
+    for scheme in ("oph", "minwise", "oph_zero"):
+        roots[scheme] = os.path.join(work, scheme)
+        stats, pre_s[scheme] = timed(torch, lambda: preprocess_and_save(
+            roots[scheme], rows[:n], labels[:n], K, B, scheme=scheme,
+            seed=HASH_SEED, n_shards=STREAM_SHARDS,
+            chunk=CONFIG.preprocess_chunk, device=dev))
+        print(f"stream: preprocess_and_save {scheme} {n} docs into "
+              f"{STREAM_SHARDS} shards (chunk {CONFIG.preprocess_chunk}): "
+              f"{pre_s[scheme]} s ({n / pre_s[scheme]} docs/s, "
+              f"{stats['mnnz_per_s']} M nonzeros/s) card={card}")
+    out["preprocess_s"] = pre_s
+    counts_rows = shard_row_counts(roots["oph"])
+    if counts_rows != [n // STREAM_SHARDS] * STREAM_SHARDS:
+        fail(f"stream: shard rows {counts_rows}")
+    codes = {}
+    for scheme, root in roots.items():
+        codes[scheme] = load_hashed(root)[0]
+        raw = preprocess_rows(rows[:n], K, B, scheme=scheme, seed=HASH_SEED,
+                              chunk=PREPROCESS_CHUNK, device=dev)
+        same = np.array_equal(codes[scheme], raw)
+        fsck = [verify_shard(root, s) for s in range(STREAM_SHARDS)]
+        print(f"stream: {scheme} archive codes vs preprocess_rows (the raw "
+              f"encode, {'B3' if scheme == 'minwise' else 'B4'}) over "
+              f"{n} rows: bytes equal={same}; verify_shard passed on "
+              f"{sum(f is not None for f in fsck)} of {STREAM_SHARDS} shards")
+        if not same or any(f is None for f in fsck):
+            fail(f"stream: the {scheme} archive departs from the raw route")
+
+    def fit(root=roots["oph"], **extra):
+        return fit_streaming(root, cfg, device=dev, **dict(kw, **extra))
+
+    steps_wd = StepWatchdog(window=STREAM_STEPS)
+    runs = {"uninterrupted": fit(ckpt_dir=os.path.join(ckpt_root, "u"),
+                                 watchdog=steps_wd)}
+    plan = faults.FaultPlan([faults.FaultEvent(
+        site="train_step", step=STREAM_CRASH_STEP, times=1)])
+    with faults.arm(plan):
+        sup, sup_s = timed(torch, lambda: run_supervised(
+            roots["oph"], cfg, policy=CONFIG.restart_policy(), device=dev,
+            ckpt_dir=os.path.join(ckpt_root, "s"), **kw))
+    runs["supervised"] = sup.result
+    runs["inline"] = fit(prefetch=0)
+    runs["profiled"], prof = profiled(torch, lambda: fit(
+        ckpt_dir=os.path.join(ckpt_root, "p")))
+    runs["oph_zero"] = fit(roots["oph_zero"])
+    held, _ = preprocess_rows_packed(rows[n:], K, B, scheme="oph",
+                                     seed=HASH_SEED, device=dev)
+    with torch.no_grad():
+        scores = bbit_scores_packed(runs["uninterrupted"].eval_params,
+                                    torch.from_numpy(held).to(dev), cfg)
+    test_acc = accuracy(scores > 0, labels[n:])
+    test_codes = preprocess_rows(rows[n:], K, B, scheme="oph",
+                                 seed=HASH_SEED, chunk=PREPROCESS_CHUNK,
+                                 device=dev)
+    sgd = train_bbit_sgd(codes["oph"], labels[:n], test_codes, labels[n:],
+                         cfg, epochs=kw["epochs"],
+                         batch_size=kw["batch_size"], lr=kw["lr"],
+                         seed=CONFIG.seed, device=dev)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    # -- end of the main path -------------------------------------------
+
+    for name, res in runs.items():
+        line = fit_line(res)
+        out[name] = line
+        print(f"stream: fit {name} seconds={line['seconds']} steps="
+              f"{line['steps']} rows={line['rows']} rows_per_s="
+              f"{line['rows_per_s']} progressive_acc="
+              f"{line['progressive_acc']} card={card}")
+    u = runs["uninterrupted"]
+    step_ms = [t * 1e3 for t in steps_wd.window]
+    out["uninterrupted"].update(
+        step_ms_median=float(np.median(step_ms)), step_ms_max=max(step_ms),
+        between_steps_ms=u.train_seconds * 1e3 - sum(step_ms))
+    print(f"stream: uninterrupted fit's steps on the host (enqueue, "
+          f"StepWatchdog): median {out['uninterrupted']['step_ms_median']} "
+          f"ms, max {out['uninterrupted']['step_ms_max']} ms, sum "
+          f"{sum(step_ms)} ms; between steps (batches, hit reads, "
+          f"checkpoints) {out['uninterrupted']['between_steps_ms']} ms")
+    if u.n_steps != STREAM_STEPS or u.examples_seen != n or not u.completed:
+        fail(f"stream: {u.n_steps} steps over {u.examples_seen} rows")
+    out["test_acc"] = test_acc
+    print(f"stream: held-out accuracy of the uninterrupted fit's eval "
+          f"params over {len(rows) - n} rows (B2 encode, B5 scores): "
+          f"{test_acc}")
+    if test_acc <= 0.9:
+        fail(f"stream: held-out accuracy {test_acc} <= 0.9")
+    out["supervised"].update(restarts=sup.restarts, wall_s=sup_s,
+                             crashes=[c.error for c in sup.crashes],
+                             backoff_s=[c.backoff_s for c in sup.crashes],
+                             recover_s=[c.recover_s for c in sup.crashes])
+    for name in ("supervised", "inline", "profiled"):
+        same = (trees_bitwise_equal(u.params, runs[name].params)
+                and trees_bitwise_equal(u.avg_params, runs[name].avg_params)
+                and fit_line(u)["progressive_acc"]
+                == fit_line(runs[name])["progressive_acc"])
+        print(f"stream: {name} fit bitwise equal to the uninterrupted "
+              f"one (params, average, progressive accuracy)={same}")
+        if not same:
+            fail(f"stream: the {name} fit departs from the uninterrupted")
+    print(f"stream: supervised restarts={sup.restarts} after a crash at "
+          f"step {STREAM_CRASH_STEP} (fired {plan.events[0].fired}), "
+          f"backoff {out['supervised']['backoff_s']} s, recovery "
+          f"{out['supervised']['recover_s']} s, run_supervised {sup_s} s "
+          f"in all")
+    if sup.restarts != 1 or plan.events[0].fired != 1:
+        fail(f"stream: {sup.restarts} restarts for one injected crash")
+    if runs["oph_zero"].progressive_acc <= 0.5:
+        fail("stream: oph_zero progressive accuracy <= 0.5")
+    prof["busy_share"] = prof["device_ms"] / (
+        runs["uninterrupted"].train_seconds * 1e3)
+    out["profile"] = prof
+    print(f"stream: profile of the uninterrupted fit: device busy "
+          f"{prof['device_ms']} ms in a profiled fit of {prof['wall_ms']} ms"
+          f", share of the unprofiled fit "
+          f"({runs['uninterrupted'].train_seconds * 1e3} ms) "
+          f"{prof['busy_share']}; top {prof['top']}; host top (self ms, "
+          f"calls) {prof['host_top']} card={card}")
+    out["sgd"] = dict(seconds=sgd.train_seconds, steps=sgd.n_iter,
+                      test_acc=sgd.test_acc, train_acc=sgd.train_acc,
+                      plans=counts["bbit_linear_bwd_dw_plans"])
+    print(f"stream: in-memory SGD baseline (train_bbit_sgd, B7 + B8) "
+          f"{json.dumps(out['sgd'])}: B8 built one plan a minibatch "
+          f"({counts['bbit_linear_bwd_dw_plans']} for "
+          f"{counts['bbit_linear_bwd_dw']} dW calls) card={card}")
+    need = ("minhash_pack", "oph_pack", "minhash", "oph",
+            "bbit_linear_packed_fwd", "bbit_linear_packed_bwd_dw",
+            "bbit_linear_fwd", "bbit_linear_bwd_dw")
+    missing = [name for name in need if counts[name] < 1]
+    stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    print(f"stream: launches {json.dumps(counts)}")
+    if missing or stray:
+        fail(f"stream: kernels not launched {missing}, plain calls {stray}")
+    out["counts"] = counts
+
+    out["turns"] = stream_turns(torch, dev, card, rows[:n], roots["oph"],
+                                cfg, kw, CONFIG.preprocess_chunk,
+                                os.path.join(work, "turns"))
+
+    # -- the same fit on the CPU (the kernels' plain versions) ----------
+    cpu = fit_streaming(roots["oph"], cfg, device="cpu", **kw)
+    err = max(float((u.params[k].cpu() - cpu.params[k]).abs().max())
+              for k in u.params)
+    close = all(torch.allclose(u.params[k].cpu(), cpu.params[k],
+                               **STREAM_CPU_TOL) for k in u.params)
+    out["cpu"] = dict(fit_line(cpu), params_max_abs_err=err)
+    print(f"stream: cpu fit steps={cpu.n_steps} rows={cpu.examples_seen} "
+          f"progressive_acc={cpu.progressive_acc} (card "
+          f"{u.progressive_acc}); params max_abs_err={err} allclose(rtol "
+          f"1e-4, atol 1e-5)={close}; {cpu.train_seconds} s on the host")
+    if ((cpu.n_steps, cpu.examples_seen) != (u.n_steps, u.examples_seen)
+            or not close
+            or abs(cpu.progressive_acc - u.progressive_acc) > 1e-3):
+        fail("stream: the card's fit departs from the CPU's")
+    out["cpu"]["gap"] = stream_gap(torch, dev, roots["oph"], cfg, kw, u, cpu)
+    return out
+
+
+def stream_turns(torch, dev, card: str, rows, root: str, cfg, kw: dict,
+                 chunk: int, work: str) -> dict:
+    """Seconds in turns over the stream phase's documents and archive:
+    the packed oph encode with one chunk in flight or PIPELINE_DEPTH, and
+    the fit with prefetch 0 or 2, each with checkpoints every 4 shards (a
+    fresh directory a fit) and without; every fit's steps timed on the
+    host by a StepWatchdog, the rest of its seconds between steps."""
+    from repro_torch.data import hashed_dataset as hd
+    from repro_torch.ft.watchdog import StepWatchdog
+    from repro_torch.train.streaming import fit_streaming
+    kept = hd.PIPELINE_DEPTH
+    encode = {1: [], kept: []}
+    try:
+        for depth in (1, kept, kept, 1, 1, kept):
+            hd.PIPELINE_DEPTH = depth
+            _, sec = timed(torch, lambda: sum(
+                len(sel) for sel, _, _ in hd._stream_encoded(
+                    rows, K, B, scheme="oph", family="multiply_shift",
+                    seed=HASH_SEED, chunk=chunk,
+                    packed=True, dev=dev)))
+            encode[depth].append(sec)
+    finally:
+        hd.PIPELINE_DEPTH = kept
+    print(f"stream: oph packed encode of {len(rows)} docs, seconds in turns "
+          f"1/{kept}/{kept}/1/1/{kept} chunks in flight: 1 {encode[1]}, "
+          f"{kept} {encode[kept]} card={card}")
+
+    arms = [(2, True), (0, True), (2, False), (0, False)]
+    fits = {f"prefetch{p}_{'ckpt' if c else 'none'}": [] for p, c in arms}
+    for turn, order in enumerate((arms, arms[::-1], arms)):
+        for p, c in order:
+            wd = StepWatchdog(window=STREAM_STEPS)
+            res = fit_streaming(
+                root, cfg, device=dev, **dict(
+                    kw, prefetch=p, watchdog=wd,
+                    ckpt_dir=os.path.join(work, f"{turn}_{p}") if c
+                    else None))
+            steps_s = sum(wd.window)
+            fits[f"prefetch{p}_{'ckpt' if c else 'none'}"].append(dict(
+                seconds=res.train_seconds, steps_s=steps_s,
+                between_s=res.train_seconds - steps_s))
+    for name, runs in fits.items():
+        print(f"stream: fit {name} in turns (2c/0c/2n/0n, reversed, again): "
+              f"seconds {[r['seconds'] for r in runs]}, host steps "
+              f"{[r['steps_s'] for r in runs]}, between steps "
+              f"{[r['between_s'] for r in runs]} card={card}")
+    return {"encode_s": encode, "fits": fits}
+
+
+def stream_gap(torch, dev, root: str, cfg, kw: dict, u, cpu) -> dict:
+    """Where the card's oph fit and the CPU's part, and why.  The share of
+    the allclose limit, |card - cpu| / (atol + rtol·|cpu|), at its largest;
+    then both fits replayed step by step from the same start over the same
+    batches with the fit's own loss, step and batch stream (the replay
+    must end on each fit's bits).  After each step: the largest gap; the
+    largest difference of the card's gradient (B5 + B6) from the plain
+    versions' on the CPU at the card's params, and of B6 from its plain
+    version on the card on the same rows and dout.  At the element of the
+    final largest gap, each step's gradient on both sides, B6's and the
+    plain version's sum there, the L2 term, the rows that hit it and how
+    far their douts cancel (|sum| / sum of |dout|), and AdamW's
+    m̂ / (sqrt(v̂) + eps) there after the step."""
+    import inspect
+    from repro_torch.core.bbit import unpack_codes_torch
+    from repro_torch.data.hashed_dataset import _to_device, shard_row_counts
+    from repro_torch.data.prefetch import StreamBatch, serial_batch_stream
+    from repro_torch.kernels import bbit_linear as bl
+    from repro_torch.kernels import ops
+    from repro_torch.models.linear import _finish, bbit_logits_packed
+    from repro_torch.optim.optimizers import AdamWConfig, make_optimizer
+    from repro_torch.train import linear_trainer
+    from repro_torch.train.losses import _per_example, mean_loss_with_preds_fn
+    from repro_torch.train.metrics import trees_bitwise_equal
+    from repro_torch.train.steps import (build_averaged_train_step,
+                                         init_averaged_state)
+    from repro_torch.train.streaming import fit_streaming
+
+    opts = {name: p.default for name, p in
+            inspect.signature(fit_streaming).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+    opts.update(kw)
+    if opts["optimizer"] != "adamw":
+        fail(f"stream: the gap's witness reads AdamW's moments, not "
+             f"{opts['optimizer']}'s")
+    atol, rtol = STREAM_CPU_TOL["atol"], STREAM_CPU_TOL["rtol"]
+    use, gap = {}, {}
+    for name in sorted(u.params):
+        a, c = u.params[name].cpu().double(), cpu.params[name].double()
+        gap[name] = (a - c).abs()
+        use[name] = float((gap[name] / (atol + rtol * c.abs())).max())
+    leaf = max(gap, key=lambda name: float(gap[name].max()))
+    at = np.unravel_index(int(gap[leaf].argmax()), tuple(gap[leaf].shape))
+    at = tuple(int(i) for i in at)
+    v = cpu.params["table"].shape[1]
+
+    loss_fn = mean_loss_with_preds_fn(
+        lambda p, x: bbit_logits_packed(p, x, cfg), opts["loss"],
+        l2=opts["l2"])
+
+    def loss_and_hits(p, x, y):
+        total, pred = loss_fn(p, x, y)
+        return total, torch.sum(pred == y)
+
+    def grads(params, x, y):
+        names = sorted(params)
+        live = {n: params[n].detach().clone().requires_grad_(True)
+                for n in names}
+        loss, _ = loss_fn(live, x, y)
+        return dict(zip(names, torch.autograd.grad(
+            loss, [live[n] for n in names])))
+
+    def dlogits(params, x, y):
+        """The dout B6 gets: d mean loss / d B5's output."""
+        with torch.no_grad():
+            z = ops.bbit_linear_packed(x, params["table"], cfg.k, cfg.b)
+        z.requires_grad_(True)
+        per, _ = _per_example(_finish(z, params, cfg), y, opts["loss"])
+        return torch.autograd.grad(torch.mean(per), z)[0].contiguous()
+
+    host = torch.device("cpu")
+    opt = make_optimizer(opts["optimizer"], opts["lr"])
+    step = build_averaged_train_step(loss_and_hits, opt, has_aux=True)
+    sides = {name: init_averaged_state(
+        linear_trainer._initial_params(cfg, opts["seed"], side), opt)
+        for name, side in (("card", dev), ("cpu", host))}
+    acfg = AdamWConfig()
+    batches = serial_batch_stream(
+        root, opts["batch_size"], seed=opts["seed"], epochs=opts["epochs"],
+        n_shards=len(shard_row_counts(root)), shuffle=opts["shuffle_shards"],
+        start_epoch=0, start_pos=0, has_empty=False,
+        transfer=lambda bp, bem, bl_: ((_to_device(bp, host),
+                                        _to_device(bl_, host)), None))
+    steps = []
+    for ev in batches:
+        if not isinstance(ev, StreamBatch):
+            continue
+        xh, yh = ev.args
+        xc, yc = xh.to(dev), yh.to(dev)
+        pc, ph = sides["card"].state.params, sides["cpu"].state.params
+        gc = grads(pc, xc, yc)
+        gh = grads(ph, xh, yh)
+        gs = grads({n: t.cpu() for n, t in pc.items()}, xh, yh)
+        dout = dlogits(pc, xc, yc)
+        pc_before = {n: t.cpu().clone() for n, t in pc.items()}
+        with torch.no_grad():
+            dw = bl.bbit_linear_packed_bwd_dw(xc, dout, v, k=cfg.k,
+                                              bits=cfg.b)
+            dw_plain = bl.bbit_linear_packed_bwd_dw_plain(
+                xc, dout, v, k=cfg.k, bits=cfg.b)
+            if leaf == "table":
+                hit = unpack_codes_torch(xc, cfg.k, cfg.b)[:, at[0]] == at[1]
+                d = dout[hit, at[2]].double()
+            else:
+                d = dout[:, at[0]].double()
+        sides["card"], _ = step(sides["card"], np.float32(0), xc, yc)
+        sides["cpu"], _ = step(sides["cpu"], np.float32(0), xh, yh)
+        t = len(steps) + 1
+        rec = {
+            "gap": max(float((sides["card"].state.params[n].cpu()
+                              - sides["cpu"].state.params[n]).abs().max())
+                       for n in pc),
+            "grad_vs_plain": max(float((gc[n].cpu() - gs[n]).abs().max())
+                                 for n in pc),
+            "b6_vs_plain": float((dw - dw_plain).abs().max()),
+            "b6_at": float(dw[at]) if leaf == "table" else None,
+            "plain_at": float(dw_plain[at]) if leaf == "table" else None,
+            "l2w": opts["l2"] * float(pc_before[leaf][at]),
+            "rows": int(d.numel()), "dout_sum": float(d.sum()),
+            "dout_abs_sum": float(d.abs().sum())}
+        for side, g in (("card", gc), ("cpu", gh), ("plain_at_card", gs)):
+            rec[f"g_{side}"] = float(g[leaf][at])
+        for name in ("card", "cpu"):
+            st = sides[name].state
+            m = float(st.opt_state["m"][leaf][at])
+            vv = float(st.opt_state["v"][leaf][at])
+            rec[f"p_{name}"] = float(st.params[leaf][at])
+            rec[f"adam_{name}"] = ((m / (1 - acfg.b1 ** t))
+                                   / (math.sqrt(vv / (1 - acfg.b2 ** t))
+                                      + acfg.eps))
+        rec["cancel"] = (abs(rec["dout_sum"]) / rec["dout_abs_sum"]
+                         if rec["dout_abs_sum"] else None)
+        steps.append(rec)
+    faithful = (trees_bitwise_equal(sides["card"].state.params, u.params)
+                and trees_bitwise_equal(sides["cpu"].state.params,
+                                        cpu.params))
+    out = {"leaf": leaf, "at": at, "gap": float(gap[leaf][at]),
+           "limit_use": use, "margin": 1.0 - max(use.values()),
+           "replay_bitwise": faithful, "steps": steps}
+    print(f"stream: card vs cpu gap at {leaf}{list(at)}: {out['gap']} (card "
+          f"{float(u.params[leaf][at])}, cpu {float(cpu.params[leaf][at])});"
+          f" share of the allclose limit used {use}, margin "
+          f"{out['margin']}; the step replay ends on both fits' bits: "
+          f"{faithful}")
+    for t, rec in enumerate(steps, 1):
+        print(f"stream: gap step {t}: {json.dumps(rec)}")
+    if not faithful:
+        fail("stream: the step replay departs from the fits it replays")
     return out
 
 
@@ -1717,6 +2165,7 @@ def main() -> int:
     docs = make_corpus(DOCS, seed=0)
     engine = run("engine", phase_engine, torch, dev, docs, card)
     train, train_data = run("train", phase_train, torch, dev, card, errs)
+    stream = run("stream", phase_stream, torch, dev, card, train_data)
     paper, paper_data = run("paper", phase_paper, torch, dev, card,
                             train_data, errs)
     search = run("search", phase_search, torch, dev, card,
@@ -1729,13 +2178,14 @@ def main() -> int:
     print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
-    # (engine, train, gradient, paper, search), its error and time at its
+    # (engine, train, gradient, stream, paper, search), its error and time at its
     # main path's shapes
     launches = {name: engine["launches"].get(name, 0)
                 + train["counts"][name]
                 + train["grad"]["launches"].get(name, 0)
                 + paper["counts"][name]
                 + search["counts"].get(name, 0)
+                + stream["counts"][name]
                 for name in KERNELS}
     main_rec = {**timing["main"], **timing_train["main"],
                 **timing_raw["main"]}
@@ -1755,7 +2205,7 @@ def main() -> int:
                        "timing": timing["shapes"],
                        "timing_train": timing_train["shapes"],
                        "timing_raw": timing_raw["shapes"], "train": train,
-                       "paper": paper,
+                       "paper": paper, "stream": stream,
                        "search": {k: search[k] for k in ("counts", "recall",
                                                          "candidates")},
                        "docs_per_s": engine["docs_per_s"],

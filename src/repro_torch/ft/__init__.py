@@ -1,1 +1,3 @@
-"""Straggler accounting (a copy of the reference's ``ft/watchdog.py``)."""
+"""Fault tolerance: deterministic fault injection (``faults``), capped
+exponential retry backoff (``retry``) and straggler accounting
+(``watchdog``), copies of the reference's single-process parts."""

@@ -3,11 +3,16 @@
 
 ``train_bbit_liblinear`` — TRON on the exact Eq. (8)/(9) objective over
                            b-bit hashed codes (the paper's setup);
-``train_vw_liblinear``   — the same solver over VW sketches (paper §5.4).
+``train_vw_liblinear``   — the same solver over VW sketches (paper §5.4);
+``train_bbit_sgd``       — in-memory minibatch SGD/AdamW over b-bit codes,
+                           the baseline of the streaming trainer.
 
-Both run on ``device`` (default ``cuda:0``; ``"cpu"`` runs the kernels'
+All run on ``device`` (default ``cuda:0``; ``"cpu"`` runs the kernels'
 plain versions).  On the card the b-bit forward is kernel B7 and its
-gradient B8, through ``kernels.ops.bbit_linear``.
+gradient B8, through ``kernels.ops.bbit_linear``.  B8 keeps a plan per
+codes tensor: TRON reuses one for a whole fit, while every minibatch of
+``train_bbit_sgd`` is a new tensor and builds its own plan
+(``ops.counts()["bbit_linear_bwd_dw_plans"]``).
 """
 from __future__ import annotations
 
@@ -23,9 +28,12 @@ from repro_torch.models.linear import (BBitLinearConfig, VWLinearConfig,
                                        init_bbit_linear,
                                        init_vw_linear, predict_classes,
                                        vw_logits, vw_predict)
+from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.optim.tron import tron_minimize
-from repro_torch.train.losses import LOSS_D2, liblinear_objective
+from repro_torch.train.losses import (LOSS_D2, liblinear_objective,
+                                      mean_loss_fn)
 from repro_torch.train.metrics import accuracy
+from repro_torch.train.steps import build_train_step, init_state
 
 
 def make_liblinear_hvp(forward, loss: str, C: float, codes: torch.Tensor,
@@ -125,3 +133,55 @@ def train_vw_liblinear(sk_tr, y_tr, sk_te, y_te, cfg: VWLinearConfig, *,
                     _on(sk_tr, dev, torch.float32), y_tr,
                     _on(sk_te, dev, torch.float32), y_te,
                     loss=loss, C=C, max_iter=max_iter, dev=dev)
+
+
+def _initial_params(cfg: BBitLinearConfig, seed: int,
+                    device: DeviceLike) -> dict:
+    """The start of an SGD fit (``train_bbit_sgd``, ``train.streaming``):
+    a 0.01·N(0, 1) table drawn from a CPU generator seeded with ``seed``,
+    then moved, so the card and the CPU start equal; a zero bias.  The
+    reference draws from ``jax.random.key(seed)``, which torch cannot
+    reproduce; its parity tests replace this function by the reference's
+    start."""
+    return init_bbit_linear(cfg, torch.Generator().manual_seed(seed),
+                            device=device)
+
+
+def train_bbit_sgd(codes_tr, y_tr, codes_te, y_te, cfg: BBitLinearConfig,
+                   *, loss: str = "logistic", optimizer: str = "adamw",
+                   lr: float = 1e-2, l2: float = 1e-6, epochs: int = 5,
+                   batch_size: int = 256, seed: int = 0,
+                   device: DeviceLike = None) -> FitResult:
+    """Minibatch SGD/AdamW over integer codes (n, k) held in memory, the
+    reference's permutation of rows each epoch (``default_rng(seed)``);
+    a shorter last minibatch trains too.  ``n_iter`` is the step count,
+    ``objective`` NaN."""
+    n = codes_tr.shape[0]
+    if n < 1:
+        raise ValueError("train_bbit_sgd: empty training set")
+    if epochs < 1:
+        raise ValueError(f"train_bbit_sgd: epochs must be >= 1, got {epochs}")
+    dev = resolve_device(device)
+    loss_fn = mean_loss_fn(lambda p, c: bbit_logits(p, c, cfg), loss, l2=l2)
+    opt = make_optimizer(optimizer, lr)
+    state = init_state(_initial_params(cfg, seed, dev), opt)
+    step_fn = build_train_step(loss_fn, opt)
+    x_tr = _on(codes_tr, dev, torch.int32)
+    y_tr_t = _on(y_tr, dev, torch.int32)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    steps = 0
+    for _ in range(epochs):
+        order = torch.from_numpy(rng.permutation(n)).to(dev)
+        for lo in range(0, n, batch_size):
+            sel = order[lo: lo + batch_size]
+            state, _ = step_fn(state, x_tr[sel], y_tr_t[sel])
+            steps += 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    with torch.no_grad():
+        tr_acc = accuracy(predict_classes(state.params, x_tr, cfg), y_tr)
+        te_acc = accuracy(predict_classes(
+            state.params, _on(codes_te, dev, torch.int32), cfg), y_te)
+    return FitResult(state.params, dt, tr_acc, te_acc, steps, float("nan"))

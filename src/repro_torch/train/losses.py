@@ -80,17 +80,41 @@ def liblinear_objective(forward: Callable, loss_name: str, C: float):
     return objective
 
 
-def mean_loss_fn(forward: Callable, loss_name: str, l2: float = 0.0):
-    """Mean per-example loss (the minibatch path), optional L2;
-    ``loss_name`` one of ``LOSSES`` or ``"softmax"``."""
+def _per_example(logits: torch.Tensor, labels: torch.Tensor,
+                 loss_name: str):
+    """Per-example losses and the decision rule of ``loss_name`` (argmax
+    for ``"softmax"``, the sign of the margin logit otherwise), the one
+    definition behind the minibatch losses and progressive validation."""
+    if loss_name == "softmax":
+        per = softmax_xent(logits, labels)
+        pred = torch.argmax(logits, dim=-1).to(torch.int32)
+    else:
+        per = LOSSES[loss_name](binary_margins(logits, labels))
+        z = logits[:, 0] if logits.dim() == 2 else logits
+        pred = (z > 0).to(torch.int32)
+    return per, pred
+
+
+def mean_loss_with_preds_fn(forward: Callable, loss_name: str,
+                            l2: float = 0.0):
+    """Mean per-example loss, optional L2 over every param (the bias
+    included), and the predicted classes of the same forward: ``f(params,
+    codes, labels) -> (loss, pred)``, what the streaming trainer's
+    progressive validation counts without a second forward."""
     def f(params, codes, labels):
-        logits = forward(params, codes)
-        if loss_name == "softmax":
-            per = softmax_xent(logits, labels)
-        else:
-            per = LOSSES[loss_name](binary_margins(logits, labels))
+        per, pred = _per_example(forward(params, codes), labels, loss_name)
         loss = torch.mean(per)
         if l2:
             loss = loss + 0.5 * l2 * l2_sum(params)
-        return loss
+        return loss, pred
+    return f
+
+
+def mean_loss_fn(forward: Callable, loss_name: str, l2: float = 0.0):
+    """Mean per-example loss (the minibatch path), optional L2;
+    ``loss_name`` one of ``LOSSES`` or ``"softmax"``."""
+    inner = mean_loss_with_preds_fn(forward, loss_name, l2)
+
+    def f(params, codes, labels):
+        return inner(params, codes, labels)[0]
     return f

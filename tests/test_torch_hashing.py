@@ -251,8 +251,9 @@ def test_encode_packed_numpy_matches_reference(scheme, b):
 
 
 def test_port_imports_no_jax_and_no_reference(repo_src):
-    """A fresh interpreter imports the port and scores on the CPU
-    without loading jax or any module of the reference package."""
+    """A fresh interpreter imports the port, scores, hashes and
+    stream-trains over a two-shard archive on the CPU without loading
+    jax or any module of the reference package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -281,6 +282,18 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
         index = BandedLSHIndex(k=16, b=8, rows_per_band=4, device="cpu")
         index.insert([0, 1, 2], packed)
         assert index.query(packed[1])[0][0] == 1
+        import tempfile
+        import repro_torch.ckpt.checkpoint, repro_torch.ft.faults
+        import repro_torch.data.prefetch, repro_torch.launch.train
+        from repro_torch.data.hashed_dataset import preprocess_and_save
+        from repro_torch.train.streaming import fit_streaming
+        rows, labels = generate_arrays(40, SynthRcv1Config(seed=2))
+        with tempfile.TemporaryDirectory() as root:
+            preprocess_and_save(root, rows, labels, k=16, b=8,
+                                scheme="oph", n_shards=2, device="cpu")
+            res = fit_streaming(root, cfg, batch_size=8, device="cpu",
+                                ckpt_dir=root + "/ckpt")
+        assert res.completed and res.n_steps == 6, res
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

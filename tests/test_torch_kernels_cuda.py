@@ -16,7 +16,16 @@ and with V beyond 4,096).  B9 with values of ones must
 equal its plain version byte for byte, in both of its designs (lanes and
 slices) and with nnz of 0, M, more than M and below 0; with random values
 allclose at 1e-5 and run-to-run equal; a row whose ids all hash to one
-bucket within 1e-5 of its sum of absolute terms."""
+bucket within 1e-5 of its sum of absolute terms.
+
+The streaming path on the card: archives written by B2 equal the CPU's
+byte for byte; ``fit_streaming`` (B5 forward, B6 dW, with and without the
+``oph_zero`` mask) and ``train_bbit_sgd`` (B7, B8 with a plan a
+minibatch) allclose to the CPU at 1e-4 / 1e-5 with the same steps;
+prefetch depths 0-2 and a resume bit-identical; the pinned encode
+pipeline (two chunks in flight) byte-equal to the CPU."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -794,3 +803,144 @@ def test_raw_encode_and_search_run_through_the_kernels(cuda):
         docs, k=64, b=12, scheme="oph_zero", chunk=16, device="cpu"))
     codes = preprocess_rows(docs, k=64, b=8, scheme="oph", device=cuda)
     assert np.array_equal(packed, pack_codes(split_zero_codes(codes)[0], 8))
+
+
+# ------------------------------------------------- the streaming path ----
+STREAM_CORPUS = dict(seed=11, topic_tokens=150, background_frac=0.35,
+                     max_pairs_per_doc=4000, max_triples_per_doc=2000)
+STREAM_FIT = dict(epochs=2, batch_size=64, lr=5e-3, seed=0)
+
+
+@pytest.fixture(scope="module")
+def stream_archives(tmp_path_factory):
+    """tests/test_streaming.py's fixture (600 documents, seed 11, the
+    first 400 in 5 shards at k=64, b=8), oph and oph_zero, written on the
+    card; each archive's bytes equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    from repro_torch.data.hashed_dataset import preprocess_and_save
+    from repro_torch.data.synth_rcv1 import SynthRcv1Config, generate_arrays
+    rows, labels = generate_arrays(600, SynthRcv1Config(**STREAM_CORPUS))
+    out = {}
+    for scheme in ("oph", "oph_zero"):
+        d = tmp_path_factory.mktemp(scheme)
+        ops.reset_counts()
+        for dev in ("cuda", "cpu"):
+            preprocess_and_save(str(d / dev), rows[:400], labels[:400],
+                                k=64, b=8, scheme=scheme, seed=1,
+                                n_shards=5, chunk=128, device=dev)
+            if dev == "cuda":
+                counts = ops.counts()
+                assert counts["oph_pack"] == 4
+                assert counts["oph_pack_plain"] == 0
+        for name in sorted(os.listdir(d / "cpu")):
+            if name.endswith(".npy"):
+                assert ((d / "cuda" / name).read_bytes()
+                        == (d / "cpu" / name).read_bytes()), name
+        out[scheme] = str(d / "cuda")
+    return out
+
+
+def _stream_close(card, cpu):
+    for name in ("bias", "table"):
+        torch.testing.assert_close(card[name].cpu(), cpu[name], rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+@pytest.mark.parametrize("scheme", ["oph", "oph_zero"])
+def test_fit_streaming_on_the_card_matches_the_cpu(cuda, stream_archives,
+                                                   scheme, optimizer):
+    from repro_torch.models.linear import BBitLinearConfig as Cfg
+    from repro_torch.train.streaming import fit_streaming
+    root = stream_archives[scheme]
+    kw = dict(STREAM_FIT, optimizer=optimizer)
+    ops.reset_counts()
+    card = fit_streaming(root, Cfg(k=64, b=8), device=cuda, **kw)
+    counts = ops.counts()
+    cpu = fit_streaming(root, Cfg(k=64, b=8), device="cpu", **kw)
+    assert counts["bbit_linear_packed_fwd"] == card.n_steps == 20
+    assert counts["bbit_linear_packed_bwd_dw"] == card.n_steps
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
+    assert card.params["table"].device.type == "cuda"
+    assert (card.n_steps, card.examples_seen) == (cpu.n_steps,
+                                                  cpu.examples_seen)
+    assert abs(card.progressive_acc - cpu.progressive_acc) <= 1e-3
+    _stream_close(card.params, cpu.params)
+    _stream_close(card.avg_params, cpu.avg_params)
+
+
+def test_fit_streaming_prefetch_and_resume_are_bitwise_on_the_card(
+        cuda, stream_archives, tmp_path):
+    """Depths 0, 1 and 2 (the batches copied on a side stream from the
+    prefetch thread, or inline) and a resume after 3 shards give the same
+    bits."""
+    from repro_torch.models.linear import BBitLinearConfig as Cfg
+    from repro_torch.train.metrics import trees_bitwise_equal
+    from repro_torch.train.streaming import fit_streaming
+    root = stream_archives["oph_zero"]
+    cfg = Cfg(k=64, b=8)
+    runs = [fit_streaming(root, cfg, prefetch=depth, device=cuda,
+                          **STREAM_FIT) for depth in (0, 1, 2)]
+    ck = str(tmp_path / "ck")
+    part = fit_streaming(root, cfg, ckpt_dir=ck, stop_after_shards=3,
+                         prefetch=2, device=cuda, **STREAM_FIT)
+    assert not part.completed
+    runs.append(fit_streaming(root, cfg, ckpt_dir=ck, prefetch=0,
+                              device=cuda, **STREAM_FIT))
+    for other in runs[1:]:
+        assert trees_bitwise_equal(runs[0].params, other.params)
+        assert trees_bitwise_equal(runs[0].avg_params, other.avg_params)
+        assert (other.n_steps, other.examples_seen, other.progressive_acc) \
+            == (runs[0].n_steps, runs[0].examples_seen,
+                runs[0].progressive_acc)
+
+
+@pytest.mark.parametrize("scheme,packed,b", [
+    ("oph", True, 8), ("oph_zero", True, 8), ("minwise", True, 4),
+    ("oph_zero", False, 12), ("minwise", False, 16)])
+def test_stream_encoded_pinned_matches_the_cpu(cuda, scheme, packed, b):
+    """PIPELINE_DEPTH chunks in flight through pinned buffers give the
+    CPU's bytes."""
+    from repro_torch.data.hashed_dataset import _stream_encoded
+    from repro_torch.data.synth_rcv1 import SynthRcv1Config, generate_arrays
+    rows, _ = generate_arrays(300, SynthRcv1Config(**STREAM_CORPUS))
+
+    def run(dev):
+        return [tuple(None if x is None else np.array(x) for x in ev)
+                for ev in _stream_encoded(
+                    rows, 64, b, scheme=scheme, family="multiply_shift",
+                    seed=3, chunk=64, packed=packed, dev=torch.device(dev))]
+
+    want, got = run("cpu"), run(cuda)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert (x is None) == (y is None)
+            assert x is None or np.array_equal(x, y)
+
+
+def test_train_bbit_sgd_on_the_card_matches_the_cpu(cuda):
+    """In-memory SGD through B7/B8: one B8 plan per minibatch (each is a
+    new codes tensor), parameters allclose to the CPU's."""
+    from repro_torch.models.linear import BBitLinearConfig as Cfg
+    from repro_torch.train.linear_trainer import train_bbit_sgd
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 256, size=(600, 64)).astype(np.uint16)
+    labels = (codes[:, :4].sum(axis=1) > 510).astype(np.int32)
+    kw = dict(epochs=2, batch_size=64, lr=5e-3)
+    ops.reset_counts()
+    card = train_bbit_sgd(codes[:400], labels[:400], codes[400:],
+                          labels[400:], Cfg(k=64, b=8), device=cuda, **kw)
+    counts = ops.counts()
+    cpu = train_bbit_sgd(codes[:400], labels[:400], codes[400:],
+                         labels[400:], Cfg(k=64, b=8), device="cpu", **kw)
+    assert card.n_iter == cpu.n_iter == 14
+    assert counts["bbit_linear_bwd_dw"] == 14
+    assert counts["bbit_linear_bwd_dw_plans"] == 14
+    assert counts["bbit_linear_fwd"] == 14 + 2      # steps + two evals
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
+    _stream_close(card.params, cpu.params)
+    assert abs(card.test_acc - cpu.test_acc) <= 1 / 200
