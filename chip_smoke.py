@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port's serving path, of the paper's
 experiment (TRON over b-bit codes and VW sketches, at the rcv1_oph width
 and at the paper's own k=500, b=16), of its streaming path (packed shard
-archives, one-pass SGD with checkpoints and a supervised restart) and of
-banded-LSH search on one NVIDIA GPU.
+archives, one-pass SGD with checkpoints and a supervised restart), of
+its HTTP serving tier (dedup cache, hot reload from the streaming fit's
+published checkpoints, admission, drain) and of banded-LSH search on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -88,6 +90,37 @@ Phases, one line of output each (or more), any failure exits non-zero:
            params, and at the element of the largest gap its gradient,
            the rows that hit it, how far their douts cancel and AdamW's
            ratio;
+  serve    configs/rcv1_oph.py's serving deployment (serve_kwargs +
+           dedup_kwargs: oph, k=256, b=8, nnz lanes 128..32768, row
+           buckets 1..64, 2 ms, pipeline depth 2, a dedup cache of 65,536
+           entries on 4 probe bands of 4 codes) behind a ScoreServer on an
+           ephemeral port, its weights the stream fit's params published
+           under its checkpoint directory (load_serving_params, shard 4's
+           snapshot first).  First, the dedup keys' host-encode bytes
+           against B2 over the 4,000 held-out documents, and one document
+           at row buckets 1 and 64 (B5's bits).  Then, with the launch
+           counters at zero: POST /score from 4 client threads in requests
+           of 1-64 held-out documents, 30 % of the documents sent repeats
+           (requests/s, documents/s, client and engine p50/p95/p99, dedup
+           hit rate); the same pass again under torch.profiler after
+           emptying the cache (the device's busy share); a full batch of
+           cached documents through submit_many (dedup hits); POST
+           /score_ndjson; a pass during which POST /reload lands to shard
+           8's snapshot; reloads from an empty directory (404) and from
+           the fit's training state (409); the held-out documents in
+           requests of 64 at the new version; one request past
+           AdmissionController.for_engine's budget (429 with
+           Retry-After); request_drain under load from 4 threads.  Every
+           answer equals score_docs pinned to its version's WeightSet bit
+           for bit and the host numpy reference allclose 1e-5; dedup hits
+           equal fresh scores at row buckets 64 and 1; the served held-out
+           accuracy equals the stream phase's within 1e-3; B2 and B5
+           launched, no plain call.  Then fused=False for minwise and oph
+           (B3/B4 + B7, no plain call) and oph_zero (B4, and the masked
+           product's plain version, which has no kernel in either
+           package), allclose 1e-5 to the fused path; and adapt_every=256
+           on a skewed stream (documents cut to 8-47 ids): at least one
+           re-bucket, every score equal to score_docs;
   paper    the same corpus at configs/rcv1_bbit.py's width: preprocess_rows
            at k=500, b=16 (B3), TRON logistic and squared hinge over a
            (500, 65536, 1) table (B7, and B8 from a plan of two radix
@@ -203,6 +236,17 @@ STREAM_SHARDS, STREAM_STEPS, STREAM_CRASH_STEP = 8, 16, 9
 STREAM_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
 PREPROCESS_CHUNK = 1024              # preprocess_rows' chunk
 PAPER_K, PAPER_B = 500, 16           # configs/rcv1_bbit.py
+# the serve phase: configs/rcv1_oph.py's serving deployment over HTTP on
+# the stream fit's published params; 4 client threads, requests of 1-64
+# held-out documents, 30 % of the documents sent repeats
+SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_serve")
+SERVE_CLIENTS, SERVE_MAX_REQUEST, SERVE_REPEAT_FRAC = 4, 64, 0.3
+SERVE_WAIT_S = 120
+SERVE_UNFUSED_DOCS = 256             # fused=False: held-out docs a scheme
+# adapt_every: a skewed stream (held-out documents cut to 8-47 ids) of
+# 2 x 1,024 documents, the grid re-derived every 256 submits
+ADAPT_EVERY, ADAPT_DOCS = 256, 1024
+SERVE_ACC_TOL = 1e-3
 ABSTRACT_K, ABSTRACT_B = 30, 12      # examples/compare_vw_bbit.py:26
 # the search phase: configs/rcv1_oph.py's retrieval geometry, and
 # benchmarks/retrieval_bench.py's near-duplicate churn
@@ -1094,10 +1138,12 @@ def fit_line(res) -> dict:
                 shards=res.shards_processed)
 
 
-def phase_stream(torch, dev, card: str, data: dict) -> dict:
+def phase_stream(torch, dev, card: str, data: dict):
     """The paper's streaming path at configs/rcv1_oph.py's width on the
     train phase's corpus, cut to 8 shards of 2,000 rows; its archives are
-    written under build/ and removed after."""
+    written under build/ and removed after.  → (its record, the serve
+    phase's handover: the uninterrupted fit's checkpoint directory copied
+    to SERVE_DIR, its held-out accuracy and eval params)."""
     import shutil
     work = os.path.join(ROOT, "build", "chip_smoke_stream")
     shutil.rmtree(work, ignore_errors=True)
@@ -1107,7 +1153,7 @@ def phase_stream(torch, dev, card: str, data: dict) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def stream_in(torch, dev, card: str, data: dict, work: str) -> dict:
+def stream_in(torch, dev, card: str, data: dict, work: str):
     from repro_torch.configs.rcv1_oph import CONFIG
     from repro_torch.data.hashed_dataset import (
         load_hashed, preprocess_and_save, preprocess_rows,
@@ -1224,6 +1270,22 @@ def stream_in(torch, dev, card: str, data: dict, work: str) -> dict:
           f"{test_acc}")
     if test_acc <= 0.9:
         fail(f"stream: held-out accuracy {test_acc} <= 0.9")
+    # the serve phase's weights: the uninterrupted fit's published
+    # snapshots, and its training state without them (a reload from that
+    # must be refused)
+    import shutil
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    fit_dir = os.path.join(ckpt_root, "u")
+    handover = {"ckpt_dir": os.path.join(SERVE_DIR, "ckpt"),
+                "state_dir": os.path.join(SERVE_DIR, "state"),
+                "empty_dir": os.path.join(SERVE_DIR, "empty"),
+                "test_acc": test_acc,
+                "eval_params": {name: t.cpu().numpy() for name, t
+                                in u.eval_params.items()}}
+    shutil.copytree(fit_dir, handover["ckpt_dir"])
+    shutil.copytree(fit_dir, handover["state_dir"],
+                    ignore=shutil.ignore_patterns("serve"))
+    os.makedirs(handover["empty_dir"])
     out["supervised"].update(restarts=sup.restarts, wall_s=sup_s,
                              crashes=[c.error for c in sup.crashes],
                              backoff_s=[c.backoff_s for c in sup.crashes],
@@ -1292,7 +1354,7 @@ def stream_in(torch, dev, card: str, data: dict, work: str) -> dict:
             or abs(cpu.progressive_acc - u.progressive_acc) > 1e-3):
         fail("stream: the card's fit departs from the CPU's")
     out["cpu"]["gap"] = stream_gap(torch, dev, roots["oph"], cfg, kw, u, cpu)
-    return out
+    return out, handover
 
 
 def stream_turns(torch, dev, card: str, rows, root: str, cfg, kw: dict,
@@ -1494,6 +1556,537 @@ def stream_gap(torch, dev, root: str, cfg, kw: dict, u, cpu) -> dict:
         fail("stream: the step replay departs from the fits it replays")
     return out
 
+
+def serve_plan(n_docs: int, rng):
+    """Requests over ``n_docs`` held-out documents: each once, plus
+    repeats making SERVE_REPEAT_FRAC of all sent, shuffled and cut into
+    requests of 1..SERVE_MAX_REQUEST documents → list of index arrays."""
+    n_rep = int(round(n_docs * SERVE_REPEAT_FRAC / (1 - SERVE_REPEAT_FRAC)))
+    order = np.concatenate([np.arange(n_docs),
+                            rng.integers(0, n_docs, size=n_rep)])
+    rng.shuffle(order)
+    reqs, lo = [], 0
+    while lo < len(order):
+        size = int(rng.integers(1, SERVE_MAX_REQUEST + 1))
+        reqs.append(order[lo: lo + size])
+        lo += size
+    return reqs
+
+
+def score_bodies(docs, reqs):
+    """Each request's JSON body, encoded before any request is timed."""
+    return [json.dumps({"docs": [docs[i].tolist() for i in r]}).encode()
+            for r in reqs]
+
+
+def post_json(client, path: str, body: bytes):
+    """→ (status, headers, parsed body) of one POST."""
+    resp = client.request("POST", path, body)
+    return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+
+
+def drive(port: int, bodies, on_answer=None):
+    """SERVE_CLIENTS threads POST /score the bodies (thread t takes
+    bodies t, t + SERVE_CLIENTS, ...), each over one keep-alive
+    connection → ([(version, float32 scores, latency s)] by body, wall
+    s).  Any status but 200 fails."""
+    import threading
+    from repro_torch.serving import ScoreClient
+    results, errors = [None] * len(bodies), []
+
+    def client(t):
+        c = ScoreClient("127.0.0.1", port, timeout=SERVE_WAIT_S)
+        try:
+            for j in range(t, len(bodies), SERVE_CLIENTS):
+                t0 = time.perf_counter()
+                status, _, obj = post_json(c, "/score", bodies[j])
+                lat = time.perf_counter() - t0
+                if status != 200:
+                    raise RuntimeError(f"/score answered {status}: {obj}")
+                results[j] = (obj["version"],
+                              np.asarray(obj["scores"], np.float32), lat)
+                if on_answer is not None:
+                    on_answer()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_WAIT_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"serve: clients failed: {errors[:3]}")
+    return results, wall
+
+
+def check_answers(name: str, reqs, results, pinned: dict) -> set:
+    """Every answer holds one version, and its scores equal score_docs
+    pinned to that version's WeightSet bit for bit → versions seen."""
+    seen = set()
+    for req, (version, scores, _) in zip(reqs, results):
+        if version not in pinned:
+            fail(f"serve: {name}: unknown version {version!r}")
+        seen.add(version)
+        if not np.array_equal(scores, pinned[version][req]):
+            fail(f"serve: {name}: scores of version {version} differ from "
+                 f"score_docs pinned to it: max_abs_err "
+                 f"{float(np.abs(scores - pinned[version][req]).max())}")
+    return seen
+
+
+def pinned_scores(eng, docs, weights) -> np.ndarray:
+    """score_docs pinned to ``weights``, ROWS documents a call."""
+    return np.concatenate([eng.score_docs(docs[lo: lo + ROWS],
+                                          weights=weights)
+                           for lo in range(0, len(docs), ROWS)])
+
+
+def host_scores(scheme, docs, params: dict) -> np.ndarray:
+    """numpy_scores (the host encode and a float64 gather-sum) in chunks
+    of 512 documents."""
+    return np.concatenate([
+        numpy_scores(scheme, docs[lo: lo + 512], params["table"],
+                     params["bias"])[0]
+        for lo in range(0, len(docs), 512)])
+
+
+def latency_ms(results) -> dict:
+    lat = np.array([r[2] for r in results]) * 1e3
+    return {f"p{q}_ms": float(np.percentile(lat, q)) for q in (50, 95, 99)}
+
+
+def phase_serve(torch, dev, card: str, data: dict, handover: dict) -> dict:
+    """configs/rcv1_oph.py's serving deployment (serve_kwargs +
+    dedup_kwargs) behind a ScoreServer on an ephemeral port, with the
+    stream phase's published params; SERVE_DIR is removed after."""
+    import shutil
+    try:
+        return serve_in(torch, dev, card, data, handover)
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+
+
+def serve_in(torch, dev, card: str, data: dict, handover: dict) -> dict:
+    import threading
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.rcv1_oph import CONFIG
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (AdmissionController,
+                                     HashedClassifierEngine, HTTPStatusError,
+                                     ScoreClient, ScoreServer,
+                                     load_serving_params)
+    from repro_torch.train.metrics import accuracy
+
+    cfg = CONFIG.linear_config()
+    kw = dict(CONFIG.serve_kwargs(), **CONFIG.dedup_kwargs())
+    want_kw = dict(scheme="oph", max_batch=ROWS, max_wait_ms=2.0,
+                   nnz_buckets=(128, 512, 2048, 8192, 32768),
+                   pipeline_depth=2, dedup_cache=True, dedup_entries=65536,
+                   dedup_rows_per_band=4, dedup_probe_bands=4)
+    if ((cfg.k, cfg.b) != (K, B)
+            or any(kw[key] != v for key, v in want_kw.items())):
+        fail(f"serve: configs/rcv1_oph.py's serving settings are not "
+             f"k={K}, b={B}, {want_kw}: {kw}")
+    held = data["rows"][TRAIN_ROWS:]
+    labels = data["labels"][TRAIN_ROWS:]
+    ckpt_dir = handover["ckpt_dir"]
+    first, last = CONFIG.ckpt_every_shards, STREAM_SHARDS
+    if ckpt.latest_published(ckpt_dir) != last:
+        fail(f"serve: latest published step "
+             f"{ckpt.latest_published(ckpt_dir)}, not {last}")
+    template = {name: np.zeros_like(v)
+                for name, v in handover["eval_params"].items()}
+    params_first, step = load_serving_params(ckpt_dir, template, first)
+    params_last, _ = load_serving_params(ckpt_dir, template)
+    if not all(np.array_equal(params_last[n], handover["eval_params"][n])
+               for n in template):
+        fail("serve: the last published params are not the stream fit's "
+             "eval params")
+    out = {"card": card, "settings": {k: (list(v) if isinstance(v, tuple)
+                                          else v) for k, v in kw.items()},
+           "docs": len(held), "clients": SERVE_CLIENTS}
+    nnz_all = np.array([len(d) for d in held])
+    eng = HashedClassifierEngine(params_first, cfg, seed=HASH_SEED,
+                                 device=dev, version=f"ckpt-{step}", **kw)
+    out["precompile_s"] = eng.precompile_seconds
+    w_first = eng.current_weights()
+
+    # -- checks before the server: the dedup keys' bytes against B2, and
+    # B5's bits at row buckets 1 and 64 -------------------------------
+    keys = eng._dedup_keys(held)
+    b2_equal = True
+    for lo in range(0, len(held), ROWS):
+        idx, nnz = pad_rows(held[lo: lo + ROWS], pad_to_multiple=1)
+        lane = eng._nnz_bucket(idx.shape[1])       # the engine's pad width
+        idx = np.pad(idx, ((0, 0), (0, lane - idx.shape[1])))
+        packed, empty = eng.scheme.encode_packed(
+            torch.from_numpy(idx).to(dev), torch.from_numpy(nnz).to(dev), B)
+        packed = packed.cpu().numpy()
+        b2_equal &= empty is None and all(
+            packed[i].tobytes() == keys[lo + i][1] and keys[lo + i][2] is None
+            for i in range(len(packed)))
+    print(f"serve: host encode (dedup keys) vs B2 over {len(held)} held-out "
+          f"docs (nnz {nnz_all.min()}..{nnz_all.max()}): bytes "
+          f"equal={b2_equal}")
+    if not b2_equal:
+        fail("serve: the dedup keys' bytes differ from B2's")
+    lane = eng._nnz_bucket(len(held[0]))
+    mates = [d for d in held if eng._nnz_bucket(len(d)) == lane][:ROWS]
+    one = eng.score_docs(mates[:1])
+    full = eng.score_docs(mates)
+    print(f"serve: one doc at row bucket 1 and 64 (lane {lane}, "
+          f"{len(mates)} docs): bitwise equal={one[0] == full[0]}")
+    if len(mates) != ROWS or one[0] != full[0]:
+        fail("serve: B5's bits depend on the row bucket")
+
+    # -- the main path: every launch counted from here ------------------
+    rng = np.random.default_rng(0)
+    reqs = serve_plan(len(held), rng)
+    bodies = score_bodies(held, reqs)
+    n_sent = sum(len(r) for r in reqs)
+    # the same requests in-process (submit_many, no HTTP) from this
+    # thread, the cache emptied after
+    t0 = time.perf_counter()
+    futs = [f for r in reqs for f in eng.submit_many([held[i] for i in r])]
+    for f in futs:
+        f.result(timeout=SERVE_WAIT_S)
+    inproc_s = time.perf_counter() - t0
+    eng.dedup.invalidate(eng.version)
+    out["in_process"] = dict(seconds=inproc_s, docs_per_s=n_sent / inproc_s)
+    print(f"serve: the steady pass's requests in-process (submit_many, one "
+          f"thread, no HTTP): {inproc_s} s, {n_sent / inproc_s} docs/s "
+          f"card={card}")
+    srv = ScoreServer(eng, **CONFIG.http_kwargs(port=0))
+    ops.reset_counts()
+    srv.start_in_thread(timeout=SERVE_WAIT_S)
+    client = ScoreClient("127.0.0.1", srv.port, timeout=SERVE_WAIT_S)
+    dd0, runs0 = eng.dedup.stats(), eng.batcher.batches_run
+    steady, wall = drive(srv.port, bodies)
+    dd1, batches = eng.dedup.stats(), eng.batcher.batches_run - runs0
+    eng_lat = {key: eng.stats()[key] for key in ("p50_ms", "p95_ms",
+                                                 "p99_ms")}
+    hits = dd1["hits"] - dd0["hits"]
+    lookups = hits + dd1["misses"] - dd0["misses"]
+    eng.dedup.invalidate(eng.version)
+    (prof_res, _), prof = profiled(torch, lambda: drive(srv.port, bodies))
+    # a dedup hit against a fresh score: every doc of one full batch,
+    # cached now, again through submit_many
+    hit_docs = mates
+    hits_before = eng.dedup.stats()["hits"]
+    futs = eng.submit_many(hit_docs)
+    hit_scores = np.asarray([f.result(timeout=SERVE_WAIT_S)
+                             for f in futs], np.float32)
+    hits_now = eng.dedup.stats()["hits"] - hits_before
+    nd_docs = held[:ROWS]
+    nd = client.score_ndjson(nd_docs)
+
+    # reload mid-traffic, to the last published step
+    answered, lock, due = [0], threading.Lock(), threading.Event()
+    reload_reqs = serve_plan(len(held), np.random.default_rng(1))
+
+    def on_answer():
+        with lock:
+            answered[0] += 1
+            if answered[0] == len(reload_reqs) // 3:
+                due.set()
+
+    reload_info = {}
+
+    def reloader():
+        if due.wait(SERVE_WAIT_S):
+            c = ScoreClient("127.0.0.1", srv.port, timeout=SERVE_WAIT_S)
+            reload_info.update(c.reload(ckpt_dir))
+            c.close()
+
+    ctl = threading.Thread(target=reloader)
+    ctl.start()
+    mixed, mixed_wall = drive(srv.port, score_bodies(held, reload_reqs),
+                              on_answer)
+    ctl.join(timeout=SERVE_WAIT_S)
+    w_last = eng.current_weights()
+    bad_reload = {}
+    for what in ("empty_dir", "state_dir"):
+        try:
+            client.reload(handover[what])
+            bad_reload[what] = 200
+        except HTTPStatusError as e:
+            bad_reload[what] = e.status
+    version_after = eng.version
+    # held-out accuracy of the served scores at the last step
+    acc_reqs = [np.arange(lo, min(lo + ROWS, len(held)))
+                for lo in range(0, len(held), ROWS)]
+    acc_res, acc_wall = drive(srv.port, score_bodies(held, acc_reqs))
+    # admission: one request past the budget
+    budget = AdmissionController.for_engine(eng).limit
+    status, headers, _ = post_json(client, "/score", json.dumps(
+        {"docs": [[1, 2, 3]] * (budget + 1)}).encode())
+    retry_after = headers.get("Retry-After")
+    client.close()
+    # drain under load, the cache emptied so the load reaches the card
+    eng.dedup.invalidate(eng.version)
+    drained, drain_errors, stop = [], [], threading.Event()
+
+    def hammer(t):
+        c = ScoreClient("127.0.0.1", srv.port, timeout=SERVE_WAIT_S)
+        lo = t * 16
+        while not stop.is_set():
+            sent = [held[(lo + i) % len(held)] for i in range(16)]
+            lo += SERVE_CLIENTS * 16
+            try:
+                r = c.score(sent)
+                drained.append(len(r["scores"]) == len(sent))
+            except HTTPStatusError as e:
+                if e.status != 503:
+                    drain_errors.append(repr(e))
+                break
+            except OSError:          # the socket closed after the drain
+                break
+        c.close()
+
+    hammers = [threading.Thread(target=hammer, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    for t in hammers:
+        t.start()
+    time.sleep(0.3)
+    srv.request_drain()
+    finished = srv.wait_finished(timeout=SERVE_WAIT_S)
+    stop.set()
+    for t in hammers:
+        t.join(timeout=SERVE_WAIT_S)
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    # -- end of the main path -------------------------------------------
+
+    inflight = srv.admission.snapshot()["inflight"]
+    print(f"serve: drain under load: {len(drained)} answers, all complete="
+          f"{all(drained)}, errors {drain_errors}, wait_finished={finished}"
+          f", drained_clean={srv.drained_clean}, in flight after {inflight}")
+    if (not finished or srv.drained_clean is not True or drain_errors
+            or not drained or not all(drained) or inflight
+            or any(t.is_alive() for t in hammers)):
+        fail("serve: the drain dropped or failed requests")
+    need = ("oph_pack", "bbit_linear_packed_fwd")
+    stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    print(f"serve: launches {json.dumps(counts)}")
+    if any(counts[name] < 1 for name in need) or stray:
+        fail(f"serve: kernels {need} not launched or plain calls {stray}")
+    out["counts"] = {name: counts[name] for name in KERNELS}
+
+    # the answers against score_docs pinned to each version, the host
+    # reference, the dedup hit and the stream fit's accuracy
+    pinned = {w_first.version: pinned_scores(eng, held, w_first),
+              w_last.version: pinned_scores(eng, held, w_last)}
+    if w_last.version != f"ckpt-{last}":
+        fail(f"serve: live version {w_last.version} after the reload")
+    for name, rq, res in (("steady", reqs, steady),
+                          ("profiled", reqs, prof_res),
+                          ("accuracy", acc_reqs, acc_res)):
+        check_answers(name, rq, res, pinned)
+    seen = check_answers("reload", reload_reqs, mixed, pinned)
+    print(f"serve: reload mid-traffic {json.dumps(reload_info)}: versions "
+          f"seen {sorted(seen)}, every answer equal to score_docs pinned to "
+          f"its version; empty dir -> {bad_reload['empty_dir']}, training "
+          f"state -> {bad_reload['state_dir']}, live version "
+          f"{version_after}")
+    if (seen != {w_first.version, w_last.version}
+            or reload_info.get("version") != w_last.version
+            or bad_reload != {"empty_dir": 404, "state_dir": 409}
+            or version_after != w_last.version):
+        fail("serve: the reload was not version-exact or a bad reload "
+             "changed the live version")
+    host = {v: host_scores(eng.scheme, held, p) for v, p in
+            ((w_first.version, params_first), (w_last.version, params_last))}
+    err_host = max(float(np.abs(pinned[v] - host[v]).max()) for v in host)
+    if not all(np.allclose(pinned[v], host[v], **TOL) for v in host):
+        fail(f"serve: served scores vs the host reference {err_host}")
+    fresh_one = np.concatenate([eng.score_docs([d], weights=w_first)
+                                for d in hit_docs[:8]])
+    hit_equal = (hits_now == len(hit_docs)
+                 and np.array_equal(hit_scores, pinned_scores(
+                     eng, hit_docs, w_first))
+                 and np.array_equal(hit_scores[:8], fresh_one))
+    print(f"serve: {hits_now} dedup hits of {len(hit_docs)} cached docs "
+          f"equal fresh scores at row buckets 64 and 1={hit_equal}")
+    if not hit_equal:
+        fail("serve: a dedup hit differs from a fresh score")
+    nd_ok = ([ln["i"] for ln in nd] == list(range(len(nd_docs)))
+             and all(ln["version"] == w_first.version for ln in nd)
+             and np.array_equal(np.asarray([ln["score"] for ln in nd],
+                                           np.float32),
+                                pinned[w_first.version][:len(nd_docs)]))
+    print(f"serve: /score_ndjson {len(nd)} lines in order, each with its "
+          f"version, equal to the pinned scores={nd_ok}")
+    if not nd_ok:
+        fail("serve: /score_ndjson out of order or off its version")
+    served_last = np.concatenate([r[1] for r in acc_res])
+    acc = accuracy(served_last > 0, labels)
+    out["test_acc"] = {"served": acc, "stream": handover["test_acc"]}
+    print(f"serve: held-out accuracy of the served scores at "
+          f"{w_last.version}: {acc} (stream phase {handover['test_acc']})")
+    if abs(acc - handover["test_acc"]) > SERVE_ACC_TOL:
+        fail("serve: held-out accuracy departs from the stream phase's")
+    print(f"serve: admission budget {budget} rows (for_engine): a request "
+          f"of {budget + 1} docs -> {status}, Retry-After {retry_after}")
+    if status != 429 or not retry_after or float(retry_after) <= 0:
+        fail("serve: no 429 with Retry-After past the admission budget")
+
+    # the steady pass's host work, one step at a time on this thread: the
+    # server's parse, the dedup keys' host encode, the engine's padding
+    t0 = time.perf_counter()
+    parsed = [srv._parse_docs(body) for body in bodies]
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for docs in parsed:
+        eng._dedup_keys(docs)
+    keys_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for docs in parsed:
+        pad_rows(docs, pad_to_multiple=1)
+    pad_s = time.perf_counter() - t0
+    out["host_s"] = dict(parse=parse_s, dedup_keys=keys_s, padding=pad_s)
+    print(f"serve: the steady pass's host work, serially on one thread: "
+          f"parse (json + numpy) {parse_s} s, dedup keys (host encode + "
+          f"band keys) {keys_s} s, padding of every document {pad_s} s, "
+          f"against the pass's {wall} s card={card}")
+    lat = latency_ms(steady)
+    out["steady"] = dict(requests=len(reqs), docs=n_sent, seconds=wall,
+                         batches=batches,
+                         requests_per_s=len(reqs) / wall,
+                         docs_per_s=n_sent / wall, client=lat,
+                         engine=eng_lat,
+                         dedup_hit_rate=hits / lookups if lookups else 0.0)
+    st = out["steady"]
+    print(f"serve: steady pass {len(reqs)} requests ({n_sent} docs, "
+          f"{SERVE_CLIENTS} clients, 1-{SERVE_MAX_REQUEST} docs a request) "
+          f"in {wall} s: {st['requests_per_s']} requests/s "
+          f"{st['docs_per_s']} docs/s; client latency p50/p95/p99 "
+          f"{lat['p50_ms']}/{lat['p95_ms']}/{lat['p99_ms']} ms; engine "
+          f"stats() p50/p95/p99 {eng_lat['p50_ms']}/{eng_lat['p95_ms']}/"
+          f"{eng_lat['p99_ms']} ms; dedup hit rate {st['dedup_hit_rate']} "
+          f"({hits} of {lookups}); {batches} micro-batches for the "
+          f"{lookups - hits} misses card={card}")
+    if prof["device_ms"] > 0:
+        prof["busy_share"] = prof["device_ms"] / (wall * 1e3)
+        busy = (f"device busy {prof['device_ms']} ms in a profiled pass of "
+                f"{prof['wall_ms']} ms, share of the unprofiled pass "
+                f"({wall * 1e3} ms) {prof['busy_share']}; top {prof['top']}"
+                f"; host top (self ms, calls) {prof['host_top']}")
+    else:
+        busy = "device busy: not measured (no device time traced)"
+    out["profile"] = prof
+    print(f"serve: profile of the steady pass (cache emptied first): {busy} "
+          f"card={card}")
+    out["reload_pass"] = dict(seconds=mixed_wall, info=reload_info,
+                              client=latency_ms(mixed))
+    out["accuracy_pass_s"] = acc_wall
+    out["unfused"] = serve_unfused(torch, dev, cfg, params_last, held, card)
+    out["adapt"] = serve_adapt(torch, dev, cfg, params_last, held, card)
+    for part in ("unfused", "adapt"):
+        for name in KERNELS:
+            out["counts"][name] += out[part]["counts"][name]
+    return out
+
+
+def serve_unfused(torch, dev, cfg, params, held, card: str) -> dict:
+    """fused=False at the deployment's settings for each scheme: the raw
+    encode (B3 minwise, B4 OPH) and the widened product (B7; oph_zero's
+    masked product has no kernel in either package, so it counts on
+    bbit_linear_fwd_plain and nowhere else), against the fused path."""
+    from repro_torch.configs.rcv1_oph import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.serving import HashedClassifierEngine
+    docs = held[:SERVE_UNFUSED_DOCS]
+    total = {name: 0 for name in KERNELS}
+    out = {}
+    for scheme, encode in (("minwise", "minhash"), ("oph", "oph"),
+                           ("oph_zero", "oph")):
+        kw = CONFIG.serve_kwargs(scheme=scheme)
+        with HashedClassifierEngine(params, cfg, seed=HASH_SEED, device=dev,
+                                    fused=False, precompile=False,
+                                    **kw) as eng:
+            ops.reset_counts()
+            futs = eng.submit_many(docs)
+            eng.flush()
+            got = np.asarray([f.result(timeout=SERVE_WAIT_S) for f in futs],
+                             np.float32)
+            torch.cuda.synchronize()
+            counts = ops.counts()
+        with HashedClassifierEngine(params, cfg, seed=HASH_SEED, device=dev,
+                                    precompile=False, **kw) as fused:
+            want = fused.score_docs(docs)
+        stray = {k: v for k, v in counts.items() if k.endswith("_plain")
+                 and v}
+        if scheme == "oph_zero":
+            ok = (counts["oph"] >= 1 and counts["bbit_linear_fwd"] == 0
+                  and set(stray) == {"bbit_linear_fwd_plain"})
+        else:
+            ok = (counts[encode] >= 1 and counts["bbit_linear_fwd"] >= 1
+                  and not stray)
+        err = float(np.abs(got - want).max())
+        out[scheme] = {"max_abs_err_vs_fused": err,
+                       "launches": {k: v for k, v in counts.items() if v}}
+        print(f"serve: fused=False {scheme}: {len(docs)} docs, launches "
+              f"{out[scheme]['launches']}, vs fused max_abs_err {err} "
+              f"card={card}")
+        if not ok:
+            fail(f"serve: fused=False {scheme} left its kernels: {counts}")
+        if not np.allclose(got, want, **TOL):
+            fail(f"serve: fused=False {scheme} vs fused {err}")
+        for name in KERNELS:
+            total[name] += counts[name]
+    out["counts"] = total
+    return out
+
+
+def serve_adapt(torch, dev, cfg, params, held, card: str) -> dict:
+    """adapt_every on a skewed stream at the deployment's settings: the
+    lane grid re-derived on a background thread (its new shapes warmed on
+    the card first) while submits go on; no request fails across the
+    swap, and every score equals score_docs."""
+    from repro_torch.configs.rcv1_oph import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.serving import HashedClassifierEngine
+    rng = np.random.default_rng(2)
+    skewed = [held[i % len(held)][:int(rng.integers(8, 48))]
+              for i in range(2 * ADAPT_DOCS)]
+    kw = CONFIG.serve_kwargs(adapt_every=ADAPT_EVERY)
+    with HashedClassifierEngine(params, cfg, seed=HASH_SEED, device=dev,
+                                **kw) as eng:
+        before = eng.nnz_buckets
+        ops.reset_counts()
+        futs = []
+        for lo in range(0, ADAPT_DOCS, ROWS):
+            futs += eng.submit_many(skewed[lo: lo + ROWS])
+            time.sleep(0.002)
+        deadline = time.time() + SERVE_WAIT_S
+        while eng.rebuckets == 0 and time.time() < deadline:
+            time.sleep(0.01)
+        for lo in range(ADAPT_DOCS, 2 * ADAPT_DOCS, ROWS):
+            futs += eng.submit_many(skewed[lo: lo + ROWS])
+        eng.flush()
+        got = np.asarray([f.result(timeout=SERVE_WAIT_S) for f in futs],
+                         np.float32)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        want = pinned_scores(eng, skewed, eng.current_weights())
+        out = {"before": list(before), "after": list(eng.nnz_buckets),
+               "rebuckets": eng.rebuckets,
+               "counts": {name: counts[name] for name in KERNELS}}
+    stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    print(f"serve: adapt_every={ADAPT_EVERY} on {len(skewed)} docs of 8-47 "
+          f"ids: lanes {out['before']} -> {out['after']} "
+          f"(rebuckets={out['rebuckets']}), every score equal to "
+          f"score_docs={np.array_equal(got, want)} card={card}")
+    if out["rebuckets"] < 1 or stray or not np.array_equal(got, want):
+        fail(f"serve: adapt_every failed: {out}, plain calls {stray}")
+    return out
 
 def phase_paper(torch, dev, card: str, data: dict, errs: dict) -> dict:
     """configs/rcv1_bbit.py's width on the train phase's corpus: k=500,
@@ -2165,7 +2758,9 @@ def main() -> int:
     docs = make_corpus(DOCS, seed=0)
     engine = run("engine", phase_engine, torch, dev, docs, card)
     train, train_data = run("train", phase_train, torch, dev, card, errs)
-    stream = run("stream", phase_stream, torch, dev, card, train_data)
+    stream, handover = run("stream", phase_stream, torch, dev, card,
+                           train_data)
+    serve = run("serve", phase_serve, torch, dev, card, train_data, handover)
     paper, paper_data = run("paper", phase_paper, torch, dev, card,
                             train_data, errs)
     search = run("search", phase_search, torch, dev, card,
@@ -2178,14 +2773,15 @@ def main() -> int:
     print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
-    # (engine, train, gradient, stream, paper, search), its error and time at its
-    # main path's shapes
+    # (engine, train, gradient, stream, serve, paper, search), its error
+    # and time at its main path's shapes
     launches = {name: engine["launches"].get(name, 0)
                 + train["counts"][name]
                 + train["grad"]["launches"].get(name, 0)
                 + paper["counts"][name]
                 + search["counts"].get(name, 0)
                 + stream["counts"][name]
+                + serve["counts"][name]
                 for name in KERNELS}
     main_rec = {**timing["main"], **timing_train["main"],
                 **timing_raw["main"]}
@@ -2205,7 +2801,7 @@ def main() -> int:
                        "timing": timing["shapes"],
                        "timing_train": timing_train["shapes"],
                        "timing_raw": timing_raw["shapes"], "train": train,
-                       "paper": paper, "stream": stream,
+                       "paper": paper, "stream": stream, "serve": serve,
                        "search": {k: search[k] for k in ("counts", "recall",
                                                          "candidates")},
                        "docs_per_s": engine["docs_per_s"],

@@ -1,5 +1,12 @@
-"""Dynamic request batching for the serving engine (``BucketBatcher``
-of ``repro/serving/batcher.py``, on the port's own modules).
+"""Dynamic request batching for the serving engine (``DynamicBatcher``
+and ``BucketBatcher`` of ``repro/serving/batcher.py``, on the port's own
+modules).  Both share the submit()→Future contract.
+
+``DynamicBatcher`` — the classic single-queue front half: requests
+queue up, a background worker drains up to ``max_batch`` at a time (or
+whatever arrived within ``max_wait_ms``), runs them as one batch and
+resolves per-request futures.  One queue means one shape lane, and the
+worker waits on each batch before it pads the next.
 
 ``BucketBatcher`` — shape-bucketed, overlapped micro-batching:
 
@@ -28,10 +35,10 @@ of ``repro/serving/batcher.py``, on the port's own modules).
     ``suggest_buckets()`` re-derives a lane grid from that observed
     traffic (see ``serving.stats.NnzHistogram``).
 
-On ``close()`` every future returned by a successful ``submit`` is
-done (result or exception) before ``close`` returns, and a ``submit``
-racing with ``close`` either wins (its future resolves) or raises
-``RuntimeError`` — it cannot silently hang.
+On ``close()`` of either, every future returned by a successful
+``submit`` is done (result or exception) before ``close`` returns, and
+a ``submit`` racing with ``close`` either wins (its future resolves) or
+raises ``RuntimeError`` — it cannot silently hang.
 """
 from __future__ import annotations
 
@@ -69,6 +76,90 @@ def _set_exception(fut: Future, exc: BaseException) -> None:
             fut.set_exception(exc)
         except Exception:  # noqa: BLE001 — lost the cancel race
             pass
+
+
+class DynamicBatcher:
+    def __init__(self, run_batch: Callable[[List], List],
+                 max_batch: int = 64, max_wait_ms: float = 2.0):
+        self._run_batch = run_batch
+        self.max_batch = max_batch
+        self.max_wait = max_wait_ms / 1000.0
+        self._q: "queue.Queue" = queue.Queue()
+        self._lock = threading.Lock()
+        self._closed = False
+        self._worker = threading.Thread(target=self._loop, daemon=True)
+        self._worker.start()
+        self.batches_run = 0
+        self.requests_served = 0
+
+    def submit(self, item) -> Future:
+        fut: Future = Future()
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("DynamicBatcher is closed")
+            self._q.put((item, fut))
+        return fut
+
+    def _drain(self) -> Tuple[List[Tuple[object, Future]], bool]:
+        """→ (items, closing).  FIFO queue + single consumer: once the
+        close sentinel surfaces, every accepted request has already
+        been drained (possibly into this very batch)."""
+        items: List[Tuple[object, Future]] = []
+        try:
+            first = self._q.get(timeout=0.05)
+        except queue.Empty:
+            return items, False
+        if first is _CLOSE:
+            return items, True
+        items.append(first)
+        deadline = time.perf_counter() + self.max_wait
+        while len(items) < self.max_batch:
+            timeout = deadline - time.perf_counter()
+            if timeout <= 0:
+                break
+            try:
+                nxt = self._q.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if nxt is _CLOSE:
+                return items, True
+            items.append(nxt)
+        return items, False
+
+    def _loop(self) -> None:
+        closing = False
+        while not closing:
+            batch, closing = self._drain()
+            if not batch:
+                continue
+            inputs = [b[0] for b in batch]
+            try:
+                outputs = self._run_batch(inputs)
+                for (_, fut), out in zip(batch, outputs):
+                    _set_result(fut, out)
+            except Exception as e:  # noqa: BLE001
+                for _, fut in batch:
+                    _set_exception(fut, e)
+            self.batches_run += 1
+            self.requests_served += len(batch)
+
+    def close(self) -> None:
+        """Flush-or-fail every pending request, then join the worker.
+
+        Requests already accepted are still batched and resolved (or
+        failed with ``run_batch``'s exception); submits from here on
+        raise.  Idempotent.  Raises if the worker cannot flush within
+        the timeout — returning silently would break the every-future-
+        is-done contract."""
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                self._q.put(_CLOSE)
+        self._worker.join(timeout=60.0)
+        if self._worker.is_alive():
+            raise RuntimeError(
+                "DynamicBatcher worker failed to flush within 60s — "
+                "pending futures may be unresolved (run_batch stuck?)")
 
 
 class BucketBatcher:

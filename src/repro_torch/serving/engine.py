@@ -26,6 +26,27 @@ densified ``oph`` have no empty semantics and reject them.
 Weights are versioned: the live params are one immutable ``WeightSet``,
 ``swap_weights`` publishes a new one with a single reference swap, and
 every score carries the version that produced it (``.version``).
+
+``fused=False`` keeps the reference's widened two-step selectable: the
+raw-minima encode (``scheme.encode_device``: kernel B3 for minwise, B4
+for OPH) to int32 (n, k) codes, then ``bbit_scores`` (the widened
+linear kernel B7).  ``oph_zero``'s masked product has no kernel in
+either package (``ops.bbit_linear_masked``, counted on the
+``bbit_linear_fwd`` plain counter).
+
+``dedup_cache=True`` puts the band-keyed duplicate-traffic score cache
+(``serving.dedup.DedupCache``) in front of the batcher: one host-side
+encode pass over a whole ``submit_many`` batch gives each document its
+band-signature probe and its packed bytes (the same bytes as B1/B2),
+a guarded hit returns the cached resolved future without touching the
+card, and ``swap_weights`` invalidates the cache under its swap lock.
+
+``adapt_every=N`` re-derives the nnz lane grid from the batcher's
+observed size histogram every N submits (``adapt_buckets``) on a
+background thread: the new (row × nnz × replica) shapes run once on
+each card first, then the grid is swapped.  The row buckets stay the
+static power-of-two grid (the reference's choice without a cost-model
+profile).
 """
 from __future__ import annotations
 
@@ -41,8 +62,11 @@ from repro_torch.core.schemes import make_scheme
 from repro_torch.data.packing import bucket_width, pad_rows
 from repro_torch.devices import DeviceLike, replica_devices
 from repro_torch.kernels import ops
-from repro_torch.models.linear import BBitLinearConfig, bbit_scores_packed
+from repro_torch.models.linear import (BBitLinearConfig, bbit_scores,
+                                       bbit_scores_packed)
+from repro_torch.retrieval.bands import band_geometry, band_keys_packed
 from repro_torch.serving.batcher import BucketBatcher
+from repro_torch.serving.dedup import DedupCache
 from repro_torch.serving.reload import WeightSet
 from repro_torch.serving.stats import StatsWindow
 
@@ -87,6 +111,7 @@ class HashedClassifierEngine:
     def __init__(self, params, cfg: BBitLinearConfig, seed: int = 0,
                  max_batch: int = 64, max_wait_ms: float = 2.0,
                  scheme: str = "minwise", *,
+                 fused: bool = True,
                  device: DeviceLike = None,
                  replicas: int = 1,
                  nnz_buckets: Sequence[int] = DEFAULT_NNZ_BUCKETS,
@@ -94,9 +119,25 @@ class HashedClassifierEngine:
                  precompile: bool = True,
                  pipeline_depth: int = 2,
                  stats_window: int = 2048,
-                 version: str = "v0"):
+                 adapt_every: int = 0,
+                 version: str = "v0",
+                 dedup_cache: bool = False,
+                 dedup_entries: int = 4096,
+                 dedup_rows_per_band: int = 4,
+                 dedup_probe_bands: int = 4):
         self.cfg = cfg
         self.scheme = make_scheme(scheme, cfg.k, seed)
+        self.fused = fused
+        # duplicate-traffic short-circuit: band-signature probe + exact
+        # packed-code guard, after the host-side encode and before the
+        # card (see serving/dedup.py for the contract)
+        self.dedup: Optional[DedupCache] = None
+        if dedup_cache:
+            band_geometry(cfg.k, cfg.b, dedup_rows_per_band)
+            self.dedup = DedupCache(max_entries=dedup_entries,
+                                    version=version)
+            self._dedup_rows_per_band = int(dedup_rows_per_band)
+            self._dedup_probe_bands = int(dedup_probe_bands)
         # zero-coded schemes give an empty doc exact semantics (every
         # bin empty → contributions masked out → score == bias)
         self._allows_empty = getattr(self.scheme, "densify", True) is False
@@ -120,8 +161,17 @@ class HashedClassifierEngine:
         self._rr_lock = threading.Lock()
         self.device_batches = [0] * len(self.devices)
         self.stats_window = StatsWindow(stats_window)
+        self.adapt_every = int(adapt_every)
+        self.rebuckets = 0
+        self._submits = 0
+        self._adapting = threading.Event()
         self._started_at = time.time()
 
+        # (row bucket, nnz bucket, replica) shapes that ran on a card;
+        # compile_misses (the reference's name) counts batches of a shape
+        # that no warm-up ran
+        self._warmed: set = set()
+        self.compile_misses = 0
         self.precompile_seconds = 0.0
         if precompile:
             self._precompile()
@@ -151,15 +201,19 @@ class HashedClassifierEngine:
                        else torch.from_numpy(np.array(params[name],
                                                       np.float32)))
                 for name in shapes}
-        staged = tuple(
-            {name: t.to(device=dev, dtype=torch.float32,
-                        copy=True).contiguous()
-             for name, t in host.items()}
-            for dev in self.devices)
+        staged = []
         for dev in self.devices:
+            staged.append({name: t.to(device=dev, dtype=torch.float32,
+                                      copy=True).contiguous()
+                           for name, t in host.items()})
             if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        return staged
+                # resident before the swap: wait on the copies (the
+                # device's current stream), not on the whole device
+                with torch.cuda.device(dev):
+                    copied = torch.cuda.Event()
+                    copied.record()
+                copied.synchronize()
+        return tuple(staged)
 
     # ---------------------------------------------------------- buckets --
     def _nnz_bucket(self, n: int) -> int:
@@ -177,17 +231,26 @@ class HashedClassifierEngine:
         first requests pay neither the build nor first-shape
         allocations.  The CPU has nothing to build."""
         t0 = time.perf_counter()
+        self._precompile_grid(self.nnz_buckets, self.row_buckets)
+        self.precompile_seconds = time.perf_counter() - t0
+
+    def _precompile_grid(self, nnz_buckets: Sequence[int],
+                         row_buckets: Sequence[int]) -> None:
+        """Runs each not-yet-run (row, nnz, replica) shape of a lane grid
+        once on its card and waits for it."""
         w = self._weights
         for d, dev in enumerate(self.devices):
             if dev.type != "cuda":
                 continue
-            for m in self.nnz_buckets:
-                for r in self.row_buckets:
+            for m in nnz_buckets:
+                for r in row_buckets:
+                    if (r, m, d) in self._warmed:
+                        continue
                     idx = np.zeros((r, m), np.int32)
                     nnz = np.ones((r,), np.int32)
                     _, event = self._launch(dev, idx, nnz, w.on(d))
                     event.synchronize()
-        self.precompile_seconds = time.perf_counter() - t0
+                    self._warmed.add((r, m, d))
 
     # ----------------------------------------------------------- scoring --
     def _validate(self, doc, *, check_neg: bool = True) -> np.ndarray:
@@ -222,6 +285,11 @@ class HashedClassifierEngine:
 
     def _score(self, idx: torch.Tensor, nnz: torch.Tensor,
                params: dict) -> torch.Tensor:
+        if not self.fused:
+            # the widened two-step: raw-minima encode (B3/B4) → int32
+            # codes → B7 (oph_zero: the masked product, no kernel)
+            codes, empty = self.scheme.encode_device(idx, nnz, self.cfg.b)
+            return bbit_scores(params, codes, self.cfg, empty=empty)
         packed, empty = self.scheme.encode_packed(idx, nnz, self.cfg.b)
         return bbit_scores_packed(params, packed, self.cfg,
                                   empty_packed=empty)
@@ -259,8 +327,13 @@ class HashedClassifierEngine:
         idx[:n, :packed_idx.shape[1]] = packed_idx
         nnz[:n] = packed_nnz
         d = self._next_device() if device_index is None else device_index
+        dev = self.devices[d]
         self.device_batches[d] += 1
-        scores, event = self._launch(self.devices[d], idx, nnz, w.on(d))
+        scores, event = self._launch(dev, idx, nnz, w.on(d))
+        shape_key = (rows, key, d)
+        if dev.type == "cuda" and shape_key not in self._warmed:
+            self.compile_misses += 1
+            self._warmed.add(shape_key)
         return scores, n, w.version, event
 
     def _resolve_batch(self, handle: Tuple) -> List:
@@ -277,6 +350,73 @@ class HashedClassifierEngine:
             event.synchronize()
         return scores[:n].cpu().numpy()
 
+    # ----------------------------------------------------- dedup cache ----
+    def _dedup_keys(self, arrs: Sequence[np.ndarray],
+                    cat: Optional[np.ndarray] = None) -> List[Tuple]:
+        """One host-side hash pass over a whole batch → each doc's
+        (band-signature probe, full packed bytes, empty bytes), the
+        cache's (probe, guard) pairs.  The bytes equal the card's encode
+        (B1/B2: the same id folding through ``pad_rows``' policy, the
+        same hash words), and the encode does not depend on the pad
+        width, so a key computed in any batch equals the key computed
+        alone.  One pass a batch amortizes numpy's fixed cost a call."""
+        ragged = getattr(self.scheme, "encode_packed_numpy_ragged", None)
+        if ragged is not None:
+            # no padded intermediate: concat + fold (pad_rows' id-folding
+            # policy) + one ragged encode
+            lens = np.fromiter((a.size for a in arrs), dtype=np.int64,
+                               count=len(arrs))
+            if cat is None:
+                cat = (np.concatenate(arrs) if len(arrs) > 1
+                       else np.asarray(arrs[0]))
+            tokens = (cat & np.int64((1 << 31) - 1)).astype(np.int32)
+            packed, empty = ragged(tokens, lens, self.cfg.b)
+        else:
+            idx, nnz = pad_rows(list(arrs), pad_to_multiple=1)
+            packed, empty = self.scheme.encode_packed_numpy(
+                idx, nnz, self.cfg.b)
+        keys = band_keys_packed(packed, self.cfg.k, self.cfg.b,
+                                self._dedup_rows_per_band)
+        sigs = keys[:, :self._dedup_probe_bands].tolist()
+        return [(tuple(s), packed[i].tobytes(),
+                 None if empty is None else empty[i].tobytes())
+                for i, s in enumerate(sigs)]
+
+    def _dedup_key(self, arr: np.ndarray):
+        return self._dedup_keys([arr])[0]
+
+    def _submit_dedup(self, arr: np.ndarray, key: Optional[Tuple] = None):
+        """Cache short-circuit: a hit returns an already-resolved Future
+        (no batcher, no card); a miss dispatches normally and fills the
+        cache when its batch resolves.  The cached object is the
+        resolved batcher Future itself, shared by every later hit: a
+        finished Future does not change (``add_done_callback`` runs at
+        once, ``cancel`` does nothing)."""
+        sig, packed, empty = self._dedup_key(arr) if key is None else key
+        version = self._weights.version
+        hit = self.dedup.get(sig, packed, empty, version, nnz=arr.size)
+        if hit is not None:
+            return hit
+        return self._submit_dedup_miss(arr, (sig, packed, empty), version)
+
+    def _submit_dedup_miss(self, arr: np.ndarray, key: Tuple,
+                           version: str):
+        """Miss leg of the dedup path: normal batcher dispatch plus a
+        cache fill when the batch resolves."""
+        sig, packed, empty = key
+        fut = self.batcher.submit(arr)
+        cache = self.dedup
+
+        def _fill(f):
+            if f.cancelled() or f.exception() is not None:
+                return
+            result = f.result()
+            cache.put(sig, packed, empty, f,
+                      getattr(result, "version", version))
+
+        fut.add_done_callback(_fill)
+        return fut
+
     # ------------------------------------------------------------- API ----
     def submit(self, doc: Sequence[int], tenant: Optional[str] = None):
         """Validate + route one doc; returns a Future of its score (a
@@ -284,7 +424,10 @@ class HashedClassifierEngine:
         ``tenant`` feed the stats window."""
         arr = self._validate(doc)
         t0 = time.perf_counter()
-        fut = self.batcher.submit(arr)
+        if self.dedup is not None:
+            fut = self._submit_dedup(arr)
+        else:
+            fut = self.batcher.submit(arr)
 
         def _record(f, t0=t0, tenant=tenant):
             self.stats_window.record(
@@ -293,12 +436,18 @@ class HashedClassifierEngine:
                        and f.exception() is not None))
 
         fut.add_done_callback(_record)
+        if self.adapt_every:
+            self._submits += 1
+            if self._submits % self.adapt_every == 0:
+                self._adapt_async()
         return fut
 
     def submit_many(self, docs: Sequence[Sequence[int]],
                     tenant: Optional[str] = None) -> List[Future]:
         """Batch ``submit``: identical routing and results, with the
-        negativity check done in one pass over the whole batch."""
+        negativity check done in one pass over the whole batch and,
+        with the dedup cache on, the whole batch's keys from one host
+        encode pass (``_dedup_keys``)."""
         arrs = [self._validate(d, check_neg=False) for d in docs]
         if not arrs:
             return []
@@ -315,10 +464,36 @@ class HashedClassifierEngine:
                 error=(not f.cancelled()
                        and f.exception() is not None))
 
-        for arr in arrs:
-            fut = self.batcher.submit(arr)
-            fut.add_done_callback(_record)
-            futs.append(fut)
+        if self.dedup is not None:
+            keys = self._dedup_keys(arrs, cat=cat)
+            version = self._weights.version
+            hits = self.dedup.get_many(keys, version,
+                                       [a.size for a in arrs])
+            n_hits = 0
+            for i, arr in enumerate(arrs):
+                if hits[i] is not None:
+                    # a resolved shared Future; its stats are recorded
+                    # in one batched call below
+                    futs.append(hits[i])
+                    n_hits += 1
+                    continue
+                fut = self._submit_dedup_miss(arr, keys[i], version)
+                fut.add_done_callback(_record)
+                futs.append(fut)
+            if n_hits:
+                self.stats_window.record_batch(
+                    time.perf_counter() - t0, n_hits, tenant=tenant)
+        else:
+            for arr in arrs:
+                fut = self.batcher.submit(arr)
+                fut.add_done_callback(_record)
+                futs.append(fut)
+        if self.adapt_every:
+            before = self._submits
+            self._submits += len(arrs)
+            if (before // self.adapt_every
+                    != self._submits // self.adapt_every):
+                self._adapt_async()
         return futs
 
     def score_docs(self, docs: Sequence[Sequence[int]],
@@ -357,21 +532,64 @@ class HashedClassifierEngine:
             version = version or f"v{self.reloads + 1}"
             self._weights = WeightSet(version=version, params=staged,
                                       created_at=time.time())
+            if self.dedup is not None:
+                # the same critical section as the swap: no window where
+                # new-version traffic can hit an old-version score
+                self.dedup.invalidate(version)
             self.reloads += 1
         return version
 
+    # ------------------------------------------------- adaptive buckets --
+    def _adapt_async(self) -> None:
+        """Starts one background re-derivation (a submit never waits on
+        warm-ups; overlapping triggers collapse into one)."""
+        if self._adapting.is_set():
+            return
+        self._adapting.set()
+
+        def run():
+            try:
+                self.adapt_buckets()
+            finally:
+                self._adapting.clear()
+
+        threading.Thread(target=run, daemon=True,
+                         name="serve-adapt").start()
+
+    def adapt_buckets(self, max_buckets: Optional[int] = None,
+                      coverage: float = 0.995) -> Tuple[int, ...]:
+        """Re-derives the nnz lane grid from observed traffic.
+
+        Runs any new (row × nnz × replica) shapes on their cards first,
+        then swaps the grid, so traffic after the swap meets only warm
+        shapes.  Returns the current grid unchanged until the batcher
+        has seen enough samples, or when the suggestion is the live
+        grid.  Requests racing the swap route on whichever grid they
+        caught; both grids are warm."""
+        suggestion = self.batcher.suggest_buckets(
+            max_buckets=max_buckets or len(self.nnz_buckets),
+            coverage=coverage)
+        if not suggestion or tuple(suggestion) == self.nnz_buckets:
+            return self.nnz_buckets
+        self._precompile_grid(suggestion, self.row_buckets)
+        self.nnz_buckets = tuple(suggestion)   # route() reads this live
+        self.rebuckets += 1
+        return self.nnz_buckets
+
     # -------------------------------------------------------- stats -------
     def stats(self) -> dict:
-        """Thread-safe operability snapshot: rolling latency percentiles,
-        rows/s and per-tenant counts, queue depths and per-lane
-        occupancy, reload counters, the batcher's health, and the
-        kernel launch counts of the serving path."""
+        """Thread-safe operability snapshot (the ``GET /status`` body):
+        rolling latency percentiles, rows/s and per-tenant counts, queue
+        depths and per-lane occupancy, warm-up, reload and re-bucket
+        counters, the batcher's health, the dedup cache's counters, and
+        the kernel launch counts of the serving path."""
         snap = self.stats_window.snapshot()
         depths = self.batcher.depths()
         snap.update(
             version=self._weights.version,
             reloads=self.reloads,
             uptime_s=time.time() - self._started_at,
+            compile_misses=self.compile_misses,
             precompile_seconds=self.precompile_seconds,
             batches_run=self.batcher.batches_run,
             requests_served=self.batcher.requests_served,
@@ -383,14 +601,19 @@ class HashedClassifierEngine:
             pipeline_depth=depths["depth"],
             nnz_buckets=list(self.nnz_buckets),
             row_buckets=list(self.row_buckets),
+            rebuckets=self.rebuckets,
             health=self.batcher.health(),
             kernels=ops.counts(),
+            dedup=(dict(self.dedup.stats(), enabled=True,
+                        rows_per_band=self._dedup_rows_per_band,
+                        probe_bands=self._dedup_probe_bands)
+                   if self.dedup is not None else {"enabled": False}),
         )
         return snap
 
     def flush(self):
         """Dispatch every queued request now instead of waiting out the
-        coalescing window."""
+        coalescing window (end-of-stream clients, graceful drain)."""
         self.batcher.flush()
 
     def close(self):

@@ -251,9 +251,10 @@ def test_encode_packed_numpy_matches_reference(scheme, b):
 
 
 def test_port_imports_no_jax_and_no_reference(repo_src):
-    """A fresh interpreter imports the port, scores, hashes and
-    stream-trains over a two-shard archive on the CPU without loading
-    jax or any module of the reference package."""
+    """A fresh interpreter imports the port (its HTTP tier and launchers
+    too), scores, hashes and stream-trains over a two-shard archive on
+    the CPU without loading jax or any module of the reference
+    package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -285,6 +286,9 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
         import tempfile
         import repro_torch.ckpt.checkpoint, repro_torch.ft.faults
         import repro_torch.data.prefetch, repro_torch.launch.train
+        import repro_torch.serving.dedup, repro_torch.serving.admission
+        import repro_torch.serving.server, repro_torch.serving.reload
+        import repro_torch.launch.serve
         from repro_torch.data.hashed_dataset import preprocess_and_save
         from repro_torch.train.streaming import fit_streaming
         rows, labels = generate_arrays(40, SynthRcv1Config(seed=2))

@@ -18,6 +18,13 @@ slices) and with nnz of 0, M, more than M and below 0; with random values
 allclose at 1e-5 and run-to-run equal; a row whose ids all hash to one
 bucket within 1e-5 of its sum of absolute terms.
 
+The serving tier on the card: the dedup cache's host-encode bytes equal
+B1's and B2's at the engine's lanes and row buckets 1 and 64, a cache
+hit equals a fresh score at both row buckets bit for bit, and
+``fused=False`` launches B3/B4 and B7 (``oph_zero``: B4 and the masked
+product's plain version, which has no kernel); ``launch/serve.py
+--http --device cuda`` binds, answers and drains on SIGTERM.
+
 The streaming path on the card: archives written by B2 equal the CPU's
 byte for byte; ``fit_streaming`` (B5 forward, B6 dW, with and without the
 ``oph_zero`` mask) and ``train_bbit_sgd`` (B7, B8 with a plan a
@@ -362,6 +369,164 @@ def test_engine_runs_through_the_kernels(cuda, scheme):
     assert counts[encode] > 0 and counts["bbit_linear_packed_fwd"] > 0
     assert all(v == 0 for name, v in counts.items()
                if name.endswith("_plain"))
+
+
+def _serving_docs(seed, n=128):
+    """Documents across the serving lanes (1 to 8,000 ids, past 2^31)."""
+    rng = np.random.default_rng(seed)
+    return [np.unique(rng.integers(0, 1 << 33, size=int(s)))
+            for s in rng.integers(1, 8000, size=n)]
+
+
+@pytest.mark.parametrize("scheme", ["minwise", "oph", "oph_zero"])
+@pytest.mark.parametrize("lane", [2048, 8192])
+@pytest.mark.parametrize("rows", [1, 64])
+def test_dedup_host_keys_equal_the_fused_encode(cuda, scheme, lane, rows):
+    """The dedup cache's host-encode bytes (its guard) equal B1's
+    (minwise) or B2's (OPH) at the engine's lanes and row buckets."""
+    cfg = BBitLinearConfig(k=256, b=8)
+    params = init_bbit_linear(cfg, device=cuda)
+    docs = [d for d in _serving_docs(lane + rows, n=400)
+            if len(d) <= lane][:rows]
+    assert len(docs) == rows
+    from repro_torch.data.packing import pad_rows
+    with HashedClassifierEngine(params, cfg, seed=1, scheme=scheme,
+                                device=cuda, precompile=False,
+                                nnz_buckets=(2048, 8192), dedup_cache=True,
+                                row_buckets=(1, 64)) as eng:
+        keys = eng._dedup_keys(docs)
+        idx, nnz = pad_rows(docs, pad_to_multiple=1)
+        idx = np.pad(idx, ((0, 0), (0, lane - idx.shape[1])))
+        ops.reset_counts()
+        packed, empty = eng.scheme.encode_packed(
+            torch.from_numpy(idx).to(cuda), torch.from_numpy(nnz).to(cuda), 8)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+    encode = "minhash_pack" if scheme == "minwise" else "oph_pack"
+    assert counts[encode] == 1 and counts[encode + "_plain"] == 0
+    packed = packed.cpu().numpy()
+    assert [k[1] for k in keys] == [row.tobytes() for row in packed]
+    if scheme == "oph_zero":
+        assert [k[2] for k in keys] == [row.tobytes()
+                                        for row in empty.cpu().numpy()]
+    else:
+        assert empty is None and all(k[2] is None for k in keys)
+
+
+@pytest.mark.parametrize("scheme", ["minwise", "oph", "oph_zero"])
+def test_dedup_hit_equals_a_fresh_score_across_row_buckets(cuda, scheme):
+    """A cached score equals the same document scored fresh in a 1-row
+    and in a 64-row batch, bit for bit, and the hits leave the card
+    alone."""
+    cfg = BBitLinearConfig(k=256, b=8)
+    params = init_bbit_linear(cfg, torch.Generator().manual_seed(3),
+                              device=cuda)
+    docs = [d for d in _serving_docs(7, n=400) if len(d) <= 2048][:64]
+    with HashedClassifierEngine(params, cfg, seed=1, scheme=scheme,
+                                device=cuda, nnz_buckets=(2048, 8192),
+                                row_buckets=(1, 64), dedup_cache=True,
+                                dedup_entries=256) as eng:
+        first = [f.result(timeout=60) for f in eng.submit_many(docs)]
+        runs = eng.batcher.batches_run
+        ops.reset_counts()
+        hits = np.asarray([f.result(timeout=60)
+                           for f in eng.submit_many(docs)], np.float32)
+        assert sum(ops.counts().values()) == 0
+        assert eng.batcher.batches_run == runs
+        assert eng.dedup.stats()["hits"] == len(docs)
+        full = eng.score_docs(docs)                          # 64 rows
+        one = np.concatenate([eng.score_docs([d]) for d in docs])
+    assert len(docs) == 64
+    assert np.array_equal(hits, np.asarray(first, np.float32))
+    assert np.array_equal(hits, full) and np.array_equal(hits, one)
+
+
+@pytest.mark.parametrize("scheme,encode", [("minwise", "minhash"),
+                                           ("oph", "oph"),
+                                           ("oph_zero", "oph")])
+def test_unfused_engine_launch_counts(cuda, scheme, encode):
+    """fused=False launches the raw encode (B3, B4) and the widened
+    product (B7) and no plain version; oph_zero's masked product has no
+    kernel, so it counts on bbit_linear_fwd_plain and nowhere else.
+    Scores allclose (1e-5) to the fused path's."""
+    cfg = BBitLinearConfig(k=256, b=8)
+    params = init_bbit_linear(cfg, torch.Generator().manual_seed(4),
+                              device=cuda)
+    docs = _serving_docs(11, n=96)
+    kw = dict(seed=1, scheme=scheme, device=cuda, precompile=False,
+              nnz_buckets=(2048, 8192), row_buckets=(1, 64))
+    with HashedClassifierEngine(params, cfg, fused=False, **kw) as eng:
+        ops.reset_counts()
+        futs = eng.submit_many(docs)
+        eng.flush()
+        got = np.asarray([f.result(timeout=60) for f in futs], np.float32)
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        assert np.array_equal(got, eng.score_docs(docs))
+    with HashedClassifierEngine(params, cfg, **kw) as eng:
+        want = eng.score_docs(docs)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    plain = {k for k, v in counts.items() if k.endswith("_plain") and v}
+    assert counts[encode] >= 1
+    assert counts["minhash_pack"] == counts["oph_pack"] == 0
+    assert counts["bbit_linear_packed_fwd"] == 0
+    if scheme == "oph_zero":
+        assert counts["bbit_linear_fwd"] == 0
+        assert plain == {"bbit_linear_fwd_plain"}
+    else:
+        assert counts["bbit_linear_fwd"] >= 1 and not plain
+
+
+def test_launch_serve_http_on_the_card(cuda):
+    """``python -m repro_torch.launch.serve --http --device cuda --port 0``
+    binds, answers ``/score`` through the kernels and drains on
+    SIGTERM."""
+    import signal
+    import subprocess
+    import sys
+    import threading
+    from repro_torch.serving import ScoreClient
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--http",
+         "--device", "cuda", "--port", "0", "--n-docs", "300",
+         "--dedup-cache"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=src))
+    lines, listening = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("LISTENING"):
+                listening.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        assert listening.wait(timeout=300), lines
+        _, host, port = next(ln for ln in lines
+                             if ln.startswith("LISTENING")).split()
+        client = ScoreClient(host, int(port), timeout=60)
+        resp = client.score(_serving_docs(5, n=16))
+        status = client.status()
+        client.close()
+        assert len(resp["scores"]) == 16
+        assert np.isfinite(resp["scores"]).all()
+        assert status["devices"] == ["cuda:0"]
+        assert status["kernels"]["minhash_pack"] >= 1
+        assert status["kernels"]["bbit_linear_packed_fwd"] >= 1
+        assert all(v == 0 for name, v in status["kernels"].items()
+                   if name.endswith("_plain"))
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    reader.join(timeout=60)
+    assert any(ln.startswith("drained clean=True") for ln in lines), lines
 
 
 def _widened(n, k, bits, c, seed, dev):
