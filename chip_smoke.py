@@ -4,8 +4,9 @@ experiment (TRON over b-bit codes and VW sketches, at the rcv1_oph width
 and at the paper's own k=500, b=16), of its streaming path (packed shard
 archives, one-pass SGD with checkpoints and a supervised restart), of
 its HTTP serving tier (dedup cache, hot reload from the streaming fit's
-published checkpoints, admission, drain) and of banded-LSH search on one
-NVIDIA GPU.
+published checkpoints, admission, drain), of the training launcher's
+``--mode linear`` at k=500, b=16, of the cost model's calibration and of
+banded-LSH search on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -134,6 +135,31 @@ Phases, one line of output each (or more), any failure exits non-zero:
            equal from a fresh, a cached and a rebuilt plan; the first
            1,024-row chunk's k=500 codes against B3's plain version; the
            reference tests' accuracy limits;
+  linear   launch/train.py --mode linear in process at
+           configs/rcv1_bbit.py's k=500, b=16 on the train corpus: the
+           4-shard archive preprocess_and_save writes (B1 at b=16, one
+           launch a 1,024-document chunk), then 100 AdamW steps of 128
+           rows over bbit_logits (B7 and B8 every step) and the test
+           forward, with the launch counters set to zero before and read
+           after (no plain call); test accuracy above 0.9; the archive
+           passes launch/fsck.py, and its first 256 documents' archive is
+           byte-equal card vs CPU; a --fail-at 60 run and its rerun
+           resume from step 50 and end on the uninterrupted run's bits;
+           the first 10 steps again on the CPU, params and losses
+           allclose (1e-4, 1e-5).  Then B1 at b in {3, 6, 12, 16}
+           (codes that straddle bytes) beside b=8, held to its plain
+           version byte for byte and timed, at 64 rows x 8,192 ids
+           (k=256) and on the corpus's first 1,024 documents (k=500);
+  calibrate launch/calibrate.py (configs/rcv1_oph.py's defaults: oph,
+           k=256, b=8, lanes 128/512/2,048, rows 1-64) under a 20 s
+           budget: only kernel arms timed, the profile's fingerprint the
+           card's; then the profile loaded and an engine built from it
+           (its row buckets and lane caps from the serve_score curve)
+           scoring 2,000 held-out documents against an engine on the
+           static grid: bitwise equal (else allclose 1e-6, and the line
+           says which), profile hits in stats()["dispatch"], no plain
+           call; one serve pass on each grid, an observation held to no
+           limit;
   search   the corpus packed at k=256, b=8 (B2) into a BandedLSHIndex
            with 4 codes per band; 128 exact copies of indexed documents
            (rank 1, similarity 1.0) and 128 near-duplicates with 10 % of
@@ -163,7 +189,9 @@ Phases, one line of output each (or more), any failure exits non-zero:
            corpus; B10 over the 20,000 indexed rows and over a typical
            candidate set.
 
-The last three lines are the card's name and power limit, one JSON
+The phases run in the order engine, train, stream, serve, paper,
+linear, calibrate, search, timing.  The last three lines are the card's
+name and power limit, one JSON
 object describing every kernel, and {"ok": true, "device": {...}}.  A
 kernel's max_abs_err there is its largest error at the main path's
 shapes (B1, B2 and B5 in the kernels phase at the engine's rows and
@@ -179,6 +207,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -256,6 +285,18 @@ SEARCH_CHECK_EVERY = 8               # B10 vs plain on every 8th query
 DROP_FRAC = 0.1
 # 32-bit operations per word of B10: the XOR, the popcount, the add
 OPS_PER_HAMMING_WORD = 3
+# the linear phase: launch/train.py --mode linear at configs/rcv1_bbit.py's
+# k=500, b=16 on the train corpus (hashed with seed 0, the launcher's):
+# 100 AdamW steps of 128 rows, checkpoints every 25, a crash at step 60
+# resumed from 50; the first 10 steps again on the CPU; the archive's
+# bytes against the CPU's on the first 256 documents
+LINEAR_STEPS, LINEAR_BATCH, LINEAR_CKPT_EVERY = 100, 128, 25
+LINEAR_SEED, LINEAR_FAIL_AT = 0, 60
+LINEAR_CPU_STEPS, LINEAR_CPU_DOCS = 10, 256
+# the calibrate phase: launch/calibrate.py's defaults (configs/rcv1_oph.py)
+# under a budget of 20 s; the engine built from the profile scores 2,000
+# held-out documents
+CALIBRATE_BUDGET_S, CALIBRATE_DOCS = 20.0, 2000
 GRAD_TOL = dict(rtol=1e-5, atol=1e-8)
 # B6/B8 against their plain versions: |err| <= 1e-5 x the sum of the
 # absolute terms of each bin (+1e-6), the bound of a reordered float32 sum
@@ -2727,6 +2768,328 @@ def phase_timing_raw(torch, dev, rows, search: dict, card: str,
     return {"main": main, "shapes": out}
 
 
+# ---------------------------------------------------------------------------
+def b1_every_b(torch, dev, rows, card: str, int_rate: float) -> dict:
+    """B1 at b whose codes straddle bytes (3, 6, 12, 16) beside today's
+    b=8: at the engine's 64 rows x 8,192 ids (k=256) and at a 1,024-row
+    chunk of the train corpus (k=500, the paper's), each held to its
+    plain version byte for byte and timed → {shape: {b: record}}."""
+    from repro_torch.core.bbit import packed_width
+    from repro_torch.core.universal_hash import MultiplyShiftHash
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.kernels import fused_encode as fe
+    rng = np.random.default_rng(3)
+    m = NNZ_BUCKETS[-1]
+    eng_idx = torch.from_numpy(
+        rng.integers(0, 1 << 31, size=(ROWS, m)).astype(np.int32)).to(dev)
+    eng_nnz_np = rng.integers(1, m + 1, size=ROWS).astype(np.int32)
+    eng_nnz_np[:3] = [0, 3, m]
+    idx_c, nnz_c = pad_rows(rows[:PREPROCESS_CHUNK], pad_to_multiple=1)
+    shapes = {f"rows={ROWS} lane={m} k={K}": (
+                  eng_idx, torch.from_numpy(eng_nnz_np).to(dev), K),
+              f"rows={PREPROCESS_CHUNK} chunk k={PAPER_K}": (
+                  torch.from_numpy(idx_c).to(dev),
+                  torch.from_numpy(nnz_c).to(dev), PAPER_K)}
+    out = {}
+    for where, (idx, nnz, k) in shapes.items():
+        a, b = MultiplyShiftHash.make(k, 0).params(dev)
+        total_nnz = int(nnz.clamp(0, idx.shape[1]).sum())
+        out[where] = {}
+        for bits in (8, 3, 6, 12, 16):
+            got = fe.minhash_pack(idx, nnz, a, b, bits=bits)
+            want = fe.minhash_pack_plain(idx, nnz, a, b, bits=bits)
+            if int_err(torch, got, want):
+                fail(f"minhash_pack b={bits} at {where} differs from its "
+                     "plain version")
+            ms = time_ms(torch, lambda: fe.minhash_pack(idx, nnz, a, b,
+                                                        bits=bits), 50)
+            plain = time_ms(torch, lambda: fe.minhash_pack_plain(
+                idx, nnz, a, b, bits=bits), 2, warmup=1)
+            n = idx.shape[0]
+            bnd = bound(4 * total_nnz + 4 * n + 8 * k
+                        + n * packed_width(k, bits),
+                        OPS_PER_MINHASH * k * total_nnz, int_rate)
+            out[where][bits] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                                    bound_by=bnd[1], library_ms=None)
+            print(f"linear: minhash_pack b={bits} {where} "
+                  f"nnz_sum={total_nnz}: bytes equal, ms={ms} "
+                  f"plain_ms={plain} bound_ms={bnd[0]} ({bnd[1]}) "
+                  f"card={card}")
+    return out
+
+
+def phase_linear(torch, dev, card: str, data: dict, int_rate: float) -> dict:
+    """launch/train.py --mode linear in process at configs/rcv1_bbit.py's
+    k=500, b=16 on the train phase's corpus; build/chip_smoke_linear is
+    removed after."""
+    work = os.path.join(ROOT, "build", "chip_smoke_linear")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        return linear_in(torch, dev, card, data, work, int_rate)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def linear_args(work: str, **over):
+    kw = dict(workdir=work, n_docs=TRAIN_DOCS, k=PAPER_K, b=PAPER_B,
+              steps=LINEAR_STEPS, batch_size=LINEAR_BATCH, lr=1e-2,
+              seed=LINEAR_SEED, ckpt_every=LINEAR_CKPT_EVERY, fail_at=None,
+              device="cuda")
+    kw.update(over)
+    return argparse.Namespace(**kw)
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output kept → (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def linear_in(torch, dev, card: str, data: dict, work: str,
+              int_rate: float) -> dict:
+    from repro_torch.configs.rcv1_bbit import CONFIG as PAPER
+    from repro_torch.data.hashed_dataset import preprocess_and_save
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fsck
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.metrics import trees_bitwise_equal
+
+    if (PAPER.k, PAPER.b) != (PAPER_K, PAPER_B):
+        fail("configs/rcv1_bbit.py is not at k=500, b=16")
+    rows, labels = data["rows"], data["labels"]
+    main_dir = os.path.join(work, "main")
+    hashed = os.path.join(main_dir, "hashed")
+
+    # the main path: the archive run_linear writes (B1 at b=16), then its
+    # AdamW steps (B7 forward and B8 dW every step)
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    stats = preprocess_and_save(hashed, rows, labels, k=PAPER_K, b=PAPER_B,
+                                seed=LINEAR_SEED, n_shards=4, device=dev)
+    t_hash = time.perf_counter() - t0
+    enc_counts = ops.counts()
+    t0 = time.perf_counter()
+    res, text = quiet(launch_train.run_linear, linear_args(main_dir))
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    counts = ops.counts()
+    print(f"linear: {text.strip()}")
+    want = {"minhash_pack": -(-TRAIN_DOCS // PREPROCESS_CHUNK),
+            "bbit_linear_fwd": LINEAR_STEPS + 1,
+            "bbit_linear_bwd_dw": LINEAR_STEPS}
+    print(f"linear: k={PAPER_K} b={PAPER_B} {TRAIN_DOCS} docs hashed in "
+          f"{t_hash:.3f} s ({stats['mnnz_per_s']:.1f} M nnz/s), "
+          f"{LINEAR_STEPS} steps of {LINEAR_BATCH} in {t_fit:.3f} s "
+          f"(load, steps, checkpoints, test forward) test_acc="
+          f"{res['test_acc']:.4f} final_loss={res['final_loss']:.4f} "
+          f"counts={json.dumps({n: counts[n] for n in want})} card={card}")
+    if enc_counts["minhash_pack"] != want["minhash_pack"]:
+        fail(f"the archive took {enc_counts['minhash_pack']} B1 launches, "
+             f"not {want['minhash_pack']}")
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"linear phase: {name} launched {counts[name]} times, "
+                 f"not {n}")
+    plain = {n: v for n, v in counts.items() if n.endswith("_plain") and v}
+    if plain:
+        fail(f"linear phase ran plain versions on the card: {plain}")
+    if not res["test_acc"] > 0.9:
+        fail(f"linear phase test accuracy {res['test_acc']} <= 0.9")
+
+    # the archive: launch/fsck.py passes it; its bytes equal the CPU's on
+    # the first documents (the CPU's plain B1 takes seconds a thousand
+    # documents at k=500)
+    report, text = quiet(fsck.fsck_archive, hashed)
+    if report["verified"] != 4 or report["corrupt"]:
+        fail(f"fsck of the linear archive: {report}")
+    n_cmp = LINEAR_CPU_DOCS
+    for name in ("card", "cpu"):
+        preprocess_and_save(os.path.join(work, f"cmp_{name}"), rows[:n_cmp],
+                            labels[:n_cmp], k=PAPER_K, b=PAPER_B,
+                            seed=LINEAR_SEED, n_shards=4,
+                            device=dev if name == "card" else "cpu")
+    for f in sorted(os.listdir(os.path.join(work, "cmp_cpu"))):
+        if f.endswith(".npy") and (
+                open(os.path.join(work, "cmp_card", f), "rb").read()
+                != open(os.path.join(work, "cmp_cpu", f), "rb").read()):
+            fail(f"linear archive file {f} differs between card and CPU")
+    print(f"linear: fsck {report['verified']}/4 shards verified; the "
+          f"first {n_cmp} documents' archive byte-equal card vs CPU")
+
+    # --fail-at: a crash after a checkpoint, a rerun that resumes from it
+    # and ends on the uninterrupted run's bits
+    crash_dir = os.path.join(work, "crash")
+    shutil.copytree(hashed, os.path.join(crash_dir, "hashed"))
+    try:
+        quiet(launch_train.run_linear,
+              linear_args(crash_dir, fail_at=LINEAR_FAIL_AT))
+        fail("--fail-at did not fail")
+    except RuntimeError as e:
+        if f"injected failure at step {LINEAR_FAIL_AT}" not in str(e):
+            raise
+    again, text = quiet(launch_train.run_linear, linear_args(crash_dir))
+    resumed = (LINEAR_FAIL_AT // LINEAR_CKPT_EVERY) * LINEAR_CKPT_EVERY
+    if f"resumed from step {resumed}" not in text:
+        fail(f"the rerun did not resume from step {resumed}: {text}")
+    same = (trees_bitwise_equal(again["params"], res["params"])
+            and again["losses"] == res["losses"][resumed:])
+    print(f"linear: crash at step {LINEAR_FAIL_AT}, resumed from step "
+          f"{resumed}: params and losses bitwise equal={same}")
+    if not same:
+        fail("the resumed linear run differs from the uninterrupted one")
+
+    # the same first steps on the CPU: AdamW params allclose (the
+    # streaming tests' 1e-4 / 1e-5), losses too
+    short = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        d = os.path.join(work, f"short_{name}")
+        shutil.copytree(hashed, os.path.join(d, "hashed"))
+        t0 = time.perf_counter()
+        short[name], _ = quiet(launch_train.run_linear, linear_args(
+            d, steps=LINEAR_CPU_STEPS, device=device))
+        short[name]["seconds"] = time.perf_counter() - t0
+    worst = 0.0
+    for pname in ("table", "bias"):
+        got = short["card"]["params"][pname].cpu()
+        want_p = short["cpu"]["params"][pname]
+        worst = max(worst, float((got - want_p).abs().max()))
+        if not torch.allclose(got, want_p, **STREAM_CPU_TOL):
+            fail(f"linear {pname} after {LINEAR_CPU_STEPS} steps: card vs "
+                 f"CPU max_abs_err={float((got - want_p).abs().max())}")
+    if not np.allclose(short["card"]["losses"], short["cpu"]["losses"],
+                       **STREAM_CPU_TOL):
+        fail("linear losses differ between card and CPU")
+    if short["card"]["losses"] != res["losses"][:LINEAR_CPU_STEPS]:
+        fail("the short card run's losses differ from the main run's")
+    print(f"linear: {LINEAR_CPU_STEPS} steps card vs CPU: params allclose "
+          f"{STREAM_CPU_TOL} (max_abs_err={worst}), losses allclose; "
+          f"seconds card={short['card']['seconds']:.3f} "
+          f"cpu={short['cpu']['seconds']:.3f}")
+
+    every_b = b1_every_b(torch, dev, rows, card, int_rate)
+    return {"counts": counts, "encode_counts": enc_counts,
+            "test_acc": res["test_acc"], "final_loss": res["final_loss"],
+            "seconds_hashing": t_hash, "seconds_fit": t_fit,
+            "cpu_max_abs_err": worst, "b1_every_b": every_b}
+
+
+def phase_calibrate(torch, dev, card: str, data: dict) -> dict:
+    """launch/calibrate.py under a small budget, the profile loaded and an
+    engine built from it against the static grid's; the profile file
+    lives under build/ and is removed after."""
+    from repro_torch import perf
+    from repro_torch.configs.rcv1_oph import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.launch import calibrate as launch_cal
+    from repro_torch.models.linear import init_bbit_linear
+    from repro_torch.serving import HashedClassifierEngine
+
+    work = os.path.join(ROOT, "build", "chip_smoke_calibrate")
+    shutil.rmtree(work, ignore_errors=True)
+    path = os.path.join(work, "profile.json")
+    perf.reset()
+    try:
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        rc, text = quiet(launch_cal.main, [
+            "--out", path, "--budget-s", str(CALIBRATE_BUDGET_S),
+            "--device", "cuda"])
+        t_cal = time.perf_counter() - t0
+        cal_counts = ops.counts()
+        table = perf.CostTable.load(path)
+        fp = table.fingerprint
+        if rc != 0 or (fp.get("device_kind"), fp.get("device_count"),
+                       fp.get("torch")) != (torch.cuda.get_device_name(0),
+                                            torch.cuda.device_count(),
+                                            torch.__version__):
+            fail(f"calibration: rc={rc} fingerprint {fp}")
+        per_op = {}
+        for key in table.entries:
+            op, impl, _ = key.split("|", 2)
+            per_op.setdefault(op, set()).add(impl)
+        print(f"calibrate: {len(table.entries)} entries in {t_cal:.2f} s "
+              f"(budget {CALIBRATE_BUDGET_S} s) fingerprint "
+              f"{perf.fingerprint_key(fp)!r} arms "
+              f"{json.dumps({o: sorted(i) for o, i in per_op.items()})}")
+        if any(impl == "plain" for impls in per_op.values()
+               for impl in impls):
+            fail("calibration timed a plain version on the card")
+        if not perf.maybe_load_profile(path):
+            fail("the card's own profile did not load")
+
+        cfg = CONFIG.linear_config()
+        params = init_bbit_linear(cfg, torch.Generator().manual_seed(7),
+                                  device=dev)
+        docs = data["rows"][TRAIN_ROWS:TRAIN_ROWS + CALIBRATE_DOCS]
+        lanes = tuple(CONFIG.calibrate_nnz_buckets)
+        kw = dict(scheme=CONFIG.scheme, device=dev,
+                  max_batch=CONFIG.calibrate_max_batch, nnz_buckets=lanes,
+                  seed=HASH_SEED)
+        ops.reset_counts()
+        hits0 = perf.dispatch_report()["hits"]
+        with HashedClassifierEngine(params, cfg, row_buckets=None,
+                                    **kw) as eng:
+            suggested = eng.score_docs(docs)
+            futs = eng.submit_many(docs)
+            eng.flush()
+            served = np.asarray([f.result(timeout=SERVE_WAIT_S)
+                                 for f in futs], np.float32)
+            st = eng.stats()
+            rate_profile = serve_rate(eng, docs)
+        counts = ops.counts()
+        static_grid = tuple(1 << i for i in range(
+            CONFIG.calibrate_max_batch.bit_length()))
+        with HashedClassifierEngine(params, cfg, row_buckets=static_grid,
+                                    **kw) as eng:
+            static = eng.score_docs(docs)
+            rate_static = serve_rate(eng, docs)
+        bitwise = bool(np.array_equal(suggested, static))
+        err = float(np.abs(suggested - static).max())
+        print(f"calibrate: engine from the profile: lane_row_buckets="
+              f"{json.dumps(st['lane_row_buckets'])} lane_caps="
+              f"{json.dumps(st['lane_caps'])} (static grid "
+              f"{list(static_grid)}); scores vs the static grid's "
+              f"bitwise={bitwise} max_abs_err={err}; dispatch hits="
+              f"{st['dispatch']['hits'] - hits0} fallbacks="
+              f"{st['dispatch']['fallbacks']} table="
+              f"{st['dispatch']['table_version']}")
+        print(f"calibrate: serve pass over {len(docs)} held-out docs "
+              f"(an observation, held to no limit): profile grid "
+              f"{rate_profile['median']:.1f} docs/s (p10 "
+              f"{rate_profile['p10']:.1f}, p90 {rate_profile['p90']:.1f}), "
+              f"static grid {rate_static['median']:.1f} docs/s (p10 "
+              f"{rate_static['p10']:.1f}, p90 {rate_static['p90']:.1f}) "
+              f"card={card}")
+        if not np.array_equal(served, suggested):
+            fail("the profile engine's submit_many differs from score_docs")
+        if not (bitwise or np.allclose(suggested, static, rtol=1e-6,
+                                       atol=1e-6)):
+            fail(f"profile engine scores differ from the static grid's by "
+                 f"{err}")
+        if not st["dispatch"]["profile_loaded"] or \
+                st["dispatch"]["hits"] - hits0 <= 0:
+            fail(f"the engine read no profile hits: {st['dispatch']}")
+        plain = {n: v for c in (counts, cal_counts) for n, v in c.items()
+                 if n.endswith("_plain") and v}
+        if plain:
+            fail(f"calibrate phase ran plain versions on the card: {plain}")
+        if counts["oph_pack"] < 1 or counts["bbit_linear_packed_fwd"] < 1:
+            fail(f"the profile engine launched no B2/B5: {counts}")
+        return {"counts": counts, "calibrate_counts": cal_counts,
+                "entries": len(table.entries), "seconds": t_cal,
+                "lane_row_buckets": st["lane_row_buckets"],
+                "lane_caps": st["lane_caps"], "bitwise": bitwise,
+                "max_abs_err": err, "hits": st["dispatch"]["hits"] - hits0,
+                "rate_profile": rate_profile, "rate_static": rate_static}
+    finally:
+        perf.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2763,6 +3126,9 @@ def main() -> int:
     serve = run("serve", phase_serve, torch, dev, card, train_data, handover)
     paper, paper_data = run("paper", phase_paper, torch, dev, card,
                             train_data, errs)
+    linear = run("linear", phase_linear, torch, dev, card, train_data,
+                 int_rate)
+    calib = run("calibrate", phase_calibrate, torch, dev, card, train_data)
     search = run("search", phase_search, torch, dev, card,
                  train_data["rows"], errs)
     timing = run("timing", phase_timing, torch, dev, docs, card, int_rate)
@@ -2773,7 +3139,8 @@ def main() -> int:
     print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
-    # (engine, train, gradient, stream, serve, paper, search), its error
+    # (engine, train, gradient, stream, serve, paper, linear, calibrate,
+    # search), its error
     # and time at its main path's shapes
     launches = {name: engine["launches"].get(name, 0)
                 + train["counts"][name]
@@ -2782,6 +3149,8 @@ def main() -> int:
                 + search["counts"].get(name, 0)
                 + stream["counts"][name]
                 + serve["counts"][name]
+                + linear["counts"][name]
+                + calib["counts"][name]
                 for name in KERNELS}
     main_rec = {**timing["main"], **timing_train["main"],
                 **timing_raw["main"]}
@@ -2802,6 +3171,7 @@ def main() -> int:
                        "timing_train": timing_train["shapes"],
                        "timing_raw": timing_raw["shapes"], "train": train,
                        "paper": paper, "stream": stream, "serve": serve,
+                       "linear": linear, "calibrate": calib,
                        "search": {k: search[k] for k in ("counts", "recall",
                                                          "candidates")},
                        "docs_per_s": engine["docs_per_s"],

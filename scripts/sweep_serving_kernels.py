@@ -28,9 +28,9 @@ own choices are marked.  The launch floor is timed first:
 launched through the port's ctypes path at the grid, block and shared
 memory of each design (``csrc/launch_floor.cu``).
 
-``--wrappers`` times only the public wrappers (B1, also at 1,024 rows;
-B2 with and without densify; B5 with and without the empty mask) at the
-four shapes, and
+``--wrappers`` times only the public wrappers (B1, also at 1,024 rows,
+at each b of ``--b1-bits``, default 8; B2 with and without densify; B5
+with and without the empty mask) at the four shapes, and
 the floors, using the package under ``--root`` (a checkout; this one by
 default), so that two trees can be timed in turns on one card.  Without
 a CUDA device it exits non-zero.
@@ -94,6 +94,9 @@ def main() -> int:
                     help="time only the public wrappers and the floors")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose src/repro_torch to time")
+    ap.add_argument("--b1-bits", type=int, action="append", default=None,
+                    help="with --wrappers: the b at which B1's wrapper is "
+                         "timed (repeatable; default 8)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs      # puts this checkout's src on the path
@@ -181,18 +184,21 @@ def main() -> int:
     b1_shapes[(B1_STEADY_ROWS, max(cs.NNZ_BUCKETS))] = (
         idx.repeat(reps, 1)[:B1_STEADY_ROWS].contiguous(),
         nnz.repeat(reps)[:B1_STEADY_ROWS].contiguous())
+    b1_bits = (args.b1_bits or [bits]) if args.wrappers else [bits]
     for (n, lane), (idx, nnz) in b1_shapes.items():
         shape = f"rows={n} lane={lane} nnz_sum={int(nnz.sum())}"
         iters = ITERS if n <= max(ROW_BUCKETS) else 20
-        if n <= max(ROW_BUCKETS):
-            want = fe.minhash_pack_plain(idx, nnz, ma, mb, bits=bits)
-        else:   # the 64 rows' codes, tiled as the rows are
-            want = want.repeat(reps, 1)[:n].contiguous()
-        fn = lambda: fe.minhash_pack(idx, nnz, ma, mb, bits=bits)
-        note("minhash_pack", shape, "wrapper", timed(fn, iters),
-             torch.equal(fn(), want), True)
+        for b1 in b1_bits:
+            # at the 1,024 rows: the 64 rows' codes, tiled as the rows are
+            want = fe.minhash_pack_plain(idx[:64], nnz[:64], ma, mb,
+                                         bits=b1).repeat(reps, 1)[:n]
+            fn = lambda: fe.minhash_pack(idx, nnz, ma, mb, bits=b1)
+            note("minhash_pack", shape if b1 == bits else f"{shape} b={b1}",
+                 "wrapper", timed(fn, iters), torch.equal(fn(), want), True)
         if args.wrappers:
             continue
+        want = fe.minhash_pack_plain(idx[:64], nnz[:64], ma, mb,
+                                     bits=bits).repeat(reps, 1)[:n]
         chosen = fe.minhash_pack_layout(n, k, bits, _build.sm_count(0))
         vec0 = fe.oph_pack_vec(lane, idx.data_ptr())
         designs = [(lpt, lanes // lpt, w, vec0) for lpt in B1_LANES_A_THREAD

@@ -10,9 +10,12 @@ accuracy plateau at a quarter of the storage of k=500, b=16.
 
 The reference's distributed fields (``global_batch``,
 ``stream_data_parallel``, ``stream_procs``, ``ft_elastic``,
-``stream_grad_compress``, ``ft_barrier_timeout_s``) wait for ROADMAP A5;
-its cost-model fields (``profile_path``, ``calibrate_*`` and
-``calibrate_kwargs``) wait for A4.  Its ``serve_inflight_limit`` and
+``stream_grad_compress``, ``ft_barrier_timeout_s``) wait for ROADMAP A5.
+The cost-model fields (``profile_path``, ``calibrate_*``,
+``calibrate_kwargs``) are the reference's, but the port's profile has a
+file of its own (a profile of the JAX package is rejected by its
+fingerprint, and the two must not overwrite each other).  Its
+``serve_inflight_limit`` and
 ``retrieval_*`` fields are read by no code in either package and are
 not copied.
 """
@@ -78,6 +81,15 @@ class OPHPaperConfig:
     dedup_entries: int = 65536
     dedup_rows_per_band: int = 4
     dedup_probe_bands: int = 4
+    # cost-model dispatch: the measured profile read by launch/train.py and
+    # launch/serve.py (--profile; launch/calibrate.py writes it; a missing
+    # or wrong-device file leaves the static rules), and the calibration
+    # pass's own knobs
+    profile_path: str = "artifacts/perf/profile_torch.json"
+    calibrate_budget_s: float = 60.0
+    calibrate_trials: int = 3
+    calibrate_max_batch: int = 64
+    calibrate_nnz_buckets: tuple = (128, 512, 2048)
 
     def linear_config(self) -> BBitLinearConfig:
         return BBitLinearConfig(k=self.k, b=self.b,
@@ -124,6 +136,18 @@ class OPHPaperConfig:
                   dedup_entries=self.dedup_entries,
                   dedup_rows_per_band=self.dedup_rows_per_band,
                   dedup_probe_bands=self.dedup_probe_bands)
+        kw.update(overrides)
+        return kw
+
+    def calibrate_kwargs(self, **overrides) -> dict:
+        """Keyword arguments for ``perf.calibrate`` at this config's
+        scale, the one-shot microbenchmark pass behind
+        ``launch/calibrate.py``."""
+        kw = dict(k=self.k, b_values=(self.b,), schemes=(self.scheme,),
+                  max_batch=self.calibrate_max_batch,
+                  nnz_buckets=self.calibrate_nnz_buckets,
+                  trials=self.calibrate_trials,
+                  budget_s=self.calibrate_budget_s, seed=self.seed)
         kw.update(overrides)
         return kw
 

@@ -3,6 +3,8 @@
   * ``minhash_torch`` — the multiply-shift family in torch, chunked over
     k (the twin of the reference's ``minhash_jnp``; kernel B3's plain
     version);
+  * ``minhash_batch`` — ``minhash_torch`` over a ``core.types.SparseBatch``
+    with a ``MultiplyShiftHash`` family;
   * ``minhash_numpy`` — the exact families (mod 2^61 − 1, explicit
     permutations), the offline path of ``preprocess_rows``.
 
@@ -17,7 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.universal_hash import (MASK32, ModPrimeHash,
-                                             PermutationHash, fmix32, mul32)
+                                             PermutationHash, fmix32,
+                                             int32_to_words, mul32)
 
 # hash lanes per pass: bounds the (n, m, chunk) int64 intermediate
 K_CHUNK = 32
@@ -39,6 +42,14 @@ def minhash_torch(indices: torch.Tensor, mask: torch.Tensor,
         h = fmix32((mul32(t, aj) + bj) & MASK32)
         out.append(torch.where(keep, h, MASK32).amin(dim=1))
     return torch.cat(out, dim=1)
+
+
+def minhash_batch(batch, family) -> torch.Tensor:
+    """int64 words (n, k): ``minhash_torch`` of a ``SparseBatch`` under a
+    ``MultiplyShiftHash`` family, on the batch's device."""
+    a, b = family.params(batch.indices.device)
+    return minhash_torch(batch.indices, batch.mask, int32_to_words(a),
+                         int32_to_words(b))
 
 
 def minhash_numpy(

@@ -19,8 +19,12 @@ codes of ``preprocess_rows``, empty bins of ``oph_zero`` marked
 ``OPH_EMPTY_CODE``.  ``encode_packed`` is the counterpart of the
 reference's ``encode_packed_jit``: the fused kernels (B1, B2).  There
 ``empty`` is the packbits empty-bin mask for ``oph_zero``, ``None``
-otherwise.  ``encode_packed_numpy`` is the reference's host encode,
-copied; it gives the same bytes.
+otherwise.  Both device encodes pick their arm through the cost model
+(``perf.choose``, ops ``encode`` and ``encode_packed``, at the shape
+``{scheme, k, b, rows, nnz}``); ``use_kernel=False`` pins the plain arm,
+which a CUDA tensor refuses where the kernel applies.
+``encode_packed_numpy`` is the reference's host encode, copied; it gives
+the same bytes.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.core.oph import (OPH_EMPTY_CODE, OPHHash, densify_rotation,
                                   oph_bin_minima_torch, split_zero_codes)
 from repro_torch.core.universal_hash import (MASK32, MultiplyShiftHash,
                                              _fmix32_numpy, int32_to_words)
+from repro_torch import perf
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
@@ -78,6 +83,25 @@ class HashingScheme:
             self._params[device] = got
         return got
 
+    # -- dispatch (routed through the cost model) ---------------------------
+
+    def _encode_shape(self, indices: torch.Tensor, b: int) -> dict:
+        return {"scheme": self.name, "k": self.k, "b": int(b),
+                "rows": int(indices.shape[0]),
+                "nnz": int(indices.shape[1])}
+
+    def _dispatch(self, op: str, indices: torch.Tensor, b: int,
+                  use_kernel: bool) -> Tuple[dict, Optional[str]]:
+        """(the op's shape, the explicit arm): ``use_kernel=False`` pins
+        the plain arm, refused on a card where the kernel applies; True
+        leaves the choice to ``perf.choose``."""
+        shape = self._encode_shape(indices, b)
+        if use_kernel:
+            return shape, None
+        perf.refuse_plain_on_card(op, shape, indices.device,
+                                  f"{self.name} encode(use_kernel=False)")
+        return shape, "plain"
+
     def encode_torch(
         self, indices: torch.Tensor, mask: torch.Tensor, b: int,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -86,7 +110,8 @@ class HashingScheme:
         raise NotImplementedError
 
     def encode_device(
-        self, indices: torch.Tensor, nnz: torch.Tensor, b: int,
+        self, indices: torch.Tensor, nnz: torch.Tensor, b: int, *,
+        use_kernel: bool = True,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """int32 (n, m) padded rows + int32 (n,) nnz → (codes int32
         (n, k), bool empty mask or None) through the raw-minima encode
@@ -108,7 +133,8 @@ class HashingScheme:
         return out
 
     def encode_packed(
-        self, indices: torch.Tensor, nnz: torch.Tensor, b: int,
+        self, indices: torch.Tensor, nnz: torch.Tensor, b: int, *,
+        use_kernel: bool = True,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """int32 (n, m) padded rows + int32 (n,) nnz → (packed uint8
         (n, ceil(k·b/8)), packbits empty mask or None), on their device."""
@@ -135,13 +161,18 @@ class MinwiseScheme(HashingScheme):
                           int32_to_words(bv))
         return (z & ((1 << b) - 1)).to(torch.int32), None
 
-    def encode_device(self, indices, nnz, b):
+    def encode_device(self, indices, nnz, b, *, use_kernel=True):
+        shape, impl = self._dispatch("encode", indices, b, use_kernel)
         a, bv = self.hash_params(indices.device)
-        return ops.minhash_bbit(indices, nnz, a, bv, b), None
+        z = ops.minhash(indices, nnz, a, bv, shape=shape, impl=impl)
+        return z & ((1 << b) - 1), None
 
-    def encode_packed(self, indices, nnz, b):
+    def encode_packed(self, indices, nnz, b, *, use_kernel=True):
+        shape, impl = self._dispatch("encode_packed", indices, b,
+                                     use_kernel)
         a, bv = self.hash_params(indices.device)
-        return ops.minhash_packed(indices, nnz, a, bv, b), None
+        return ops.minhash_packed(indices, nnz, a, bv, b, shape=shape,
+                                  impl=impl), None
 
     # k-chunking bounds the (n, m, chunk) intermediate
     _NUMPY_K_CHUNK = 64
@@ -195,16 +226,21 @@ class OPHScheme(HashingScheme):
                                            int32_to_words(bv), self.k)
         return self._finish(vals, empty, b)
 
-    def encode_device(self, indices, nnz, b):
+    def encode_device(self, indices, nnz, b, *, use_kernel=True):
+        shape, impl = self._dispatch("encode", indices, b, use_kernel)
         a, bv = self.hash_params(indices.device)
-        vals = int32_to_words(ops.oph(indices, nnz, a, bv, self.k))
+        vals = int32_to_words(ops.oph(indices, nnz, a, bv, self.k,
+                                      shape=shape, impl=impl))
         return self._finish(vals, vals == MASK32, b)
 
-    def encode_packed(self, indices, nnz, b):
+    def encode_packed(self, indices, nnz, b, *, use_kernel=True):
         self._check_b(b)
+        shape, impl = self._dispatch("encode_packed", indices, b,
+                                     use_kernel)
         a, bv = self.hash_params(indices.device)
         packed, empty = ops.oph_packed(indices, nnz, a, bv, self.k, b,
-                                       densify=self.densify)
+                                       densify=self.densify, shape=shape,
+                                       impl=impl)
         return packed, (None if self.densify else empty)
 
     def encode_packed_numpy(self, indices, nnz, b):

@@ -46,6 +46,12 @@ def vw_hash_sparse(indices: torch.Tensor, mask: torch.Tensor,
     return scatter_rows(bucket, contrib, m)
 
 
+def vw_hash_batch(batch, m: int, s: int = 1, seed: int = 0) -> torch.Tensor:
+    """``vw_hash_sparse`` of a ``core.types.SparseBatch``."""
+    return vw_hash_sparse(batch.indices, batch.mask, batch.values, m=m, s=s,
+                          seed=seed)
+
+
 def vw_inner_product(g1: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     """â_vw = Σ_j g1_j · g2_j (paper Eq. 15), not averaged over k."""
     return torch.sum(g1 * g2, dim=-1)

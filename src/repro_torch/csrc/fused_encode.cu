@@ -2,15 +2,17 @@
 //
 // B1 minhash_pack replaces src/repro/kernels/fused_encode.py::minhash_pack_pallas.
 //   Per row: the min over the first nnz ids of fmix32(a_j*t + b_j) for each
-//   of k hash lanes, masked to b bits and packed 8/b codes per byte,
-//   LSB-first.  Bound: 32-bit integer work, about 10 operations per
-//   (nonzero, lane) pair -- n*nnz*k hashes; the ids are read once from
-//   device memory.  What holds the loop back is the integer ALU pipe, at
-//   half the issue rate: a hash is 3 multiplies (IMAD, on the FMA pipe)
-//   and 3 shifts, 3 xors and its share of a min on the ALU pipe, so the
-//   loop cannot pass about 2/3 of the issue-rate bound (taking shifts to
-//   the FMA pipe as umulhi was slower on the H100).  Design: a thread owns
-//   L consecutive hash lanes (1-8) and loads its ids 4 at a time (one
+//   of k hash lanes, masked to b bits and packed LSB-first into the row's
+//   bit stream, at any b from 1 to 16 (a code may straddle bytes, as
+//   core/bbit.py::pack_codes writes it).  Bound: 32-bit integer work,
+//   about 10 operations per (nonzero, lane) pair -- n*nnz*k hashes; the
+//   ids are read once from device memory.  What holds the loop back is
+//   the integer ALU pipe, at half the issue rate: a hash is 3 multiplies
+//   (IMAD, on the FMA pipe) and 3 shifts, 3 xors and its share of a min on
+//   the ALU pipe, so the loop cannot pass about 2/3 of the issue-rate
+//   bound (taking shifts to the FMA pipe as umulhi was slower on the
+//   H100).  Design: a thread owns L consecutive hash lanes (1-8) and
+//   loads its ids 4 at a time (one
 //   16-byte load where the rows start 16-byte aligned, kVec), every load
 //   of a pass in flight before any hash; each id feeds L independent hash
 //   chains, and two hashes share one three-input min (VIMNMX3).  A block
@@ -60,7 +62,10 @@ constexpr int kMinMaxWarps = 16;  // B1: warps a block, at most
 // threads of a warp that share lanes and the warps take different 4-id
 // groups of the row (id slice s = lane / lt, then the warp: groups s, s +
 // slices, ...).  Dynamic shared memory: (warps + 1) x L lt minima.
-template <int L, bool kVec>
+// kStraddle: b does not divide 8, so codes may straddle bytes (a separate
+// instantiation keeps the b in {1, 2, 4, 8} code as it was: the general
+// packing loop cost those b 11 % at 64 rows x 8,192 ids on the H100).
+template <int L, bool kVec, bool kStraddle>
 __global__ void __launch_bounds__(kMinMaxWarps * 32)
 minhash_pack_kernel(const int32_t* __restrict__ idx,
                     const int32_t* __restrict__ nnz,
@@ -156,31 +161,47 @@ minhash_pack_kernel(const int32_t* __restrict__ idx,
     fin[i] = v;
   }
   __syncthreads();
-  // the block's lanes are lanes * bits / 8 whole bytes of the row; a byte
-  // a thread, LSB-first; lanes >= k pack as code 0
-  const int per = 8 / bits;
+  // the block's lanes are lanes * bits / 8 whole bytes of the row (at any
+  // b: lanes is a multiple of 8 / gcd(b, 8)); a byte a thread, LSB-first;
+  // lanes >= k pack as code 0
   const uint32_t mask = (1u << bits) - 1u;
   const int bytes = lanes * bits / 8;
   for (int q = threadIdx.x; q < bytes; q += blockDim.x) {
     const int col = blockIdx.y * bytes + q;
     if (col >= out_w) break;
     uint32_t byte = 0;
-    for (int i = 0; i < per; ++i) {
-      const int l = q * per + i;
-      if (blockIdx.y * lanes + l < k) byte |= (fin[l] & mask) << (i * bits);
+    if (kStraddle) {
+      // code l takes bits [l b, l b + b) of the block's bit stream, so
+      // byte q holds codes 8q / b .. (8q + 7) / b, a code that straddles
+      // split between its two (or, at b > 8, three) bytes
+      const int lo = 8 * q;
+      for (int l = lo / bits; l * bits < lo + 8; ++l) {
+        if (blockIdx.y * lanes + l >= k) break;
+        const uint32_t code = fin[l] & mask;
+        const int shift = l * bits - lo;
+        byte |= shift >= 0 ? code << shift : code >> -shift;
+      }
+      byte &= 0xFFu;
+    } else {
+      const int per = 8 / bits;  // whole codes a byte
+      for (int i = 0; i < per; ++i) {
+        const int l = q * per + i;
+        if (blockIdx.y * lanes + l < k) byte |= (fin[l] & mask) << (i * bits);
+      }
     }
     out[static_cast<size_t>(row) * out_w + col] = static_cast<uint8_t>(byte);
   }
 }
 
-// B1's kernel for the hash lanes a thread and the load width.
-template <bool kVec>
+// B1's kernel for the hash lanes a thread, the load width and whether
+// codes straddle bytes.
+template <bool kVec, bool kStraddle>
 auto minhash_pack_for(int lanes_per_thread) {
   switch (lanes_per_thread) {
-    case 1: return minhash_pack_kernel<1, kVec>;
-    case 2: return minhash_pack_kernel<2, kVec>;
-    case 4: return minhash_pack_kernel<4, kVec>;
-    default: return minhash_pack_kernel<8, kVec>;
+    case 1: return minhash_pack_kernel<1, kVec, kStraddle>;
+    case 2: return minhash_pack_kernel<2, kVec, kStraddle>;
+    case 4: return minhash_pack_kernel<4, kVec, kStraddle>;
+    default: return minhash_pack_kernel<8, kVec, kStraddle>;
   }
 }
 
@@ -344,9 +365,10 @@ auto oph_pack_for(int bits) {
 }  // namespace
 }  // namespace repro_torch
 
-// Launches B1: `lpt` hash lanes a thread (1, 2, 4 or 8), lt threads'
-// lanes a block (a power of two in [1, 32]; lpt * lt * bits a multiple of
-// 8, whole bytes), `warps` warps; vec: m % 4 == 0 and idx 16-byte aligned.
+// Launches B1 at any b in [1, 16]: `lpt` hash lanes a thread (1, 2, 4 or
+// 8), lt threads' lanes a block (a power of two in [1, 32]; lpt * lt * bits
+// a multiple of 8, whole bytes), `warps` warps; vec: m % 4 == 0 and idx
+// 16-byte aligned.
 extern "C" int repro_minhash_pack(const void* idx, const void* nnz,
                                   const void* a, const void* b, void* out,
                                   int n, int m, int k, int bits, int out_w,
@@ -359,14 +381,17 @@ extern "C" int repro_minhash_pack(const void* idx, const void* nnz,
   if ((lpt != 1 && lpt != 2 && lpt != 4 && lpt != 8) || lt < 1 || lt > 32 ||
       (lt & (lt - 1)) != 0 || warps < 1 ||
       warps > repro_torch::kMinMaxWarps || (vec && m % 4 != 0) ||
-      (bits != 1 && bits != 2 && bits != 4 && bits != 8) ||
-      lanes * bits % 8 != 0) {
+      bits < 1 || bits > 16 || lanes * bits % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(n, (k + lanes - 1) / lanes);
   const size_t smem = sizeof(uint32_t) * lanes * (warps + 1);
-  auto kernel = vec ? repro_torch::minhash_pack_for<true>(lpt)
-                    : repro_torch::minhash_pack_for<false>(lpt);
+  const bool straddle = 8 % bits != 0;
+  auto kernel =
+      vec ? (straddle ? repro_torch::minhash_pack_for<true, true>(lpt)
+                      : repro_torch::minhash_pack_for<true, false>(lpt))
+          : (straddle ? repro_torch::minhash_pack_for<false, true>(lpt)
+                      : repro_torch::minhash_pack_for<false, false>(lpt));
   kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(nnz),
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),

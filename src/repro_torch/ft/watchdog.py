@@ -1,4 +1,5 @@
-"""Straggler accounting (``StepWatchdog`` of ``repro/ft/watchdog.py``).
+"""Straggler and failure accounting (counterpart of
+``repro/ft/watchdog.py``).
 
 On a real multi-pod deployment the per-host agent exports step latencies
 and the controller reschedules persistent stragglers.  This module is
@@ -10,6 +11,9 @@ that controller's logic, host-local and fully testable:
     reschedule request; in the data path, a ``backup_of`` hedge on the
     slow host's shard).  The serving batcher uses it for per-batch
     latency.
+  * ``FailureInjector`` provides deterministic fault injection for the
+    restart tests (fail at step N exactly once); ``launch/train.py
+    --mode linear --fail-at`` uses it.
 """
 from __future__ import annotations
 
@@ -60,3 +64,17 @@ class StepWatchdog:
             self.consecutive_slow = 0
         return slow
 
+
+
+class FailureInjector:
+    """Raises ``RuntimeError`` exactly once when step == fail_at."""
+
+    def __init__(self, fail_at: Optional[int] = None):
+        self.fail_at = fail_at
+        self.fired = False
+
+    def maybe_fail(self, step: int) -> None:
+        if self.fail_at is not None and not self.fired \
+                and step == self.fail_at:
+            self.fired = True
+            raise RuntimeError(f"injected failure at step {step}")

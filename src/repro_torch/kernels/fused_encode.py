@@ -5,14 +5,16 @@ versions (counterpart of ``repro/kernels/fused_encode.py``).
 ``csrc/fused_encode.cu`` on CUDA tensors and take the plain torch
 version on CPU tensors; any other device raises.  Output layouts are
 the reference's: codes LSB-first, ceil(k·b/8) bytes per row; the empty
-mask MSB-first (``np.packbits``), ceil(k/8) bytes per row.  b must be
-in {1, 2, 4, 8}, so no code straddles a byte.
+mask MSB-first (``np.packbits``), ceil(k/8) bytes per row.  B1 packs at
+any b from 1 to 16 (a code may straddle bytes); B2 needs b in
+{1, 2, 4, 8}, so no code straddles a byte.
 
 Hash parameters arrive as int32 tensors holding the uint32 words'
 bits (``core.universal_hash.words_to_int32``).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -25,8 +27,10 @@ from repro_torch.core.oph import (_check_k, densify_rotation,
 from repro_torch.core.universal_hash import int32_to_words
 from repro_torch.kernels import _build
 from repro_torch.kernels.counters import LaunchCount
+# b where codes never straddle byte bounds (B2, B5, B6), and the b that
+# B1 packs: their home is the cost model's eligibility
+from repro_torch.perf.cost_model import MINHASH_PACK_BITS, PACK_BITS
 
-PACK_BITS = (1, 2, 4, 8)   # b where codes never straddle byte bounds
 # B1 (csrc/fused_encode.cu): hash lanes a thread at most, the blocks an SM
 # is given before a block takes more lanes, the warps the grid aims at, the
 # id slices a block aims at, and warps a block at least and at most
@@ -51,6 +55,18 @@ OPH_PACK_MIN_THREADS = 32
 def check_bits(bits: int) -> None:
     if bits not in PACK_BITS:
         raise ValueError(f"fused packing needs b ∈ {PACK_BITS}, got {bits}")
+
+
+def check_minhash_bits(bits: int) -> None:
+    if bits not in MINHASH_PACK_BITS:
+        raise ValueError(f"minhash_pack needs b in [1, 16], got {bits}")
+
+
+def minhash_pack_min_lanes(bits: int) -> int:
+    """The fewest hash lanes whose b-bit codes fill whole bytes,
+    lcm(b, 8) / b = 8 / gcd(b, 8): 8 lanes (3 bytes) at b=3, 4 (3 bytes)
+    at b=6, 2 (3 bytes) at b=12, 1 (2 bytes) at b=16."""
+    return 8 // math.gcd(bits, 8)
 
 
 def prefix_mask(indices: torch.Tensor, nnz: torch.Tensor) -> torch.Tensor:
@@ -91,8 +107,10 @@ def minhash_pack_plain(indices: torch.Tensor, nnz: torch.Tensor,
 def minhash_pack_layout(n: int, k: int, bits: int,
                         sms: int) -> Tuple[int, int, int]:
     """B1's (hash lanes a thread, threads of them a block, warps a block)
-    for n rows, k lanes and b bits on a card of ``sms`` SMs.  The lanes a block: the fewest (a power of two, whole bytes of
-    codes, at most 256) that keep the grid of n · ceil(k / lanes) blocks
+    for n rows, k lanes and b bits on a card of ``sms`` SMs.  The lanes a
+    block: the fewest (a power of two, a multiple of
+    ``minhash_pack_min_lanes(bits)`` so they are whole bytes of codes, at
+    most 256) that keep the grid of n · ceil(k / lanes) blocks
     within ``MINHASH_PACK_BLOCKS_PER_SM`` an SM, so that a few rows spread
     over the card; a thread takes up to 8 of them.  The warps: enough that
     the grid holds ``MINHASH_PACK_WARPS_A_GRID`` warps and a block
@@ -100,7 +118,7 @@ def minhash_pack_layout(n: int, k: int, bits: int,
     two in [``MINHASH_PACK_MIN_WARPS``, ``MINHASH_PACK_MAX_WARPS``].  The
     row length does not enter: the engine's lanes of 2,048 and 8,192 ids
     share the layout of their row bucket."""
-    lanes = max(8 // bits, 1)
+    lanes = minhash_pack_min_lanes(bits)
     while lanes < 256 and n * -(-k // lanes) > sms * MINHASH_PACK_BLOCKS_PER_SM:
         lanes *= 2
     lpt = min(lanes, MINHASH_PACK_MAX_LANES_PER_THREAD)
@@ -137,12 +155,12 @@ def _minhash_pack_launch(indices: torch.Tensor, nnz: torch.Tensor,
 
 def minhash_pack(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, *, bits: int) -> torch.Tensor:
-    """uint8 (n, ceil(k·bits/8)) packed b-bit min-hash codes.
+    """uint8 (n, ceil(k·bits/8)) packed b-bit min-hash codes, 1 ≤ bits ≤ 16.
 
     indices int32 (n, m) contiguously padded rows; nnz int32 (n,) valid
     prefix lengths; a, b int32 (k,) multiply-shift words (a odd).
     """
-    check_bits(bits)
+    check_minhash_bits(bits)
     if _build.on_cpu("minhash_pack", indices):
         return minhash_pack_plain(indices, nnz, a, b, bits=bits)
     _check_cuda_args("minhash_pack", indices, nnz, a, b)

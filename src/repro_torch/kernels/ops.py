@@ -1,28 +1,40 @@
 """Dispatch between the kernels and their plain torch versions (counterpart
 of ``repro/kernels/ops.py``).
 
-The eligibility predicates are the limits of the kernels' own layouts:
+Every branch here is a client of ``perf.choose`` (``perf/cost_model.py``,
+``docs/DESIGN.md`` §2): the op's ``kernel`` or ``plain`` arm for the
+call's shape on the tensors' device.  The eligibility of the kernel arm
+is the limits of the kernels' own layouts:
 
-  * the raw-minima encode (B3 minwise, B4 OPH) takes any b and any k
-    its scheme accepts (OPH: a power of two, in both versions);
-  * the kernels that read or write packed codes byte by byte (B1, B2,
-    B5, B6) need b ∈ {1, 2, 4, 8}, so codes never straddle a byte
-    (``whole_byte_codes``);
-  * the widened linear kernels (B7, B8) take any V below about 2^27
-    (B8's sum: at most 65,535 blocks of 2,048 values a bin);
-  * the VW sketch kernel (B9) needs a power-of-two m;
-  * the Hamming kernel (B10) takes packed rows of any b.
+  * the raw-minima encode (B3 minwise, B4 OPH, op ``encode``) takes any b
+    and any k its scheme accepts (OPH: a power of two, in both versions);
+  * the fused minwise encode (B1, op ``encode_packed``) packs at any b in
+    [1, 16];
+  * the kernels that read or write packed codes byte by byte (B2, B5,
+    B6) need b ∈ ``PACK_BITS`` = {1, 2, 4, 8}, so codes never straddle a
+    byte;
+  * the widened linear kernels (B7, B8) take any V up to
+    ``perf.BBIT_KERNEL_MAX_V`` (B8's sum: at most 65,535 blocks of 2,048
+    values a bin);
+  * the Hamming kernel (B10) takes packed rows of any b;
+  * the VW sketch kernel (B9) needs a power-of-two m (not a cost-model
+    op, as in the reference).
 
-Inside eligibility a call on a CUDA tensor goes to the kernel wrapper,
-which launches its kernel (counted in the wrapper's ``launches``) or
-raises.  Every other call runs the operation's plain torch version on
-the tensors' own device and is counted in the kernel's ``PLAIN``
-counter: a CPU tensor, a shape outside eligibility (b = 6 packed,
-m = 12), or the masked widened-codes product
-(``bbit_linear_masked``),
-where the reference itself runs plain XLA code.  So on a
-card the ``plain`` counters of the main path stay at zero.  Nothing
-here catches a kernel's failure.
+On a CUDA tensor the plain arm is eligible only where the kernel is not,
+and on a CPU tensor only the plain arm is.  So with or without a profile
+the kernel arm goes to the kernel wrapper, which launches its kernel
+(counted in the wrapper's ``launches``) or raises, and every other call
+runs the operation's plain torch version on the tensors' own device and
+is counted in the kernel's ``PLAIN`` counter: a CPU tensor, a shape
+outside eligibility (b = 6 packed for B2/B5/B6, m = 12), or the masked
+widened-codes product (``bbit_linear_masked``), where the reference
+itself runs plain XLA code.  On a card the ``plain`` counters of the
+main path stay at zero.  Nothing here catches a kernel's failure.
+
+Callers that know more of the shape than the tensors do (the scheme's
+name and b, the model's b) pass it as ``shape``, so a profile measured
+at that shape decides (``perf.dispatch_report()``'s hits); ``impl`` is
+an explicit arm, ignored where it is not eligible.
 
 ``bbit_linear`` and ``bbit_linear_packed`` are ``torch.autograd.Function``s
 (the reference's ``custom_vjp``s): the forward kernel (B7, B5) and, for
@@ -33,10 +45,11 @@ no gradient.  B8 keeps a plan of each codes tensor it sees (see
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch import perf
 from repro_torch.kernels import _build
 from repro_torch.kernels import bbit_linear as _bl
 from repro_torch.kernels import fused_encode as _fe
@@ -47,6 +60,7 @@ from repro_torch.kernels import vw_sketch as _vw
 from repro_torch.kernels.counters import LaunchCount
 
 PACK_BITS = _fe.PACK_BITS
+Shape = Optional[Mapping[str, object]]
 
 # kernel name -> its wrapper's launches, and kernel name -> the calls of
 # its operation that took the plain version
@@ -84,30 +98,32 @@ def _is_pow2(n: int) -> bool:
     return n > 0 and n & (n - 1) == 0
 
 
-def whole_byte_codes(bits: int) -> bool:
-    """Whether b=bits codes fill whole bytes, the layout of the kernels
-    that pack (B1, B2) or unpack (B5, B6) codes byte by byte."""
-    return bits in PACK_BITS
-
-
 def vw_kernel_supported(m_buckets: int) -> bool:
     """Whether the VW sketch kernel handles m buckets (a power of two)."""
     return _is_pow2(m_buckets)
 
 
-def _launches(t: torch.Tensor, name: str, eligible: bool) -> bool:
-    """Whether the call goes to kernel ``name``: eligible and on a card;
-    otherwise the plain call is counted."""
-    if eligible and not _build.on_cpu(name, t):
+def _launches(t: torch.Tensor, name: str, op: str, shape: Shape,
+              impl: Optional[str] = None) -> bool:
+    """Whether the call goes to kernel ``name``: ``perf.choose``'s arm
+    of ``op`` at ``shape`` on ``t``'s device; a plain call is counted."""
+    if perf.choose(op, shape, device=t.device, impl=impl) == "kernel":
         return True
     PLAIN[name].add()
     return False
 
 
+def _rows_shape(indices: torch.Tensor, **keys) -> dict:
+    return dict(keys, rows=int(indices.shape[0]),
+                nnz=int(indices.shape[1]))
+
+
 def minhash(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
-            b: torch.Tensor) -> torch.Tensor:
+            b: torch.Tensor, *, shape: Shape = None,
+            impl: Optional[str] = None) -> torch.Tensor:
     """Raw min-hashes → int32 (n, k) bits of the uint32 words (B3)."""
-    if _launches(indices, "minhash", True):
+    shape = shape or _rows_shape(indices, scheme="minwise", k=a.shape[0])
+    if _launches(indices, "minhash", "encode", shape, impl):
         return _mh.minhash(indices, nnz, a, b)
     return _mh.minhash_plain(indices, nnz, a, b)
 
@@ -115,34 +131,45 @@ def minhash(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
 def minhash_bbit(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, bits: int) -> torch.Tensor:
     """Min-hash + b-bit extraction → int32 (n, k) codes in [0, 2^bits)."""
-    return minhash(indices, nnz, a, b) & ((1 << bits) - 1)
+    shape = _rows_shape(indices, scheme="minwise", k=a.shape[0], b=bits)
+    return minhash(indices, nnz, a, b, shape=shape) & ((1 << bits) - 1)
 
 
 def oph(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
-        b: torch.Tensor, k: int) -> torch.Tensor:
+        b: torch.Tensor, k: int, *, shape: Shape = None,
+        impl: Optional[str] = None) -> torch.Tensor:
     """Raw OPH bin minima → int32 (n, k) bits of the uint32 words (B4);
     empty bins hold the bits of 0xFFFFFFFF.  A k that is not a power of
     two raises, in the kernel's wrapper and in the plain version alike,
     as the reference's jnp path does."""
-    if _launches(indices, "oph", True):
+    shape = shape or _rows_shape(indices, scheme="oph", k=k)
+    if _launches(indices, "oph", "encode", shape, impl):
         return _oph.oph(indices, nnz, a, b, k=k)
     return _oph.oph_plain(indices, nnz, a, b, k=k)
 
 
 def minhash_packed(indices: torch.Tensor, nnz: torch.Tensor,
-                   a: torch.Tensor, b: torch.Tensor,
-                   bits: int) -> torch.Tensor:
-    """min-hash + b-bit + pack → uint8 (n, ceil(k·bits/8))."""
-    if _launches(indices, "minhash_pack", whole_byte_codes(bits)):
+                   a: torch.Tensor, b: torch.Tensor, bits: int, *,
+                   shape: Shape = None,
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """min-hash + b-bit + pack → uint8 (n, ceil(k·bits/8)); B1 at any b
+    in [1, 16]."""
+    shape = shape or _rows_shape(indices, scheme="minwise", k=a.shape[0],
+                                 b=bits)
+    if _launches(indices, "minhash_pack", "encode_packed", shape, impl):
         return _fe.minhash_pack(indices, nnz, a, b, bits=bits)
     return _fe.minhash_pack_plain(indices, nnz, a, b, bits=bits)
 
 
 def oph_packed(indices: torch.Tensor, nnz: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor, k: int, bits: int, *,
-               densify: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+               densify: bool = True, shape: Shape = None,
+               impl: Optional[str] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """OPH + densify/zero-code + b-bit + pack → (packed, packbits empty)."""
-    if _launches(indices, "oph_pack", whole_byte_codes(bits)):
+    shape = shape or _rows_shape(
+        indices, scheme="oph" if densify else "oph_zero", k=k, b=bits)
+    if _launches(indices, "oph_pack", "encode_packed", shape, impl):
         return _fe.oph_pack(indices, nnz, a, b, k=k, bits=bits,
                             densify=densify)
     return _fe.oph_pack_plain(indices, nnz, a, b, k=k, bits=bits,
@@ -153,10 +180,10 @@ class _BBitLinear(torch.autograd.Function):
     """logits = Σ_j W[j, codes[:, j]]; backward → dW only."""
 
     @staticmethod
-    def forward(ctx, codes, weights):
+    def forward(ctx, codes, weights, shape, impl):
         ctx.save_for_backward(codes)
         ctx.vsize = weights.shape[1]
-        if _launches(codes, "bbit_linear_fwd", True):
+        if _launches(codes, "bbit_linear_fwd", "logits", shape, impl):
             return _bl.bbit_linear_fwd(codes, weights)
         return _bl.bbit_linear_fwd_plain(codes, weights)
 
@@ -164,17 +191,25 @@ class _BBitLinear(torch.autograd.Function):
     def backward(ctx, dout):
         (codes,) = ctx.saved_tensors
         dout = dout.to(torch.float32).contiguous()
-        if _launches(codes, "bbit_linear_bwd_dw", True):
-            return None, _bl.bbit_linear_bwd_dw(codes, dout, ctx.vsize)
-        return None, _bl.bbit_linear_bwd_dw_plain(codes, dout, ctx.vsize)
+        shape = {"v": ctx.vsize, "k": int(codes.shape[1]),
+                 "rows": int(codes.shape[0])}
+        if _launches(codes, "bbit_linear_bwd_dw", "logits_bwd", shape):
+            dw = _bl.bbit_linear_bwd_dw(codes, dout, ctx.vsize)
+        else:
+            dw = _bl.bbit_linear_bwd_dw_plain(codes, dout, ctx.vsize)
+        return None, dw, None, None
 
 
-def bbit_linear(codes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def bbit_linear(codes: torch.Tensor, weights: torch.Tensor, *,
+                shape: Shape = None,
+                impl: Optional[str] = None) -> torch.Tensor:
     """logits (n, C) = Σ_j W[j, codes[n, j], :] from integer codes (n, k)
     in [0, V) — differentiable in W (B7 forward, B8 backward)."""
     if codes.dtype != torch.int32:
         codes = codes.to(torch.int32)
-    return _BBitLinear.apply(codes.contiguous(), weights)
+    shape = shape or {"k": int(codes.shape[1]), "v": int(weights.shape[1]),
+                      "rows": int(codes.shape[0])}
+    return _BBitLinear.apply(codes.contiguous(), weights, shape, impl)
 
 
 class _BBitLinearMasked(torch.autograd.Function):
@@ -209,11 +244,11 @@ class _BBitLinearPacked(torch.autograd.Function):
     """Packed-rows logits; backward → dW only, empty bins excluded."""
 
     @staticmethod
-    def forward(ctx, packed, empty, weights, k, bits):
+    def forward(ctx, packed, empty, weights, k, bits, shape, impl):
         ctx.save_for_backward(packed, empty)
         ctx.k, ctx.bits, ctx.vsize = k, bits, weights.shape[1]
-        if _launches(packed, "bbit_linear_packed_fwd",
-                     whole_byte_codes(bits)):
+        if _launches(packed, "bbit_linear_packed_fwd", "logits_packed",
+                     shape, impl):
             return _bl.bbit_linear_packed_fwd(packed, weights, k=k,
                                               bits=bits, empty=empty)
         return _bl.bbit_linear_packed_fwd_plain(packed, weights, k=k,
@@ -224,22 +259,29 @@ class _BBitLinearPacked(torch.autograd.Function):
         packed, empty = ctx.saved_tensors
         dout = dout.to(torch.float32).contiguous()
         kw = dict(k=ctx.k, bits=ctx.bits, empty=empty)
+        shape = {"v": ctx.vsize, "k": ctx.k, "b": ctx.bits,
+                 "rows": int(packed.shape[0])}
         if _launches(packed, "bbit_linear_packed_bwd_dw",
-                     whole_byte_codes(ctx.bits)):
+                     "logits_packed_bwd", shape):
             dw = _bl.bbit_linear_packed_bwd_dw(packed, dout, ctx.vsize, **kw)
         else:
             dw = _bl.bbit_linear_packed_bwd_dw_plain(packed, dout,
                                                      ctx.vsize, **kw)
-        return None, None, dw, None, None
+        return None, None, dw, None, None, None, None
 
 
 def bbit_linear_packed(packed: torch.Tensor, weights: torch.Tensor, k: int,
                        bits: int, *,
-                       empty: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       empty: Optional[torch.Tensor] = None,
+                       shape: Shape = None,
+                       impl: Optional[str] = None) -> torch.Tensor:
     """logits (n, C) straight from packed uint8 rows — differentiable in
     W (B5 forward, B6 backward); ``empty`` (packbits, ``oph_zero``) drops
     the marked bins in both directions."""
-    return _BBitLinearPacked.apply(packed, empty, weights, k, bits)
+    shape = shape or {"k": k, "b": bits, "v": int(weights.shape[1]),
+                      "rows": int(packed.shape[0])}
+    return _BBitLinearPacked.apply(packed, empty, weights, k, bits, shape,
+                                   impl)
 
 
 def vw_sketch(indices: torch.Tensor, values: torch.Tensor,
@@ -249,13 +291,16 @@ def vw_sketch(indices: torch.Tensor, values: torch.Tensor,
     version otherwise.  Like the reference's ``ops.vw_sketch``, both take
     bucket = h & (m − 1), which for another m is not ``core.vw``'s
     h mod m."""
-    if _launches(indices, "vw_sketch", vw_kernel_supported(m_buckets)):
+    if (not _build.on_cpu("vw_sketch", indices)
+            and vw_kernel_supported(m_buckets)):
         return _vw.vw_sketch(indices, values, nnz, m_buckets, seed)
+    PLAIN["vw_sketch"].add()
     return _vw.vw_sketch_plain(indices, values, nnz, m_buckets, seed)
 
 
 def hamming_topk(query: torch.Tensor, cands: torch.Tensor, *, k: int,
-                 bits: int, topk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 bits: int, topk: int, impl: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-``topk`` candidates by packed-code Hamming similarity.
 
     ``query`` uint8 (w,), ``cands`` uint8 (n, w): packed b-bit code rows
@@ -267,7 +312,9 @@ def hamming_topk(query: torch.Tensor, cands: torch.Tensor, *, k: int,
     so equal distances keep the lower index first, as ``jax.lax.top_k``
     does, and the sims are computed in float32 as the reference does.
     """
-    if _launches(cands, "hamming_distance", True):
+    shape = {"b": int(bits), "k": int(k), "rows": int(cands.shape[0]),
+             "width": int(cands.shape[1])}
+    if _launches(cands, "hamming_distance", "hamming_topk", shape, impl):
         dist = _hd.hamming_distance(query, cands)
     else:
         dist = _hd.hamming_distance_plain(query, cands)

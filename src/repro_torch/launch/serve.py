@@ -3,7 +3,8 @@
     python -m repro_torch.launch.serve [--http] [--host H] [--port P] \\
         [--device cuda] [--n-docs 600] [--k 64] [--b 8] [--requests 200] \\
         [--max-batch 64] [--adapt-every N] [--dedup-cache] \\
-        [--cache-entries N] [--drain-timeout-s S] [--seed 0]
+        [--cache-entries N] [--drain-timeout-s S] [--profile PATH] \
+        [--seed 0]
 
 ``--mode classifier`` (the default) generates a synthetic expanded-rcv1
 corpus, hashes it (``preprocess_rows``, minwise, kernel B3 on the card)
@@ -19,9 +20,14 @@ terminated.  ``--port 0`` picks an ephemeral port.
 Once the socket is bound it prints the machine-readable lines
 ``DEDUP_CACHE ...`` (``--dedup-cache`` puts the band-keyed
 duplicate-traffic score cache in front of the batcher; ``--cache-entries``
-caps it) and ``LISTENING <host> <port>``.  ``--mode lm`` (the LM zoo,
-ROADMAP A6) and ``--profile`` (the cost model, A4) are not ported yet and
-exit 2 with a message.
+caps it) and ``LISTENING <host> <port>``.  ``--profile`` loads a
+cost-model profile (default: ``configs/rcv1_oph.py``'s ``profile_path``
+if it exists; ``python -m repro_torch.launch.calibrate`` writes one): with
+a usable one the engine sizes each lane's row buckets and drain cap from
+its measured ``serve_score`` curve; a missing, corrupt or other-box
+profile leaves the static pair of row buckets (1, ``--max-batch``).
+``--mode lm`` (the LM zoo, ROADMAP A6) is not ported yet and exits 2
+with a message.
 """
 from __future__ import annotations
 
@@ -34,8 +40,6 @@ import numpy as np
 NOT_PORTED = {
     "lm": "--mode lm decodes the LM zoo (greedy_generate), which waits "
           "for ROADMAP A6",
-    "profile": "--profile loads a cost-model profile, which waits for "
-               "ROADMAP A4",
 }
 
 
@@ -61,13 +65,23 @@ def _build_classifier_engine(args):
                                loss="logistic", C=1.0, max_iter=25,
                                device=args.device)
     print(f"model ready: test acc {res.test_acc:.3f} on {args.device}")
+    from repro_torch import perf
+    profile = args.profile if args.profile is not None \
+        else CONFIG.profile_path
+    has_profile = perf.maybe_load_profile(profile)
+    print("dispatch: "
+          + (f"cost-model profile {profile}" if has_profile
+             else "static rules (no usable profile)"))
     dedup_kw = {}
     if args.dedup_cache:
         dedup_kw = CONFIG.dedup_kwargs(dedup_cache=True,
                                        dedup_entries=args.cache_entries)
     eng = HashedClassifierEngine(
         res.params, lcfg, seed=1, max_batch=args.max_batch,
-        nnz_buckets=(2048, 8192), row_buckets=(1, args.max_batch),
+        nnz_buckets=(2048, 8192),
+        # a measured profile sizes each lane's row buckets and drain cap
+        # from its serve_score curve; without one, the static pair
+        row_buckets=None if has_profile else (1, args.max_batch),
         adapt_every=args.adapt_every, device=args.device, **dedup_kw)
     if args.dedup_cache:
         print(f"DEDUP_CACHE entries={args.cache_entries} "
@@ -141,13 +155,12 @@ def main(argv=None) -> int:
                     default=CONFIG.dedup_entries,
                     help="dedup cache capacity (LRU entries)")
     ap.add_argument("--profile", default=None,
-                    help="cost-model profile (not ported: ROADMAP A4)")
+                    help="cost-model profile JSON (default: the config's "
+                         "profile_path if it exists; missing or "
+                         "mismatched files leave the static rules)")
     args = ap.parse_args(argv)
     if args.mode != "classifier":
         print(NOT_PORTED[args.mode], file=sys.stderr)
-        return 2
-    if args.profile is not None:
-        print(NOT_PORTED["profile"], file=sys.stderr)
         return 2
     serve_classifier(args)
     return 0

@@ -3,7 +3,9 @@
 
 The b-bit weight is a (k, 2^b, C) float32 table — the expanded 2^b·k
 weight vector reshaped, the reference's layout — plus a (C,) bias, held
-in a plain dict of tensors ``{"table", "bias"}``.  The VW model is a
+in a plain dict of tensors ``{"table", "bias"}``.  Each b-bit forward
+picks its arm through the cost model (``perf.choose``, op ``logits`` or
+``logits_packed``); ``BBitLinearConfig.use_kernel`` pins it.  The VW model is a
 dense (m, C) weight over the sketches, ``{"w", "bias"}``.  Binary
 problems keep one output column (C = 1).  Every forward is
 differentiable in the params: the b-bit ones through the kernels'
@@ -19,8 +21,12 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch import perf
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+
+# the table dtypes the kernels read (B5-B8 read float32 tables)
+PARAM_DTYPES = ("float32",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +34,34 @@ class BBitLinearConfig:
     k: int
     b: int
     n_classes: int = 2
+    # 'auto' → the cost model's arm (the kernel wherever it is eligible);
+    # 'always' pins the kernel arm, 'never' the plain one.  'never' on a
+    # CUDA tensor whose kernel applies raises: the port runs no plain
+    # version on the card
+    use_kernel: str = "auto"
+    param_dtype: str = "float32"
     normalize: bool = False      # optional 1/sqrt(k) feature scaling
 
     @property
     def n_out(self) -> int:
         return 1 if self.n_classes == 2 else self.n_classes
+
+    @property
+    def n_weights(self) -> int:
+        return self.k * (1 << self.b) * self.n_out + self.n_out
+
+
+def check_param_dtype(cfg: BBitLinearConfig) -> None:
+    """Raises for a table dtype the kernels do not read.  The reference's
+    kernels read a bfloat16 table in place (one-hot products accumulated
+    in float32, dW cast back to bfloat16); the port's B5-B8 read float32
+    only, and a cast would change the model silently, so a bfloat16
+    table waits for ROADMAP A7."""
+    if cfg.param_dtype not in PARAM_DTYPES:
+        raise ValueError(
+            f"param_dtype={cfg.param_dtype!r}: the port's kernels (B5-B8) "
+            f"read float32 tables only; a {cfg.param_dtype} table waits "
+            "for ROADMAP A7 (no silent cast)")
 
 
 def init_bbit_linear(cfg: BBitLinearConfig,
@@ -40,6 +69,7 @@ def init_bbit_linear(cfg: BBitLinearConfig,
                      device: DeviceLike = None) -> dict:
     """Zero table and bias, or a 0.01·N(0, 1) table drawn from
     ``generator`` (on the generator's device, then moved)."""
+    check_param_dtype(cfg)
     dev = resolve_device(device)
     shape = (cfg.k, 1 << cfg.b, cfg.n_out)
     if generator is None:
@@ -65,6 +95,44 @@ def params_from_jax(params_np: Mapping[str, np.ndarray],
             for name in names}
 
 
+def _forced_impl(cfg: BBitLinearConfig, op: str, shape: dict,
+                 device: DeviceLike) -> Optional[str]:
+    """The config's ``use_kernel`` as a pin of ``op``: 'always' → kernel,
+    'never' → plain (refused on a card where the kernel applies),
+    'auto' → None (``perf.choose`` decides)."""
+    if cfg.use_kernel == "always" or cfg.use_kernel is True:
+        return "kernel"
+    if cfg.use_kernel == "never" or cfg.use_kernel is False:
+        perf.refuse_plain_on_card(op, shape, device,
+                                  "BBitLinearConfig(use_kernel='never')")
+        return "plain"
+    return None
+
+
+def _logits_shape(cfg: BBitLinearConfig, rows: Optional[int]) -> dict:
+    shape = {"k": cfg.k, "b": cfg.b, "v": 1 << cfg.b}
+    if rows is not None:
+        shape["rows"] = int(rows)
+    return shape
+
+
+def logits_impl(cfg: BBitLinearConfig, rows: Optional[int] = None,
+                device: DeviceLike = "cpu") -> str:
+    """The widened-codes arm on ``device``: 'kernel' (B7) | 'plain'."""
+    shape = _logits_shape(cfg, rows)
+    return perf.choose("logits", shape, device=device,
+                       impl=_forced_impl(cfg, "logits", shape, device))
+
+
+def logits_packed_impl(cfg: BBitLinearConfig, rows: Optional[int] = None,
+                       device: DeviceLike = "cpu") -> str:
+    """The packed-rows arm on ``device``: 'kernel' (B5) | 'plain'."""
+    shape = _logits_shape(cfg, rows)
+    return perf.choose("logits_packed", shape, device=device,
+                       impl=_forced_impl(cfg, "logits_packed", shape,
+                                         device))
+
+
 def _finish(out: torch.Tensor, params, cfg: BBitLinearConfig
             ) -> torch.Tensor:
     if cfg.normalize:
@@ -77,10 +145,14 @@ def bbit_logits(params, codes: torch.Tensor, cfg: BBitLinearConfig,
     """Integer codes (n, k) → logits (n, n_out) float32.  ``empty`` (bool
     (n, k), zero-coded OPH) drops the marked bins, by a plain torch
     gather as in the reference (``ops.bbit_linear_masked``)."""
+    check_param_dtype(cfg)
     if empty is not None:
         out = ops.bbit_linear_masked(codes, params["table"], empty)
     else:
-        out = ops.bbit_linear(codes, params["table"])
+        shape = _logits_shape(cfg, codes.shape[0])
+        out = ops.bbit_linear(
+            codes, params["table"], shape=shape,
+            impl=_forced_impl(cfg, "logits", shape, codes.device))
     return _finish(out, params, cfg)
 
 
@@ -110,8 +182,12 @@ def bbit_logits_packed(params, packed: torch.Tensor, cfg: BBitLinearConfig,
     differentiable in the params (B5 forward, B6 backward).
     ``empty_packed`` (the ``oph_zero`` packbits mask) drops the marked
     bins."""
-    out = ops.bbit_linear_packed(packed, params["table"], cfg.k, cfg.b,
-                                 empty=empty_packed)
+    check_param_dtype(cfg)
+    shape = _logits_shape(cfg, packed.shape[0])
+    out = ops.bbit_linear_packed(
+        packed, params["table"], cfg.k, cfg.b, empty=empty_packed,
+        shape=shape,
+        impl=_forced_impl(cfg, "logits_packed", shape, packed.device))
     return _finish(out, params, cfg)
 
 

@@ -44,20 +44,27 @@ card, and ``swap_weights`` invalidates the cache under its swap lock.
 ``adapt_every=N`` re-derives the nnz lane grid from the batcher's
 observed size histogram every N submits (``adapt_buckets``) on a
 background thread: the new (row × nnz × replica) shapes run once on
-each card first, then the grid is swapped.  The row buckets stay the
-static power-of-two grid (the reference's choice without a cost-model
-profile).
+each card first, then the grid is swapped.
+
+Row buckets: the static power-of-two grid up to ``max_batch``, unless a
+cost-model profile (``perf.set_profile`` / ``maybe_load_profile``) holds
+the ``serve_score`` curve of this (k, b, scheme) over every lane, and
+``row_buckets`` is left ``None``: then each lane keeps the buckets
+``perf.suggest_row_buckets`` gives it and drains at the cap
+``perf.suggest_lane_caps`` gives it (``docs/DESIGN.md`` §2.5).
+``stats()`` reports both and the cost model's ``dispatch`` section.
 """
 from __future__ import annotations
 
 import threading
 import time
 from concurrent.futures import Future
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import perf
 from repro_torch.core.schemes import make_scheme
 from repro_torch.data.packing import bucket_width, pad_rows
 from repro_torch.devices import DeviceLike, replica_devices
@@ -144,9 +151,27 @@ class HashedClassifierEngine:
         self.nnz_buckets = tuple(sorted(int(b) for b in nnz_buckets))
         if not self.nnz_buckets:
             raise ValueError("need at least one nnz bucket")
+        # per-nnz-lane row buckets and drain caps from the measured
+        # serve_score cost curve (a perf profile); without one, or with
+        # explicit row_buckets, the static pow-2 grid applies to every lane
+        self._lane_row_buckets: Dict[int, Tuple[int, ...]] = {}
+        self._lane_caps: Dict[int, int] = {}
         if row_buckets is None:
             top = bucket_width(max_batch, floor=1)
             row_buckets = tuple(1 << i for i in range(top.bit_length()))
+            suggestion = perf.suggest_row_buckets(
+                cfg.k, cfg.b, scheme, max_batch, self.nnz_buckets)
+            if suggestion:
+                self._lane_row_buckets = {
+                    int(m): tuple(sorted(int(r) for r in rb))
+                    for m, rb in suggestion.items()}
+                row_buckets = tuple(sorted(
+                    {r for rb in self._lane_row_buckets.values()
+                     for r in rb}))
+            caps = perf.suggest_lane_caps(
+                cfg.k, cfg.b, scheme, max_batch, self.nnz_buckets)
+            if caps:
+                self._lane_caps = {int(m): int(c) for m, c in caps.items()}
         self.row_buckets = tuple(sorted(int(r) for r in row_buckets))
 
         self.devices = replica_devices(device, replicas)
@@ -180,7 +205,7 @@ class HashedClassifierEngine:
             self._dispatch_batch, self._resolve_batch,
             route=lambda doc: self._nnz_bucket(len(doc)),
             max_batch=max_batch, max_wait_ms=max_wait_ms,
-            depth=pipeline_depth)
+            depth=pipeline_depth, lane_caps=self._lane_caps)
 
     # ---------------------------------------------------------- weights --
     def _stage(self, params) -> Tuple[dict, ...]:
@@ -219,11 +244,19 @@ class HashedClassifierEngine:
     def _nnz_bucket(self, n: int) -> int:
         return _grow_bucket(n, self.nnz_buckets)
 
-    def _row_bucket(self, n: int) -> int:
-        for r in self.row_buckets:
+    def _row_buckets_for(self, key: Optional[int]) -> Tuple[int, ...]:
+        if key is not None:
+            lane = self._lane_row_buckets.get(int(key))
+            if lane:
+                return lane
+        return self.row_buckets
+
+    def _row_bucket(self, n: int, key: Optional[int] = None) -> int:
+        buckets = self._row_buckets_for(key)
+        for r in buckets:
             if n <= r:
                 return r
-        return bucket_width(n, floor=self.row_buckets[-1])
+        return bucket_width(n, floor=buckets[-1])
 
     def _precompile(self) -> None:
         """On the card: build and load the kernels and run every
@@ -243,7 +276,8 @@ class HashedClassifierEngine:
             if dev.type != "cuda":
                 continue
             for m in nnz_buckets:
-                for r in row_buckets:
+                lane_rows = self._lane_row_buckets.get(int(m))
+                for r in (lane_rows if lane_rows else row_buckets):
                     if (r, m, d) in self._warmed:
                         continue
                     idx = np.zeros((r, m), np.int32)
@@ -318,7 +352,7 @@ class HashedClassifierEngine:
         against one version."""
         w = self._weights if weights is None else weights
         n = len(docs)
-        rows = self._row_bucket(n)
+        rows = self._row_bucket(n, key)
         # pad_rows owns the id-folding policy (indices ≥ 2^31 fold to
         # [0, 2^31)); only the padding to the lane's shape happens here
         packed_idx, packed_nnz = pad_rows(docs, pad_to_multiple=1)
@@ -601,8 +635,12 @@ class HashedClassifierEngine:
             pipeline_depth=depths["depth"],
             nnz_buckets=list(self.nnz_buckets),
             row_buckets=list(self.row_buckets),
+            lane_row_buckets={str(m): list(rb) for m, rb
+                              in self._lane_row_buckets.items()},
+            lane_caps={str(m): c for m, c in self._lane_caps.items()},
             rebuckets=self.rebuckets,
             health=self.batcher.health(),
+            dispatch=perf.dispatch_report(),
             kernels=ops.counts(),
             dedup=(dict(self.dedup.stats(), enabled=True,
                         rows_per_band=self._dedup_rows_per_band,

@@ -58,7 +58,9 @@ from repro_torch.data.prefetch import (Boundary, StreamBatch,
                                        serial_batch_stream)
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.ft import faults
-from repro_torch.models.linear import BBitLinearConfig, bbit_logits_packed
+from repro_torch import perf
+from repro_torch.models.linear import (BBitLinearConfig, bbit_logits_packed,
+                                       logits_packed_impl)
 from repro_torch.optim.averaging import average_or_none
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train import linear_trainer
@@ -80,6 +82,10 @@ class StreamFitResult:
     examples_seen: int
     shards_processed: int          # cumulative, survives resume
     completed: bool                # False when stop_after_shards hit
+    # what the cost model chose for the packed logits and which profile
+    # it read, also in each checkpoint's meta.json extras; not in the
+    # replay fingerprint (a profile swap must not invalidate a resume)
+    dispatch: Optional[dict] = None
 
     @property
     def eval_params(self) -> Any:
@@ -259,6 +265,14 @@ def fit_streaming(
          "process_topology": {"shard_ownership": SHARD_OWNERSHIP},
          "grad_compress": None})
 
+    # the packed logits' arm, chosen once up front: the run's dispatch of
+    # record in checkpoints and on the result, kept out of the fingerprint
+    chosen_impl = logits_packed_impl(cfg, rows=batch_size, device=dev)
+    _perf_rep = perf.dispatch_report()
+    dispatch_record = {"logits_packed": chosen_impl,
+                       "table_version": _perf_rep["table_version"],
+                       "profile_loaded": _perf_rep["profile_loaded"]}
+
     if restored_tree is not None:
         if int(restored_tree["fingerprint"]) != int(fingerprint):
             raise ValueError(
@@ -290,7 +304,8 @@ def fit_streaming(
                 "fingerprint": fingerprint}
         # the schedule that wrote it, as the reference records it
         extra = {"schedule": {"dp": False, "logical_world": 1,
-                              "procs": 1}}
+                              "procs": 1},
+                 "dispatch": dispatch_record}
         ckpt.save(ckpt_dir, shards_done, tree, keep_last=ckpt_keep_last,
                   extra_meta=extra)
         # the eval iterate (the Polyak average once its window opened),
@@ -384,4 +399,5 @@ def fit_streaming(
         examples_seen=seen,
         shards_processed=shards_done,
         completed=not stopped,
+        dispatch=dispatch_record,
     )

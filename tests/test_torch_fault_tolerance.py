@@ -425,7 +425,7 @@ def test_train_cli_streams_on_the_cpu(repo_src, tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (("--mode", "linear"), "A3"), (("--mode", "lm"), "A6"),
+    (("--mode", "linear", "--procs", "2"), "A5"), (("--mode", "lm"), "A6"),
     (("--procs", "2"), "A5"), (("--data-parallel", "2"), "A5")])
 def test_train_cli_names_what_is_not_ported(repo_src, tmp_path, args, item):
     proc = _cli(repo_src, "--device", "cpu", "--workdir",

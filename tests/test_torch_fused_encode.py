@@ -117,12 +117,18 @@ def test_unfused_arm_outside_eligibility(scheme):
 
 
 def test_wrappers_reject_straddling_b_and_bad_k():
+    """B2 packs whole bytes only (b = 6 straddles them); B1 packs at any b
+    in [1, 16] and rejects b = 17; an OPH k must be a power of two."""
     idx, nnz = _rows(2, 8, seed=0)
     a, b = _minwise_params(4, 0)
     with pytest.raises(ValueError):
         fused_encode.minhash_pack(torch.from_numpy(idx),
                                   torch.from_numpy(nnz), words_to_int32(a),
-                                  words_to_int32(b), bits=6)
+                                  words_to_int32(b), bits=17)
+    with pytest.raises(ValueError):
+        fused_encode.oph_pack(torch.from_numpy(idx), torch.from_numpy(nnz),
+                              words_to_int32(a[:1]), words_to_int32(b[:1]),
+                              k=8, bits=6)
     with pytest.raises(ValueError):
         fused_encode.oph_pack(torch.from_numpy(idx), torch.from_numpy(nnz),
                               words_to_int32(a[:1]), words_to_int32(b[:1]),

@@ -298,6 +298,36 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
             res = fit_streaming(root, cfg, batch_size=8, device="cpu",
                                 ckpt_dir=root + "/ckpt")
         assert res.completed and res.n_steps == 6, res
+        # the codes' leftovers, the loaders and I/O, fsck, the cost model
+        # and calibration, the paper's config and --mode linear
+        import repro_torch.core.estimators, repro_torch.core.expansion
+        import repro_torch.core.random_projection, repro_torch.core.types
+        import repro_torch.data.libsvm_io, repro_torch.data.loader
+        import repro_torch.launch.fsck, repro_torch.launch.calibrate
+        import repro_torch.configs.rcv1_bbit, repro_torch.ft.watchdog
+        from repro_torch import perf
+        from repro_torch.core.types import SparseBatch
+        from repro_torch.core.random_projection import rp_project_batch
+        from repro_torch.core.expansion import compact_index
+        batch = SparseBatch.from_lists([[1, 5], [2]], dim=8, device="cpu")
+        assert rp_project_batch(batch, k=4).shape == (2, 4)
+        assert compact_index(torch.zeros((2, 4), dtype=torch.int32), 2,
+                             8).shape == (2, 8)
+        with tempfile.TemporaryDirectory() as root:
+            table = perf.calibrate(k=16, encode_rows=(2,),
+                                   encode_widths=(8,), logits_rows=(4,),
+                                   max_batch=2, nnz_buckets=(8,), trials=1,
+                                   budget_s=30, device="cpu")
+            table.save(root + "/p.json")
+            assert perf.maybe_load_profile(root + "/p.json")
+            import argparse, contextlib, io
+            from repro_torch.launch.train import run_linear
+            with contextlib.redirect_stdout(io.StringIO()):
+                run_linear(argparse.Namespace(
+                    workdir=root, n_docs=24, k=8, b=12, steps=2,
+                    batch_size=4, lr=1e-2, seed=0, ckpt_every=1,
+                    fail_at=None, device="cpu"))
+                assert repro_torch.launch.fsck.main([root + "/hashed"]) == 0
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

@@ -1109,3 +1109,120 @@ def test_train_bbit_sgd_on_the_card_matches_the_cpu(cuda):
                if name.endswith("_plain"))
     _stream_close(card.params, cpu.params)
     assert abs(card.test_acc - cpu.test_acc) <= 1 / 200
+
+
+# ---------------------------------------------------------------------------
+# B1 at every b from 1 to 16 (codes that straddle bytes), the paper's
+# archive at k=500, b=16, and the cost model's profile on the card
+# ---------------------------------------------------------------------------
+B_EVERY = tuple(range(1, 17))
+
+
+@pytest.mark.parametrize("bits", B_EVERY)
+@pytest.mark.parametrize("k", [8, 37, 256, 500])
+@pytest.mark.parametrize("n,m", [(1, 2048), (64, 2048), (1024, 300)])
+def test_minhash_pack_kernel_at_every_b(cuda, bits, k, n, m):
+    """B1 at every b in [1, 16], k from 8 to the paper's 500 (ragged
+    against every block's lanes), at one row, the engine's 64 and a
+    1,024-row chunk, with nnz 0, a negative nnz, one above m and ragged
+    rows: the plain version's bytes."""
+    idx, nnz = _minwise_rows(n, m, seed=bits * 31 + k + n, dev=cuda)
+    if n == 1:
+        nnz = torch.zeros_like(nnz) if bits % 2 else nnz
+    a, b = MultiplyShiftHash.make(k, seed=bits).params(cuda)
+    got = fused_encode.minhash_pack(idx, nnz, a, b, bits=bits)
+    want = fused_encode.minhash_pack_plain(idx, nnz, a, b, bits=bits)
+    torch.cuda.synchronize()
+    assert got.shape == (n, (k * bits + 7) // 8)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [3, 6, 12, 16])
+@pytest.mark.parametrize("k,m,offset", [(500, 4099, 0), (37, 300, 1)])
+def test_minhash_pack_kernel_every_layout_across_bytes(cuda, bits, k, m,
+                                                       offset):
+    """Every launch layout of B1 whose block holds whole bytes of codes
+    that straddle bytes (lanes a multiple of 8 / gcd(b, 8))."""
+    idx, nnz = _minwise_rows(6, m, seed=k + bits, dev=cuda, offset=offset)
+    a, b = MultiplyShiftHash.make(k, seed=3).params(cuda)
+    want = fused_encode.minhash_pack_plain(idx, nnz, a, b, bits=bits)
+    for lpt in (1, 2, 4, 8):
+        for lt in (1, 2, 4, 8, 16, 32):
+            if lpt * lt * bits % 8:
+                continue
+            for warps in (1, 16):
+                got = fused_encode._minhash_pack_launch(
+                    idx, nnz, a, b, bits, lpt, lt, warps, False)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (lpt, lt, warps)
+
+
+def test_preprocess_and_save_at_the_paper_width_on_the_card(cuda, tmp_path):
+    """configs/rcv1_bbit.py's k=500, b=16: the archive written through B1
+    (no plain call) has the CPU's bytes, and launch/fsck.py passes it."""
+    from repro_torch.configs.rcv1_bbit import CONFIG
+    from repro_torch.data.hashed_dataset import preprocess_and_save
+    from repro_torch.data.synth_rcv1 import SynthRcv1Config, generate_arrays
+    from repro_torch.launch.fsck import fsck_archive
+    rows, labels = generate_arrays(300, SynthRcv1Config(**STREAM_CORPUS))
+    for dev in ("cuda", "cpu"):
+        ops.reset_counts()
+        preprocess_and_save(str(tmp_path / dev), rows, labels, k=CONFIG.k,
+                            b=CONFIG.b, seed=0, n_shards=4, chunk=128,
+                            device=dev)
+        counts = ops.counts()
+        if dev == "cuda":
+            assert counts["minhash_pack"] == 3
+            assert counts["minhash_pack_plain"] == 0
+    for name in sorted(os.listdir(tmp_path / "cpu")):
+        if name.endswith(".npy"):
+            assert ((tmp_path / "cuda" / name).read_bytes()
+                    == (tmp_path / "cpu" / name).read_bytes()), name
+    report = fsck_archive(str(tmp_path / "cuda"))
+    assert report["verified"] == 4 and not report["corrupt"]
+
+
+def test_calibrate_profile_sizes_the_engine_on_the_card(cuda, tmp_path):
+    """perf.calibrate on the card (kernel arms only), a profile keyed to
+    this card, and an engine built from it: every choice a hit or the
+    static rule, no plain call, scores equal to the static grid's."""
+    from repro_torch import perf
+    perf.reset()
+    try:
+        table = perf.calibrate(k=64, b_values=(8,), schemes=("oph",),
+                               encode_rows=(4,), encode_widths=(256,),
+                               logits_rows=(16,), max_batch=8,
+                               nnz_buckets=(128, 512), trials=2,
+                               budget_s=120.0, seed=0, device=cuda)
+        assert table.fingerprint["backend"] == "cuda"
+        assert table.fingerprint["device_kind"] == \
+            torch.cuda.get_device_name(0)
+        assert all(key.split("|")[1] in ("kernel", "fused")
+                   for key in table.entries)
+        path = str(tmp_path / "p.json")
+        table.save(path)
+        assert perf.maybe_load_profile(path)
+        cfg = BBitLinearConfig(k=64, b=8)
+        params = init_bbit_linear(cfg, torch.Generator().manual_seed(0),
+                                  device=cuda)
+        docs = [np.unique(np.random.default_rng(i).integers(
+            0, 1 << 30, size=50 + 40 * i)) for i in range(12)]
+        kw = dict(scheme="oph", device=cuda, max_batch=8,
+                  nnz_buckets=(128, 512))
+        ops.reset_counts()
+        with HashedClassifierEngine(params, cfg, row_buckets=None,
+                                    **kw) as eng:
+            got = eng.score_docs(docs)
+            st = eng.stats()
+        counts = ops.counts()
+        with HashedClassifierEngine(params, cfg, row_buckets=(1, 2, 4, 8),
+                                    **kw) as eng:
+            want = eng.score_docs(docs)
+        assert st["dispatch"]["profile_loaded"]
+        assert st["dispatch"]["hits"] > 0
+        assert set(st["lane_caps"]) == {"128", "512"}
+        assert all(v == 0 for name, v in counts.items()
+                   if name.endswith("_plain"))
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    finally:
+        perf.reset()

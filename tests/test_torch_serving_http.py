@@ -595,8 +595,6 @@ def test_config_serving_kwargs_match_reference():
 def test_launch_serve_refuses_unported_modes(capsys):
     assert launch_serve.main(["--mode", "lm"]) == 2
     assert "ROADMAP A6" in capsys.readouterr().err
-    assert launch_serve.main(["--profile", "p.json"]) == 2
-    assert "ROADMAP A4" in capsys.readouterr().err
 
 
 def test_launch_serve_http_binds_answers_and_drains(repo_src):

@@ -8,7 +8,8 @@ start aligned (``oph_pack_layout``, ``oph_pack_vec``).
 codes, one load where the rows start aligned, and blocks of 1-8 rows
 (``packed_fwd_layout``, ``packed_fwd_vec``).  ``minhash_pack`` (B1) cuts
 each row into blocks of a few hash lanes, 1-8 a thread, whose threads
-split the row's ids (``minhash_pack_layout``).
+split the row's ids (``minhash_pack_layout``), whole bytes of codes at
+any b in [1, 16].
 ``bbit_linear_packed_bwd_dw`` (B6) gives a block 8 bins and a span of
 32-row groups, a cluster of blocks along the rows, chosen from the shapes
 alone (``packed_dw_layout``).  The kernels run only on the card
@@ -16,8 +17,10 @@ alone (``packed_dw_layout``).  The kernels run only on the card
 and addresses, checked here.  Nothing here imports JAX or launches."""
 import inspect
 
+import numpy as np
 import pytest
 
+from repro_torch.core.bbit import pack_codes
 from repro_torch.kernels import bbit_linear as bl
 from repro_torch.kernels import fused_encode as fe
 
@@ -134,6 +137,71 @@ def test_minhash_pack_layout_hashes_every_id_and_lane_once(n, m, k, bits):
              for t in range(lt) for l in range(lpt)
              if (j := block * lanes + t * lpt + l) < k]
     assert owned == list(range(k))
+
+
+def _b1_pack_model(codes, k, bits, lanes):
+    """csrc's packing loop of B1, block by block: byte q of block y holds
+    bits [8q, 8q + 8) of the block's LSB-first stream, code l from
+    8q / b while l·b < 8q + 8, lanes >= k as 0; → (packed row bytes,
+    times each byte was written)."""
+    out_w = (k * bits + 7) // 8
+    row = np.zeros(out_w, np.int64)
+    writes = np.zeros(out_w, np.int64)
+    bytes_ = lanes * bits // 8
+    for y in range(-(-k // lanes)):
+        for q in range(bytes_):
+            col = y * bytes_ + q
+            if col >= out_w:
+                break
+            lo = 8 * q
+            byte, lane = 0, lo // bits
+            while lane * bits < lo + 8:
+                if y * lanes + lane >= k:
+                    break
+                code = int(codes[y * lanes + lane]) & ((1 << bits) - 1)
+                shift = lane * bits - lo
+                byte |= code << shift if shift >= 0 else code >> -shift
+                lane += 1
+            row[col] = byte & 0xFF
+            writes[col] += 1
+    return row.astype(np.uint8), writes
+
+
+@pytest.mark.parametrize("bits", range(1, 17))
+@pytest.mark.parametrize("k", [8, 37, 256, 500])
+@pytest.mark.parametrize("n", [1, 64, 1024])
+def test_minhash_pack_layout_at_every_b(n, k, bits):
+    """B1 at any b in [1, 16]: a block's lanes are a multiple of
+    lcm(b, 8) / b (whole bytes of codes that may straddle bytes), every
+    hash lane of a row is one thread's, every id one id slice's, and the
+    packing loop writes each byte of the row once, with the bytes of
+    ``pack_codes``."""
+    lpt, lt, warps = fe.minhash_pack_layout(n, k, bits, 132)
+    lanes = lpt * lt
+    assert lanes % fe.minhash_pack_min_lanes(bits) == 0
+    assert lanes * bits % 8 == 0 and lanes <= 256
+    assert fe.minhash_pack_min_lanes(bits) == (
+        np.lcm(bits, 8) // bits)
+    owned = [j for block in range(-(-k // lanes))
+             for t in range(lt) for l in range(lpt)
+             if (j := block * lanes + t * lpt + l) < k]
+    assert owned == list(range(k))
+    for length in (0, 1, 5, 301):
+        taken = _b1_groups_taken(length, lpt, lt, warps)
+        assert sorted(taken) == list(range(-(-length // 4)))
+    rng = np.random.default_rng(bits * 1000 + k)
+    codes = rng.integers(0, 1 << bits, size=(1, k)).astype(np.uint16)
+    row, writes = _b1_pack_model(codes[0], k, bits, lanes)
+    assert np.all(writes == 1)
+    assert np.array_equal(row, pack_codes(codes, bits)[0])
+
+
+def test_minhash_pack_min_lanes():
+    """8 lanes (3 bytes) at b=3, 4 (3 bytes) at b=6, 2 (3 bytes) at b=12,
+    1 (2 bytes) at b=16; the whole-byte b keep their 8 / b."""
+    got = {b: fe.minhash_pack_min_lanes(b) for b in (1, 2, 3, 4, 6, 8, 12,
+                                                     16)}
+    assert got == {1: 8, 2: 4, 3: 8, 4: 2, 6: 4, 8: 1, 12: 2, 16: 1}
 
 
 @pytest.mark.parametrize("sms", [66, 114, 132])
