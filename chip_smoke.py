@@ -3,6 +3,8 @@
 experiment (TRON over b-bit codes and VW sketches, at the rcv1_oph width
 and at the paper's own k=500, b=16), of its streaming path (packed shard
 archives, one-pass SGD with checkpoints and a supervised restart), of
+its data-parallel streaming (a folded fit, a gang of worker processes
+killed and restarted, an elastic resume, compressed gradients), of
 its HTTP serving tier (dedup cache, hot reload from the streaming fit's
 published checkpoints, admission, drain), of the training launcher's
 ``--mode linear`` at k=500, b=16, of the cost model's calibration and of
@@ -91,6 +93,30 @@ Phases, one line of output each (or more), any failure exits non-zero:
            params, and at the element of the largest gap its gradient,
            the rows that hit it, how far their douts cancel and AdamW's
            ratio;
+  dp       the data-parallel path on the stream phase's oph archive at
+           configs/rcv1_oph.py's streaming settings with data_parallel=2
+           (8 steps of two 1,024-row slots), launch counters at zero
+           before and read after: fit_streaming folding both slots on the
+           card (host ms a step); a 2-rank gang of worker processes
+           (run_multiprocess_supervised, both ranks on cuda:0 over gloo)
+           with rank 1 killed (SIGKILL) before step 5: exactly one gang
+           restart, both ranks' params bitwise equal to the fold; a gang
+           stopped after 4 shards, resumed in one process (elastic 2 -> 1)
+           bitwise equal to the fold; grad_compress 8 and 1, and AdamW
+           with bfloat16 and int8 moments in the serial arm; the fold
+           through a one-rank NCCL group (two all-reduces a step) bitwise
+           equal to the fold; held-out accuracy above 0.9 for every run
+           (B2 + B5); B2, B5 and B6 launched, no plain call (the gang's
+           workers count their own, and show B5 and B6 with no plain
+           call).  The wire bytes a step of the exact, int8 and sign
+           exchanges from the collectives record.  Then the compressed
+           and narrow-moment fits on the CPU, allclose (1e-4, 1e-5) to
+           the card's; a fit that rounds its state (int8 gradient
+           payloads, bfloat16 moments) and misses is replayed on the CPU
+           with the card's rounding where the two sides' inputs straddle
+           a boundary (each flip checked: inputs within 1e-5 of the
+           largest magnitude the rounding sees, int8 results one quantum
+           apart) and must then be allclose;
   serve    configs/rcv1_oph.py's serving deployment (serve_kwargs +
            dedup_kwargs: oph, k=256, b=8, nnz lanes 128..32768, row
            buckets 1..64, 2 ms, pipeline depth 2, a dedup cache of 65,536
@@ -189,7 +215,7 @@ Phases, one line of output each (or more), any failure exits non-zero:
            corpus; B10 over the 20,000 indexed rows and over a typical
            candidate set.
 
-The phases run in the order engine, train, stream, serve, paper,
+The phases run in the order engine, train, stream, dp, serve, paper,
 linear, calibrate, search, timing.  The last three lines are the card's
 name and power limit, one JSON
 object describing every kernel, and {"ok": true, "device": {...}}.  A
@@ -1185,13 +1211,16 @@ def phase_stream(torch, dev, card: str, data: dict):
     written under build/ and removed after.  → (its record, the serve
     phase's handover: the uninterrupted fit's checkpoint directory copied
     to SERVE_DIR, its held-out accuracy and eval params)."""
-    import shutil
     work = os.path.join(ROOT, "build", "chip_smoke_stream")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        return stream_in(torch, dev, card, data, work)
-    finally:
+        out, handover = stream_in(torch, dev, card, data, work)
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
+    # the dp phase fits the same archive, then removes the directory
+    handover["stream_work"] = work
+    return out, handover
 
 
 def stream_in(torch, dev, card: str, data: dict, work: str):
@@ -1320,6 +1349,7 @@ def stream_in(torch, dev, card: str, data: dict, work: str):
     handover = {"ckpt_dir": os.path.join(SERVE_DIR, "ckpt"),
                 "state_dir": os.path.join(SERVE_DIR, "state"),
                 "empty_dir": os.path.join(SERVE_DIR, "empty"),
+                "oph_root": roots["oph"],
                 "test_acc": test_acc,
                 "eval_params": {name: t.cpu().numpy() for name, t
                                 in u.eval_params.items()}}
@@ -1595,6 +1625,407 @@ def stream_gap(torch, dev, root: str, cfg, kw: dict, u, cpu) -> dict:
         print(f"stream: gap step {t}: {json.dumps(rec)}")
     if not faithful:
         fail("stream: the step replay departs from the fits it replays")
+    return out
+
+
+# the dp phase: the stream phase's oph archive at configs/rcv1_oph.py's
+# streaming settings over 2 logical shard slots: 4 groups of 2 shards, 2
+# steps a group (1,024 and 976 rows a slot), checkpoints every 4 shards;
+# the gang's kill of rank 1 before step 5, after the checkpoint at shard
+# 4; the elastic gang stopped after shard 4
+DP_WORLD, DP_STEPS, DP_KILL_STEP, DP_STOP_SHARDS = 2, 8, 5, 4
+DP_GANG_TIMEOUT_S = 300.0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# a rounding flip the replay forgives: the two sides' inputs to the rounding
+# within 1e-5 of the largest magnitude that rounding sees (an int8 block's
+# absmax, 127 quanta; a bfloat16 tensor's largest value), the bound of a
+# float32 sum taken in another order (DW_SUM_TOL); int8 results one quantum
+# apart
+FLIP_TOL = 1e-5
+
+
+def rounding_replay(torch, name: str, card_fit, cpu_fit) -> dict:
+    """The compressed gradient (int8) and the bfloat16 moments round
+    float32 state: where the card's and the CPU's inputs straddle a
+    rounding boundary by a float32 rounding, they take neighbouring
+    values a whole quantum apart, and the fits part by far more than
+    their float32 sums do.  So: the card fit again, recording each
+    rounding; then the CPU fit, its rounding taking the card's result
+    wherever the two differ -- each such flip checked to be a boundary
+    one (inputs within FLIP_TOL of the largest magnitude the rounding
+    sees, int8 results one quantum apart) -- and every other operation
+    its own.  → the flips and the CPU replay's fit (the
+    card's recorded fit must equal ``card_fit`` bit for bit)."""
+    from repro_torch.distributed import grad_compression as gc
+    from repro_torch.optim import optimizers as optmod
+    from repro_torch.train.metrics import trees_bitwise_equal
+
+    if name.startswith("compress"):
+        mod, attr = gc, "_blockwise_quantize"
+    else:
+        mod, attr = optmod, "maybe_quantize"
+    orig = getattr(mod, attr)
+    record, flips = [], {"calls": 0, "flips": 0, "bad": 0, "worst": 0.0}
+
+    def rounded(args):
+        """(input, rounded output, the input in the output's units)."""
+        if attr == "_blockwise_quantize":
+            g, block = args
+            q, scale = orig(g, block)
+            flat = torch.nn.functional.pad(
+                g.reshape(-1), (0, (-g.numel()) % block)).reshape(-1, block)
+            return (q, scale), flat / scale
+        x, dtype, block = (tuple(args) + (0,))[:3]
+        out = orig(x, dtype, block)
+        return out, x
+
+    def recording(*args):
+        out, units = rounded(args)
+        if attr == "maybe_quantize" and args[1] != "bfloat16":
+            return out
+        record.append(tuple(t.detach().cpu().clone() for t in
+                            ((out[0],) if attr == "_blockwise_quantize"
+                             else (out,)) + (units,)))
+        return out
+
+    def forcing(*args):
+        out, units = rounded(args)
+        if attr == "maybe_quantize" and args[1] != "bfloat16":
+            return out
+        want, want_units = record[flips["calls"]]
+        flips["calls"] += 1
+        got = out[0] if attr == "_blockwise_quantize" else out
+        diff = got != want
+        if attr == "_blockwise_quantize":
+            # the inputs in quanta: an int8 block's absmax is 127 of them
+            gap = (units - want_units).abs() / 127.0
+            step = (got.to(torch.int32) - want.to(torch.int32)).abs()
+            ok = (step[diff] == 1) & (gap[diff] <= FLIP_TOL)
+        else:
+            gap = (units - want_units).abs() / want_units.abs().max(
+            ).clamp_min(1e-30)
+            ok = gap[diff] <= FLIP_TOL
+        n = int(diff.sum())
+        if n:
+            flips["flips"] += n
+            flips["bad"] += int((~ok).sum())
+            flips["worst"] = max(flips["worst"], float(gap[diff].max()))
+        forced = torch.where(diff, want, got)
+        return (forced, out[1]) if attr == "_blockwise_quantize" else forced
+
+    try:
+        setattr(mod, attr, recording)
+        again = card_fit["fit"]()
+        setattr(mod, attr, forcing)
+        cpu_replay = cpu_fit()
+    finally:
+        setattr(mod, attr, orig)
+    same = (trees_bitwise_equal(again.params, card_fit["res"].params)
+            and trees_bitwise_equal(again.avg_params,
+                                    card_fit["res"].avg_params))
+    return dict(flips, recorded=len(record), card_repeats=same,
+                replay=cpu_replay)
+
+
+def phase_dp(torch, dev, card: str, data: dict, handover: dict) -> dict:
+    """The paper's data-parallel streaming path on the stream phase's oph
+    archive (removed after): fit_streaming folding 2 logical slots in one
+    process, a 2-rank gang (both ranks on the card, over gloo) killed
+    once, an elastic 2 -> 1 resume, the compressed exchanges and the
+    narrow AdamW moments against the CPU, and the fold's step through a
+    one-rank NCCL group."""
+    work = handover["stream_work"]
+    try:
+        return dp_in(torch, dev, card, data, handover["oph_root"],
+                     os.path.join(work, "dp"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def gang_matches(path: str, res) -> bool:
+    """A gang rank's dumped params and average bit for bit ``res``'s."""
+    from repro_torch import tree
+    got = np.load(path)
+    want = {f"p{i}": t for i, t in enumerate(tree.leaves(res.params))}
+    want.update({f"a{i}": t for i, t
+                 in enumerate(tree.leaves(res.avg_params))})
+    return set(got.files) == set(want) and all(
+        np.array_equal(got[k], t.cpu().numpy()) for k, t in want.items())
+
+
+def dp_in(torch, dev, card: str, data: dict, root: str, work: str) -> dict:
+    from repro_torch.configs.rcv1_oph import CONFIG
+    from repro_torch.data.hashed_dataset import preprocess_rows_packed
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.runtime import (init_runtime,
+                                                 shutdown_runtime)
+    from repro_torch.ft.faults import FaultEvent, FaultPlan
+    from repro_torch.ft.retry import BackoffPolicy
+    from repro_torch.ft.watchdog import StepWatchdog
+    from repro_torch.kernels import ops
+    from repro_torch.models.linear import bbit_scores_packed
+    from repro_torch.train.metrics import accuracy, trees_bitwise_equal
+    from repro_torch.train.streaming import fit_streaming
+    from repro_torch.train.supervisor import (RestartPolicy,
+                                              run_multiprocess_supervised)
+
+    rows, labels = data["rows"], data["labels"]
+    n = TRAIN_ROWS
+    cfg = CONFIG.linear_config()
+    kw = CONFIG.stream_kwargs(seed=CONFIG.seed, data_parallel=DP_WORLD,
+                              elastic=True)
+    serial_kw = dict(kw, data_parallel=None)
+    policy = RestartPolicy(max_restarts=2, backoff=BackoffPolicy(
+        base_s=0.05, cap_s=0.5, seed=CONFIG.seed))
+    out = {"card": card, "settings": dict(
+        kw, kill_step=DP_KILL_STEP, stop_after_shards=DP_STOP_SHARDS)}
+
+    def fit(**extra):
+        return fit_streaming(root, cfg, device=dev, **dict(kw, **extra))
+
+    def gang(name, **extra):
+        return timed(torch, lambda: run_multiprocess_supervised(
+            root, cfg, procs=2, run_dir=os.path.join(work, name),
+            policy=policy, local_devices=1,
+            attempt_timeout_s=DP_GANG_TIMEOUT_S,
+            ckpt_dir=os.path.join(work, name, "ckpt"), device="cuda",
+            **dict(kw, **extra)))
+
+    def wire(res) -> dict:
+        cb = collectives.collective_bytes()
+        return {op: cb[op] / res.n_steps for op in ("all-reduce",
+                                                    "all-gather")}
+
+    # -- the main path on the card: every launch counted from here ----
+    ops.reset_counts()
+    runs, backends, wires = {}, {}, {}
+    steps_wd = StepWatchdog(window=DP_STEPS)
+    collectives.reset_collective_stats()
+    runs["fold"] = fit(ckpt_dir=os.path.join(work, "fold"),
+                       watchdog=steps_wd)
+    backends["fold"] = "none (one process, no group)"
+    wires["exact"] = wire(runs["fold"])
+    kill = FaultPlan([FaultEvent(site="proc_kill", step=DP_KILL_STEP,
+                                 rank=1, times=1)])
+    g, g_s = gang("gang", fault_spec=kill.to_spec())
+    part, part_s = gang("elastic", stop_after_shards=DP_STOP_SHARDS)
+    runs["elastic"] = fit(ckpt_dir=os.path.join(work, "elastic", "ckpt"))
+    backends["elastic"] = "gloo gang, then none"
+    for bits in (8, 1):
+        collectives.reset_collective_stats()
+        runs[f"compress{bits}"] = fit(grad_compress=bits)
+        backends[f"compress{bits}"] = backends["fold"]
+        wires[f"compress{bits}"] = wire(runs[f"compress{bits}"])
+    for md in ("bfloat16", "int8"):
+        runs[f"adamw_{md}"] = fit_streaming(root, cfg, device=dev,
+                                            moment_dtype=md, **serial_kw)
+        backends[f"adamw_{md}"] = "none (serial arm)"
+    rt = init_runtime(procs=1, rank=0,
+                      coordinator=f"127.0.0.1:{free_port()}", device=dev,
+                      backend="nccl")
+    try:
+        collectives.reset_collective_stats()
+        runs["nccl"] = fit(runtime=rt)
+        nccl_stats = collectives.collective_stats()
+        backends["nccl"] = rt.backend
+    finally:
+        shutdown_runtime()
+    held, _ = preprocess_rows_packed(rows[n:], K, B, scheme="oph",
+                                     seed=HASH_SEED, device=dev)
+    held_t = torch.from_numpy(held).to(dev)
+    accs = {}
+    with torch.no_grad():
+        for name, res in runs.items():
+            accs[name] = accuracy(
+                bbit_scores_packed(res.eval_params, held_t, cfg) > 0,
+                labels[n:])
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    # -- end of the main path -------------------------------------------
+
+    fold = runs["fold"]
+    for name, res in runs.items():
+        line = dict(fit_line(res), backend=backends[name],
+                    test_acc=accs[name], lineage=res.topology_lineage)
+        if name == "elastic":
+            # this call trained the half after the gang's 4 shards
+            line["rows"] = res.examples_seen - part.result["examples_seen"]
+            line["rows_per_s"] = line["rows"] / res.train_seconds
+        out[name] = line
+        print(f"dp: fit {name} backend={line['backend']} seconds="
+              f"{line['seconds']} steps={line['steps']} rows="
+              f"{line['rows']} rows_per_s={line['rows_per_s']} "
+              f"progressive_acc={line['progressive_acc']} held-out "
+              f"accuracy={accs[name]} lineage={res.topology_lineage} "
+              f"card={card}")
+        if accs[name] <= 0.9:
+            fail(f"dp: {name} held-out accuracy {accs[name]} <= 0.9")
+    if (fold.n_steps, fold.examples_seen) != (DP_STEPS, n):
+        fail(f"dp: fold took {fold.n_steps} steps over "
+             f"{fold.examples_seen} rows")
+    step_ms = [t * 1e3 for t in steps_wd.window]
+    out["fold"].update(step_ms_median=float(np.median(step_ms)),
+                       step_ms_max=max(step_ms))
+    print(f"dp: fold's steps on the host (enqueue, StepWatchdog, 2 slots "
+          f"a step): median {out['fold']['step_ms_median']} ms, max "
+          f"{out['fold']['step_ms_max']} ms card={card}")
+    for name, res in (("elastic", runs["elastic"]), ("nccl", runs["nccl"])):
+        same = (trees_bitwise_equal(fold.params, res.params)
+                and trees_bitwise_equal(fold.avg_params, res.avg_params)
+                and fold.progressive_acc == res.progressive_acc)
+        print(f"dp: {name} fit bitwise equal to the fold (params, "
+              f"average, progressive accuracy)={same}")
+        if not same:
+            fail(f"dp: the {name} fit departs from the fold")
+    if [r["procs"] for r in runs["elastic"].topology_lineage] != [2, 1]:
+        fail(f"dp: elastic lineage {runs['elastic'].topology_lineage}")
+    n_all_reduce = sum(st["op"] == "all-reduce" for st in nccl_stats)
+    print(f"dp: the fold's steps through a one-rank NCCL group: "
+          f"{n_all_reduce} all-reduces over {runs['nccl'].n_steps} steps "
+          f"(group size {sorted({st['group_size'] for st in nccl_stats})})")
+    if n_all_reduce != 2 * runs["nccl"].n_steps:
+        fail("dp: the NCCL run did not issue two all-reduces a step")
+
+    # -- the gangs (worker processes: their own launch counters) --------
+    out["gang"] = dict(restarts=g.restarts, wall_s=g_s,
+                       attempt_s=g.attempt_s,
+                       crashes=[c.error for c in g.crashes],
+                       backoff_s=[c.backoff_s for c in g.crashes],
+                       recover_s=[c.recover_s for c in g.crashes],
+                       results=g.results)
+    out["elastic"]["gang"] = dict(wall_s=part_s, attempt_s=part.attempt_s,
+                                  result=part.result)
+    print(f"dp: gang of 2 ranks on {[r['device'] for r in g.results.values()]}"
+          f" over {[r['backend'] for r in g.results.values()]}: restarts="
+          f"{g.restarts} ({out['gang']['crashes']}), attempt seconds "
+          f"{g.attempt_s}, backoff {out['gang']['backoff_s']} s, recovery "
+          f"{out['gang']['recover_s']} s, run_multiprocess_supervised "
+          f"{g_s} s in all; the elastic gang stopped after "
+          f"{part.result['shards_processed']} shards in {part.attempt_s} s "
+          f"card={card}")
+    if g.restarts != 1 or "signal 9" not in g.crashes[0].error:
+        fail(f"dp: {g.restarts} gang restarts for one kill")
+    if part.result["completed"] or part.result["shards_processed"] != \
+            DP_STOP_SHARDS:
+        fail(f"dp: the elastic gang stopped at {part.result}")
+    for r, rec in g.results.items():
+        same = gang_matches(g.params_paths[r], fold)
+        gc = rec["kernel_counts"]
+        stray = {k: v for k, v in gc.items() if k.endswith("_plain") and v}
+        # the worker's counters and record cover its last attempt: the
+        # steps after the resume, two all-reduces each
+        print(f"dp: gang rank {r} backend={rec['backend']} device="
+              f"{rec['device']} params and average bitwise equal to the "
+              f"fold={same}; its last attempt: "
+              f"{rec['collectives']['count'] // 2} steps in "
+              f"{rec['train_seconds']} s, launches B5 "
+              f"{gc['bbit_linear_packed_fwd']} B6 "
+              f"{gc['bbit_linear_packed_bwd_dw']}, plain {stray}, wire "
+              f"bytes {rec['collectives']}")
+        if not same:
+            fail(f"dp: gang rank {r} departs from the fold")
+        if rec["backend"] != "gloo":
+            fail(f"dp: gang rank {r} ran over {rec['backend']}")
+        if stray or not (gc["bbit_linear_packed_fwd"]
+                         and gc["bbit_linear_packed_bwd_dw"]):
+            fail(f"dp: gang rank {r} launches {gc}")
+    # the elastic gang ran from step 0: its record is its whole fit
+    prec = part.result
+    out["elastic"]["gang"]["rows_per_s"] = (prec["examples_seen"]
+                                            / prec["train_seconds"])
+    print(f"dp: the elastic gang (rank 0, from step 0 over gloo): "
+          f"{prec['n_steps']} steps, {prec['examples_seen']} rows in "
+          f"{prec['train_seconds']} s, "
+          f"{out['elastic']['gang']['rows_per_s']} rows/s card={card}")
+    wires["gang_exact"] = {op: prec["collectives"][op] / prec["n_steps"]
+                           for op in ("all-reduce", "all-gather")}
+    out["wire_bytes_per_step"] = wires
+    print(f"dp: wire bytes a step (the result landing on each "
+          f"participant; in one process the group has one member) "
+          f"{json.dumps(wires)}")
+    if not (wires["compress8"]["all-gather"]
+            < wires["exact"]["all-reduce"] / 3
+            and wires["compress1"]["all-gather"]
+            < wires["compress8"]["all-gather"]):
+        fail(f"dp: compressed wire bytes {wires}")
+
+    need = ("oph_pack", "bbit_linear_packed_fwd",
+            "bbit_linear_packed_bwd_dw")
+    missing = [name for name in need if counts[name] < 1]
+    stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    print(f"dp: launches {json.dumps(counts)}")
+    if missing or stray:
+        fail(f"dp: kernels not launched {missing}, plain calls {stray}")
+    out["counts"] = counts
+
+    # -- the same fits on the CPU (the kernels' plain versions) ---------
+    def compare(res, cpu):
+        errs, outside = {}, {}
+        for tag, a, b_ in (("params", res.params, cpu.params),
+                           ("avg", res.avg_params, cpu.avg_params)):
+            for key in a:
+                errs[f"{tag}.{key}"] = float(
+                    (a[key].cpu() - b_[key]).abs().max())
+                outside[f"{tag}.{key}"] = int((~torch.isclose(
+                    a[key].cpu(), b_[key], **STREAM_CPU_TOL)).sum())
+        return errs, outside, not any(outside.values())
+
+    for name, extra in (("compress8", dict(grad_compress=8)),
+                        ("compress1", dict(grad_compress=1)),
+                        ("adamw_bfloat16", dict(serial_kw,
+                                                moment_dtype="bfloat16")),
+                        ("adamw_int8", dict(serial_kw,
+                                            moment_dtype="int8"))):
+        opts = dict(kw, **extra)
+        cpu = fit_streaming(root, cfg, device="cpu", **opts)
+        res = runs[name]
+        errs, outside, close = compare(res, cpu)
+        out[name]["cpu"] = dict(fit_line(cpu), max_abs_err=errs,
+                                outside=outside, allclose=close)
+        print(f"dp: {name} card vs cpu: steps {res.n_steps}/{cpu.n_steps} "
+              f"progressive_acc {res.progressive_acc}/{cpu.progressive_acc}"
+              f" max_abs_err {errs} allclose(rtol 1e-4, atol 1e-5)="
+              f"{close} (elements outside {outside}); {cpu.train_seconds} "
+              "s on the host")
+        if (res.n_steps, res.examples_seen) != (cpu.n_steps,
+                                                cpu.examples_seen):
+            fail(f"dp: the card's {name} fit departs from the CPU's")
+        if close:
+            continue
+        if name not in ("compress8", "adamw_bfloat16"):
+            fail(f"dp: the card's {name} fit departs from the CPU's")
+        # a path that rounds its state: replay the CPU fit with the card's
+        # rounding decisions, each one a checked boundary flip
+        rep = rounding_replay(
+            torch, name,
+            {"res": res,
+             "fit": lambda: fit_streaming(root, cfg, device=dev, **opts)},
+            lambda: fit_streaming(root, cfg, device="cpu", **opts))
+        r_errs, r_outside, r_close = compare(res, rep["replay"])
+        out[name]["cpu"]["replay"] = dict(
+            {k: rep[k] for k in ("calls", "recorded", "flips", "bad",
+                                 "worst", "card_repeats")},
+            max_abs_err=r_errs, outside=r_outside, allclose=r_close)
+        print(f"dp: {name} replayed on the cpu with the card's rounding: "
+              f"{rep['flips']} flips over {rep['calls']} roundings "
+              f"({rep['bad']} beyond {FLIP_TOL} of the largest input; "
+              f"widest input gap {rep['worst']} of it), the card fit "
+              f"repeated bitwise="
+              f"{rep['card_repeats']}; then max_abs_err {r_errs} "
+              f"allclose(rtol 1e-4, atol 1e-5)={r_close} (elements outside "
+              f"{r_outside})")
+        if (rep["bad"] or not rep["card_repeats"] or not r_close
+                or rep["calls"] != rep["recorded"]):
+            fail(f"dp: the card's {name} fit departs from the CPU's beyond "
+                 "its rounding flips")
     return out
 
 
@@ -3123,6 +3554,7 @@ def main() -> int:
     train, train_data = run("train", phase_train, torch, dev, card, errs)
     stream, handover = run("stream", phase_stream, torch, dev, card,
                            train_data)
+    dp = run("dp", phase_dp, torch, dev, card, train_data, handover)
     serve = run("serve", phase_serve, torch, dev, card, train_data, handover)
     paper, paper_data = run("paper", phase_paper, torch, dev, card,
                             train_data, errs)
@@ -3139,8 +3571,8 @@ def main() -> int:
     print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
-    # (engine, train, gradient, stream, serve, paper, linear, calibrate,
-    # search), its error
+    # (engine, train, gradient, stream, dp, serve, paper, linear,
+    # calibrate, search; the dp gang's workers count apart), its error
     # and time at its main path's shapes
     launches = {name: engine["launches"].get(name, 0)
                 + train["counts"][name]
@@ -3148,6 +3580,7 @@ def main() -> int:
                 + paper["counts"][name]
                 + search["counts"].get(name, 0)
                 + stream["counts"][name]
+                + dp["counts"][name]
                 + serve["counts"][name]
                 + linear["counts"][name]
                 + calib["counts"][name]
@@ -3170,7 +3603,8 @@ def main() -> int:
                        "timing": timing["shapes"],
                        "timing_train": timing_train["shapes"],
                        "timing_raw": timing_raw["shapes"], "train": train,
-                       "paper": paper, "stream": stream, "serve": serve,
+                       "paper": paper, "stream": stream, "dp": dp,
+                       "serve": serve,
                        "linear": linear, "calibrate": calib,
                        "search": {k: search[k] for k in ("counts", "recall",
                                                          "candidates")},

@@ -1,5 +1,6 @@
 """Atomic, checksummed, manifest-tracked checkpoints (counterpart of
-``repro/ckpt/checkpoint.py``, single process; the reference's layout).
+``repro/ckpt/checkpoint.py``; the reference's layout; a gang's
+coordinated steps are ``ckpt.coordinated``'s).
 
   <dir>/manifest.json            {"steps": [100, 200, ...], "keep": 3}
   <dir>/step_00000200/ckpt.npz   leaf_00000, leaf_00001, ...
@@ -106,7 +107,12 @@ def _fsync_path(path: str) -> None:
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            # numpy has no bfloat16: its 2-byte words, stored as the
+            # reference's bfloat16 arrays are (void, '<V2')
+            return x.view(torch.int16).numpy().view("V2")
+        return x.numpy()
     return np.asarray(x)
 
 
@@ -219,6 +225,14 @@ def _load_validated(d: str, meta: Optional[dict]) -> dict:
 
 def _like(arr: np.ndarray, leaf: Any):
     """``arr`` in the dtype, shape and place of the template ``leaf``."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        arr = np.asarray(arr)
+        if arr.dtype.itemsize == 2 and arr.dtype.kind in "Vui":
+            words = np.array(arr.view(np.int16)).reshape(tuple(leaf.shape))
+            return torch.from_numpy(words).view(torch.bfloat16).to(
+                leaf.device)
+        return torch.tensor(arr.astype(np.float32)).to(
+            torch.bfloat16).reshape(tuple(leaf.shape)).to(leaf.device)
     if isinstance(leaf, torch.Tensor):
         want = torch.empty((), dtype=leaf.dtype).numpy().dtype
         # np.array keeps a 0-d leaf 0-d (ascontiguousarray would not)
@@ -239,7 +253,14 @@ def restore(root: str, template: Any, step: Optional[int] = None, *,
     explicit ``step`` never falls back: corruption raises
     ``CorruptCheckpointError``.  A leaf-count mismatch with the template
     raises ``ValueError`` (structure, not corruption: nothing is
-    quarantined)."""
+    quarantined).
+
+    A step of a gang (``ckpt.coordinated``: a payload a rank, no
+    top-level ``ckpt.npz``) restores through the same walk: this
+    process's own rank payload is preferred, any valid rank's replicated
+    payload is accepted, and only a step with no valid payload is
+    corrupt.  So a single process resumes a gang's checkpoint (N → 1)
+    and a gang a single process's (1 → N)."""
     if fallback is None:
         fallback = step is None
     if step is None:
@@ -252,8 +273,14 @@ def restore(root: str, template: Any, step: Optional[int] = None, *,
     for s in steps:
         d = _step_dir(root, s)
         try:
-            arrays = _load_validated(d, load_meta(root, s)
-                                     if validate else None)
+            from repro_torch.ckpt import coordinated
+            if coordinated.is_coordinated_dir(d):
+                from repro_torch.distributed.runtime import current_rank
+                arrays = coordinated.load_step_arrays(
+                    d, prefer_rank=current_rank())
+            else:
+                arrays = _load_validated(d, load_meta(root, s)
+                                         if validate else None)
         except CorruptCheckpointError as e:
             last_err = e
             if not fallback:

@@ -8,10 +8,11 @@ densified OPH: one hash evaluation per nonzero instead of k.  k=256 (a
 power of two: OPH bins are top-bit ranges) at b=8 sits on the paper's
 accuracy plateau at a quarter of the storage of k=500, b=16.
 
-The reference's distributed fields (``global_batch``,
-``stream_data_parallel``, ``stream_procs``, ``ft_elastic``,
-``stream_grad_compress``, ``ft_barrier_timeout_s``) wait for ROADMAP A5.
-The cost-model fields (``profile_path``, ``calibrate_*``,
+The distributed fields (``stream_data_parallel``, ``stream_procs``,
+``ft_elastic``, ``stream_grad_compress``, ``ft_barrier_timeout_s``) are
+the reference's and go into ``stream_kwargs`` as it puts them;
+``global_batch`` is read by no streaming code in either package and is
+not copied.  The cost-model fields (``profile_path``, ``calibrate_*``,
 ``calibrate_kwargs``) are the reference's, but the port's profile has a
 file of its own (a profile of the JAX package is rejected by its
 fingerprint, and the two must not overwrite each other).  Its
@@ -20,6 +21,7 @@ fingerprint, and the two must not overwrite each other).  Its
 not copied.
 """
 import dataclasses
+from typing import Optional
 
 from repro_torch.ft.retry import BackoffPolicy
 from repro_torch.models.linear import BBitLinearConfig
@@ -50,12 +52,25 @@ class OPHPaperConfig:
     avg_start_frac: float = 0.5
     ckpt_every_shards: int = 4
     stream_prefetch: int = 2
+    # the data-parallel world (None: the serial schedule; N: N shard
+    # slots a step, gradients all-reduced with psum_mean)
+    stream_data_parallel: Optional[int] = None
     # fault tolerance: restart budget and capped exponential backoff of
-    # train.supervisor.run_supervised, and the checkpoint ring's depth
+    # train.supervisor.run_supervised, the checkpoint ring's depth, and
+    # elastic resume (fold the logical world onto the devices alive;
+    # power-of-two counts stay bit-identical)
     ft_max_restarts: int = 3
     ft_backoff_base_s: float = 1.0
     ft_backoff_cap_s: float = 60.0
     ft_ckpt_keep_last: int = 3
+    ft_elastic: bool = True
+    # gangs (train.supervisor.run_multiprocess_supervised): processes (1:
+    # a single process), the coordinated checkpoint's barrier budget, and
+    # error-feedback gradient compression over the gang's all-reduce
+    # (None: exact float32; 8: int8 blockwise absmax; 1: sign+scale)
+    stream_procs: int = 1
+    ft_barrier_timeout_s: float = 120.0
+    stream_grad_compress: Optional[int] = None
     # serving engine (serving.HashedClassifierEngine): micro-batch size
     # and coalescing window, replicas (cuda:0..N-1), the nnz lanes (pad
     # widths) and the batcher's dispatch/resolve overlap depth
@@ -102,7 +117,11 @@ class OPHPaperConfig:
                   lr=self.stream_lr, avg_start_frac=self.avg_start_frac,
                   ckpt_every_shards=self.ckpt_every_shards,
                   prefetch=self.stream_prefetch,
-                  ckpt_keep_last=self.ft_ckpt_keep_last)
+                  data_parallel=self.stream_data_parallel,
+                  elastic=self.ft_elastic,
+                  ckpt_keep_last=self.ft_ckpt_keep_last,
+                  grad_compress=self.stream_grad_compress,
+                  ckpt_barrier_timeout_s=self.ft_barrier_timeout_s)
         kw.update(overrides)
         return kw
 

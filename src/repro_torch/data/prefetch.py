@@ -1,6 +1,5 @@
 """Shard/minibatch prefetch for the streaming trainer: the producer →
-queue → device pipeline (counterpart of ``repro/data/prefetch.py``,
-serial schedule).
+queue → device pipeline (counterpart of ``repro/data/prefetch.py``).
 
   producer thread                        consumer (train loop)
   ───────────────                        ─────────────────────
@@ -11,10 +10,11 @@ serial schedule).
 
   * ``shard_order``: the epoch's shard permutation, a pure function of
     ``(seed, epoch)``;
-  * ``serial_batch_stream``: a plain generator of ``StreamBatch`` /
-    ``Boundary`` events.  The generator is the serial path: run inline
-    (prefetch off) or through the thread (prefetch on), it executes the
-    same code on the same values;
+  * ``serial_batch_stream`` / ``group_batch_stream``: plain generators of
+    ``StreamBatch`` / ``Boundary`` events for the serial and the
+    data-parallel (shards grouped across slots) schedules.  A generator
+    is its schedule: run inline (prefetch off) or through the thread
+    (prefetch on), it executes the same code on the same values;
   * ``ThreadedPrefetcher``: runs any event generator in a bounded daemon
     thread, ``depth`` ≥ 1 items ahead.
 
@@ -37,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -45,7 +45,7 @@ from repro_torch.data.hashed_dataset import iter_hashed_batches
 
 __all__ = [
     "StreamBatch", "Boundary", "ShardStreamError", "shard_order",
-    "serial_batch_stream", "ThreadedPrefetcher",
+    "serial_batch_stream", "group_batch_stream", "ThreadedPrefetcher",
 ]
 
 
@@ -65,9 +65,10 @@ class ShardStreamError(RuntimeError):
 @dataclasses.dataclass
 class StreamBatch:
     """One training step's data: ``args`` the tail of the train step's
-    call, ``(batch, labels)``; ``n_rows`` the examples inside; ``ready``
-    the CUDA event after the batch's copy to the card (None on the
-    CPU)."""
+    call, ``(batch, labels)`` serial and ``(batch, labels, valid)``
+    data-parallel; ``n_rows`` the real examples inside (padding
+    excluded); ``ready`` the CUDA event after the batch's copy to the
+    card (None on the CPU)."""
     args: tuple
     n_rows: int
     ready: Optional[Any] = None
@@ -75,7 +76,8 @@ class StreamBatch:
 
 @dataclasses.dataclass
 class Boundary:
-    """End of a shard: the trainer drains hit counters, advances
+    """End of a shard (serial) or shard group (data-parallel): the
+    trainer drains hit counters, advances
     ``shards_done`` by ``shards_consumed`` and may checkpoint at
     ``(next_epoch, next_pos)``, the position a resumed run restarts
     from."""
@@ -138,6 +140,98 @@ def serial_batch_stream(
                                     if pos + 1 < n_shards
                                     else (epoch + 1, 0))
             yield Boundary(next_epoch, next_pos, 1)
+
+
+def group_batch_stream(
+    root: str, batch_size: int, *, seed: int, epochs: int, n_shards: int,
+    counts: Sequence[int], world: int, shuffle: bool, start_epoch: int,
+    start_pos: int, has_empty: bool, packed_width: int, mask_width: int,
+    transfer: Callable[..., tuple], mmap: bool = True,
+    slot_range: Optional[Tuple[int, int]] = None,
+) -> Iterator[Any]:
+    """Data-parallel event stream: consecutive groups of ``world`` shards
+    of the epoch order, one shard a slot, in lockstep.
+
+    At each global step, slot d's next minibatch of its shard is row d of
+    fixed-shape ``(world, B, …)`` uint8 codes (and mask), int32 labels
+    and bool ``valid``.  A slot whose shard is exhausted, or that got no
+    shard (a short last group), contributes an all-padding row with
+    ``valid`` all False: it takes part in every collective and adds zero
+    gradient, hits and rows.  Each shard's batches are the serial
+    schedule's (the same ``iter_hashed_batches`` permutation).
+
+    ``slot_range=(lo, hi)`` is a gang rank's window
+    (``distributed.runtime.process_slot_range``): it reads only the
+    shards of slots [lo, hi) of each group, and the stacked arrays carry
+    those ``hi - lo`` rows.  The schedule stays global: ``n_rows`` counts
+    the real examples of all slots (from ``counts``, no remote reads),
+    each group takes the global ``max ceil(rows/B)`` steps, and
+    ``Boundary.shards_consumed`` is the whole group.
+
+    ``transfer(codes, empty|None, labels, valid) -> (args, ready)`` moves
+    a step's arrays to the device.  ``start_pos`` must sit on a group
+    boundary, the only place the trainer checkpoints.
+    """
+    slot_lo, slot_hi = (0, world) if slot_range is None else slot_range
+    if not (0 <= slot_lo < slot_hi <= world):
+        raise ValueError(
+            f"slot_range {slot_range} outside the [0, {world}) slots")
+    if start_pos % world != 0 and start_pos < n_shards:
+        raise ValueError(
+            f"data-parallel resume position {start_pos} is not a "
+            f"multiple of the world size {world} — checkpoint written "
+            "under a different schedule?")
+    local = slot_hi - slot_lo
+    for epoch in range(start_epoch, epochs):
+        order = shard_order(seed, epoch, n_shards, shuffle)
+        first = start_pos if epoch == start_epoch else 0
+        for lo in range(first, n_shards, world):
+            group = [int(s) for s in order[lo: lo + world]]
+            iters = {d: iter_hashed_batches(
+                root, batch_size, shard_ids=[group[d]],
+                perm_seed=(seed, epoch), mmap=mmap)
+                for d in range(len(group)) if slot_lo <= d < slot_hi}
+            n_batches = [-(-counts[s] // batch_size) for s in group]
+            for t in range(max(n_batches)):
+                codes = np.zeros((local, batch_size, packed_width),
+                                 np.uint8)
+                empty = (np.zeros((local, batch_size, mask_width),
+                                  np.uint8) if has_empty else None)
+                labels = np.zeros((local, batch_size), np.int32)
+                valid = np.zeros((local, batch_size), bool)
+                for d, it in iters.items():
+                    if t >= n_batches[d]:
+                        continue
+                    try:
+                        bp, bl, _rid, bem = next(it)
+                        _mask_consistent(bem, has_empty, group[d], root)
+                    except StopIteration as e:
+                        raise RuntimeError(
+                            f"shard {group[d]} yielded fewer batches "
+                            f"than its row count promised") from e
+                    except Exception as e:
+                        raise ShardStreamError(
+                            f"shard {group[d]} (device slot {d}) failed "
+                            f"at epoch {epoch} position {lo + d} of "
+                            f"{root!r}: {e}", shard=group[d],
+                            epoch=epoch, position=lo + d) from e
+                    m = len(bl)
+                    codes[d - slot_lo, :m] = bp
+                    labels[d - slot_lo, :m] = bl
+                    valid[d - slot_lo, :m] = True
+                    if has_empty:
+                        empty[d - slot_lo, :m] = bem
+                # the global real rows of this step, a pure function of
+                # the row counts, so every rank agrees without reads
+                n_rows = sum(
+                    min(batch_size, counts[group[d]] - t * batch_size)
+                    for d in range(len(group)) if t < n_batches[d])
+                args, ready = transfer(codes, empty, labels, valid)
+                yield StreamBatch(args, n_rows, ready)
+            next_epoch, next_pos = ((epoch, lo + world)
+                                    if lo + world < n_shards
+                                    else (epoch + 1, 0))
+            yield Boundary(next_epoch, next_pos, len(group))
 
 
 class ThreadedPrefetcher:

@@ -37,3 +37,10 @@ def replica_devices(device: DeviceLike, replicas: int) -> List[torch.device]:
             f"{replicas} replicas from cuda:{first} need "
             f"{first + replicas} devices, have {torch.cuda.device_count()}")
     return [torch.device("cuda", first + i) for i in range(replicas)]
+
+
+def visible_devices(device: DeviceLike = None) -> int:
+    """Devices a process can spread data-parallel slots over: the CUDA
+    cards for a CUDA device, 1 for the CPU."""
+    base = resolve_device(device)
+    return torch.cuda.device_count() if base.type == "cuda" else 1

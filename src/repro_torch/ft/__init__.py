@@ -1,3 +1,3 @@
-"""Fault tolerance: deterministic fault injection (``faults``), capped
-exponential retry backoff (``retry``) and straggler accounting
-(``watchdog``), copies of the reference's single-process parts."""
+"""Fault tolerance: deterministic fault injection, rank-scoped across a
+gang (``faults``), capped exponential retry backoff (``retry``) and
+straggler accounting (``watchdog``), copies of the reference's."""

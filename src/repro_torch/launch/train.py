@@ -7,7 +7,8 @@
         [--fail-at STEP] [--profile PATH] [--device cuda]
     python -m repro_torch.launch.train --mode stream --workdir DIR \
         [--n-docs 2000] [--k 200] [--b 8] [--batch-size 128] [--lr 1e-2] \
-        [--epochs 1] [--seed 0] [--fail-at STEP] [--device cuda]
+        [--epochs 1] [--seed 0] [--fail-at STEP] [--device cuda] \
+        [--data-parallel N] [--procs P] [--local-devices L]
 
 ``--mode linear`` (the reference's default; the paper's workload at
 ``configs/rcv1_bbit.py``'s k=500, b=16 with ``--k 500 --b 16``):
@@ -27,12 +28,19 @@ with ``fit_streaming`` under the supervised restart loop
 (``train.supervisor.run_supervised``, checkpoints under
 ``DIR/ckpt_stream``): a crash restores the newest valid checkpoint after
 a capped backoff, and ``--fail-at`` injects one at that step.
+``--data-parallel N`` trains N shard slots a step (elastic: folded onto
+the devices there are).  ``--procs P`` (P > 1) runs a gang of P worker
+processes instead (``train.supervisor.run_multiprocess_supervised``,
+``--local-devices`` devices a rank, coordinated checkpoints, bookkeeping
+under ``DIR/gang``), ``--data-parallel`` defaulting to P; there
+``--fail-at`` kills the last rank at that step (SIGKILL) and the gang
+restarts.  ``--mode linear`` ignores ``--procs``, as the reference's
+does.
 
 Both run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions).  ``--profile`` loads a cost-model profile (default:
 ``configs/rcv1_oph.py``'s ``profile_path`` if it exists).  ``--mode lm``
-(ROADMAP A6) and ``--procs``/``--data-parallel`` above 1 (A5) are not
-ported yet and exit with a message.
+(ROADMAP A6) is not ported yet and exits with a message.
 """
 from __future__ import annotations
 
@@ -44,8 +52,6 @@ import numpy as np
 
 NOT_PORTED = {
     "lm": "--mode lm trains the LM zoo, which waits for ROADMAP A6",
-    "gang": "--procs and --data-parallel above 1 run the data-parallel "
-            "gang, which waits for ROADMAP A5",
 }
 
 
@@ -148,7 +154,10 @@ def run_linear(args) -> dict:
 
 
 def run_stream(args) -> dict:
-    """Supervised streaming training over a sharded packed archive."""
+    """Supervised streaming training over a sharded packed archive, in
+    one process or, with ``--procs`` above 1, as a gang under
+    gang-restart supervision (coordinated checkpoints, a respawn from
+    the newest committed step on any worker death)."""
     from repro_torch.configs.rcv1_oph import CONFIG
     from repro_torch.data.hashed_dataset import (preprocess_and_save,
                                                  shard_row_counts)
@@ -170,6 +179,36 @@ def run_stream(args) -> dict:
         print(f"preprocessed {stats['n']} docs into 4 shards in "
               f"{stats['seconds_hashing']:.1f}s (one-time cost)")
 
+    if args.procs and args.procs > 1:
+        from repro_torch.train.supervisor import run_multiprocess_supervised
+        fault_spec = None
+        if args.fail_at is not None:
+            fault_spec = faults.FaultPlan([faults.FaultEvent(
+                site="proc_kill", step=args.fail_at, rank=args.procs - 1,
+                times=1)]).to_spec()
+        run = run_multiprocess_supervised(
+            hashed_dir, BBitLinearConfig(k=args.k, b=args.b),
+            procs=args.procs, run_dir=os.path.join(args.workdir, "gang"),
+            policy=CONFIG.restart_policy(), fault_spec=fault_spec,
+            local_devices=args.local_devices,
+            ckpt_dir=os.path.join(args.workdir, "ckpt_stream"),
+            seed=args.seed, device=args.device,
+            **CONFIG.stream_kwargs(
+                epochs=args.epochs, batch_size=args.batch_size,
+                lr=args.lr, ckpt_every_shards=1,
+                data_parallel=args.data_parallel or args.procs))
+        rec = run.result
+        print(f"gang of {args.procs} procs streamed "
+              f"{rec['examples_seen']} rows x {args.epochs} epochs in "
+              f"{rec['train_seconds']:.1f}s on {args.device} over "
+              f"{rec['backend']}: progressive_acc="
+              f"{rec['progressive_acc']:.4f} steps={rec['n_steps']} "
+              f"gang_restarts={run.restarts} "
+              f"topology={rec['lineage']}")
+        return dict(progressive_acc=rec["progressive_acc"],
+                    steps=rec["n_steps"], restarts=run.restarts,
+                    crashes=[c.error for c in run.crashes])
+
     if args.fail_at is not None:
         faults.arm_plan(faults.FaultPlan([
             faults.FaultEvent(site="train_step", step=args.fail_at,
@@ -183,7 +222,8 @@ def run_stream(args) -> dict:
             seed=args.seed, device=args.device,
             **CONFIG.stream_kwargs(epochs=args.epochs,
                                    batch_size=args.batch_size, lr=args.lr,
-                                   ckpt_every_shards=1))
+                                   ckpt_every_shards=1,
+                                   data_parallel=args.data_parallel))
     finally:
         faults.disarm()
     res = sup.result
@@ -195,6 +235,7 @@ def run_stream(args) -> dict:
           f"{res.progressive_acc:.4f} steps={res.n_steps} "
           f"restarts={sup.restarts} "
           f"stragglers={sup.straggler_escalations} "
+          f"topology={res.topology_lineage} "
           f"dispatch={res.dispatch} "
           f"(profile_hits={rep['hits']} fallbacks={rep['fallbacks']})")
     return dict(progressive_acc=res.progressive_acc,
@@ -223,9 +264,13 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=1,
                     help="passes over the archive")
     ap.add_argument("--data-parallel", type=int, default=None,
-                    help="data-parallel world (not ported: ROADMAP A5)")
+                    help="stream mode: logical data-parallel world "
+                         "(elastic: folds onto the devices there are)")
     ap.add_argument("--procs", type=int, default=None,
-                    help="gang of processes (not ported: ROADMAP A5)")
+                    help="stream mode: a gang of N worker processes "
+                         "(localhost) under gang-restart supervision")
+    ap.add_argument("--local-devices", type=int, default=1,
+                    help="stream mode with --procs: devices a rank")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--profile", default=None,
@@ -235,9 +280,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.mode == "lm":
         print(NOT_PORTED[args.mode], file=sys.stderr)
-        return 2
-    if (args.procs or 1) > 1 or (args.data_parallel or 1) > 1:
-        print(NOT_PORTED["gang"], file=sys.stderr)
         return 2
     os.makedirs(args.workdir, exist_ok=True)
     from repro_torch import perf

@@ -110,6 +110,22 @@ def mean_loss_with_preds_fn(forward: Callable, loss_name: str,
     return f
 
 
+def sum_loss_with_hits_fn(forward: Callable, loss_name: str):
+    """Masked per-example SUM loss and correct-prediction count: ``f(params,
+    codes, labels, valid) -> (loss_sum, hits)`` over the rows where
+    ``valid`` is set, so padded slot batches add exactly their real rows.
+    The data-parallel twin of ``mean_loss_with_preds_fn``: the global
+    mean, and the L2 term (which must not be summed once a slot), are
+    applied by ``train.data_parallel`` after the cross-device sum."""
+    def f(params, codes, labels, valid):
+        per, pred = _per_example(forward(params, codes), labels, loss_name)
+        loss_sum = torch.sum(per * valid.to(per.dtype))
+        hits = torch.sum(torch.where(valid, (pred == labels).to(torch.int32),
+                                     0))
+        return loss_sum, hits
+    return f
+
+
 def mean_loss_fn(forward: Callable, loss_name: str, l2: float = 0.0):
     """Mean per-example loss (the minibatch path), optional L2;
     ``loss_name`` one of ``LOSSES`` or ``"softmax"``."""

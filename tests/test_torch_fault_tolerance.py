@@ -424,9 +424,7 @@ def test_train_cli_streams_on_the_cpu(repo_src, tmp_path):
     assert "preprocessed" not in again.stdout
 
 
-@pytest.mark.parametrize("args,item", [
-    (("--mode", "linear", "--procs", "2"), "A5"), (("--mode", "lm"), "A6"),
-    (("--procs", "2"), "A5"), (("--data-parallel", "2"), "A5")])
+@pytest.mark.parametrize("args,item", [(("--mode", "lm"), "A6")])
 def test_train_cli_names_what_is_not_ported(repo_src, tmp_path, args, item):
     proc = _cli(repo_src, "--device", "cpu", "--workdir",
                 str(tmp_path / "w"), *args)

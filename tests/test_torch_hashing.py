@@ -289,6 +289,10 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
         import repro_torch.serving.dedup, repro_torch.serving.admission
         import repro_torch.serving.server, repro_torch.serving.reload
         import repro_torch.launch.serve
+        import repro_torch.distributed, repro_torch.train.data_parallel
+        import repro_torch.train.worker, repro_torch.ckpt.coordinated
+        import repro_torch.ckpt.elastic, repro_torch.launch.mesh
+        import repro_torch.optim.quantized_state
         from repro_torch.data.hashed_dataset import preprocess_and_save
         from repro_torch.train.streaming import fit_streaming
         rows, labels = generate_arrays(40, SynthRcv1Config(seed=2))
@@ -297,7 +301,11 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
                                 scheme="oph", n_shards=2, device="cpu")
             res = fit_streaming(root, cfg, batch_size=8, device="cpu",
                                 ckpt_dir=root + "/ckpt")
+            dp = fit_streaming(root, cfg, batch_size=8, device="cpu",
+                               data_parallel=2, elastic=True,
+                               grad_compress=8)
         assert res.completed and res.n_steps == 6, res
+        assert dp.completed and dp.topology_lineage[0]["logical"] == 2
         # the codes' leftovers, the loaders and I/O, fsck, the cost model
         # and calibration, the paper's config and --mode linear
         import repro_torch.core.estimators, repro_torch.core.expansion

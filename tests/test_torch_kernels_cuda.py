@@ -30,7 +30,9 @@ byte for byte; ``fit_streaming`` (B5 forward, B6 dW, with and without the
 ``oph_zero`` mask) and ``train_bbit_sgd`` (B7, B8 with a plan a
 minibatch) allclose to the CPU at 1e-4 / 1e-5 with the same steps;
 prefetch depths 0-2 and a resume bit-identical; the pinned encode
-pipeline (two chunks in flight) byte-equal to the CPU."""
+pipeline (two chunks in flight) byte-equal to the CPU; B5 and B6 on a
+padded shard slot of the dp step, and the dp fit (two slots folded onto
+the card) allclose to the CPU's."""
 import os
 
 import numpy as np
@@ -1060,6 +1062,55 @@ def test_fit_streaming_prefetch_and_resume_are_bitwise_on_the_card(
         assert (other.n_steps, other.examples_seen, other.progressive_acc) \
             == (runs[0].n_steps, runs[0].examples_seen,
                 runs[0].progressive_acc)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("valid_rows", [1, 976, 1024])
+def test_packed_kernels_on_a_padded_dp_slot(cuda, masked, valid_rows):
+    """One shard slot of the dp step at the stream batch (1,024 rows, k=256,
+    b=8): its rows past ``valid_rows`` are all-zero padding with dout 0.
+    B5 allclose 1e-5 to its plain version, B6 within each bin's sum of
+    absolute terms and the same bits twice."""
+    k, bits, n = 256, 8, 1024
+    packed, weights, empty = _packed_case(n, k, bits, 1, masked,
+                                          seed=valid_rows, dev=cuda)
+    packed[valid_rows:] = 0
+    if empty is not None:
+        empty[valid_rows:] = 0
+    kw = dict(k=k, bits=bits, empty=empty)
+    got = bbit_linear.bbit_linear_packed_fwd(packed, weights, **kw)
+    want = bbit_linear.bbit_linear_packed_fwd_plain(packed, weights, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    dout = torch.randn((n, 1), generator=torch.Generator().manual_seed(1)
+                       ).to(cuda)
+    dout[valid_rows:] = 0.0
+    _check_packed_dw(packed, dout, empty, 1 << bits, k, bits)
+
+
+def test_dp_fit_streaming_on_the_card_matches_the_cpu(cuda, stream_archives):
+    """fit_streaming folding two logical slots (B5 and B6 once a slot a
+    step, no plain call) against the same fit on the CPU, and with the
+    int8 gradient exchange."""
+    from repro_torch.models.linear import BBitLinearConfig as Cfg
+    from repro_torch.train.streaming import fit_streaming
+    root = stream_archives["oph_zero"]
+    kw = dict(STREAM_FIT, data_parallel=2, elastic=True)
+    ops.reset_counts()
+    card = fit_streaming(root, Cfg(k=64, b=8), device=cuda, **kw)
+    counts = ops.counts()
+    cpu = fit_streaming(root, Cfg(k=64, b=8), device="cpu", **kw)
+    assert counts["bbit_linear_packed_fwd"] == 2 * card.n_steps
+    assert counts["bbit_linear_packed_bwd_dw"] == 2 * card.n_steps
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
+    assert (card.n_steps, card.examples_seen) == (cpu.n_steps,
+                                                  cpu.examples_seen)
+    assert card.topology_lineage[0]["physical"] == 1
+    _stream_close(card.params, cpu.params)
+    _stream_close(card.avg_params, cpu.avg_params)
+    comp = fit_streaming(root, Cfg(k=64, b=8), device=cuda, grad_compress=8,
+                         **kw)
+    assert comp.completed and comp.params["table"].device.type == "cuda"
 
 
 @pytest.mark.parametrize("scheme,packed,b", [

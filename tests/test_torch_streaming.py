@@ -172,8 +172,11 @@ def test_make_optimizer_names_and_refusals():
             assert trees_bitwise_equal(tp, _np_params(jp)), name
     with pytest.raises(ValueError, match="unknown optimizer"):
         topt.make_optimizer("lion", 0.1)
-    with pytest.raises(ValueError, match="A5"):
-        topt.make_optimizer("adamw", 0.1, moment_dtype="int8")
+    for md in ("bfloat16", "int8"):
+        for (jp, tp, js, ts) in _run_both(
+                jopt.make_optimizer("adamw", 0.05, moment_dtype=md),
+                topt.make_optimizer("adamw", 0.05, moment_dtype=md), 5):
+            _close(tp, jp, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("name,args", [
@@ -577,14 +580,6 @@ def test_fit_streaming_rejects_mismatched_config_and_empty_archive(
         fit_streaming(port, LCFG, prefetch=-1, device="cpu")
 
 
-@pytest.mark.parametrize("arm", [dict(data_parallel=2), dict(elastic=True),
-                                 dict(grad_compress=8),
-                                 dict(runtime=object())])
-def test_fit_streaming_data_parallel_arm_waits_for_a5(archives, arm):
-    with pytest.raises(ValueError, match="ROADMAP A5"):
-        fit_streaming(archives[1], LCFG, device="cpu", **arm)
-
-
 def test_fit_streaming_softmax_multiclass(corpus, tmp_path):
     """A 4-class archive trains with softmax through the packed path."""
     rows, _ = corpus
@@ -630,12 +625,9 @@ def test_stream_kwargs_of_the_config_drive_the_port(archives):
     from repro.configs.rcv1_oph import CONFIG as J_CONFIG
     from repro_torch.configs.rcv1_oph import CONFIG
     assert CONFIG.linear_config() == BBitLinearConfig(k=256, b=8)
-    want = J_CONFIG.stream_kwargs()
-    got = CONFIG.stream_kwargs()
-    for dp_only in ("data_parallel", "elastic", "grad_compress",
-                    "ckpt_barrier_timeout_s"):
-        want.pop(dp_only)
-    assert got == want
+    assert CONFIG.stream_kwargs() == J_CONFIG.stream_kwargs()
+    assert (CONFIG.stream_procs, CONFIG.ft_barrier_timeout_s) == (
+        J_CONFIG.stream_procs, J_CONFIG.ft_barrier_timeout_s)
     assert CONFIG.restart_policy() == dataclasses_as_port(
         J_CONFIG.restart_policy())
     res = fit_streaming(archives[1], LCFG, device="cpu",
