@@ -6,7 +6,8 @@ archives, one-pass SGD with checkpoints and a supervised restart), of
 its data-parallel streaming (a folded fit, a gang of worker processes
 killed and restarted, an elastic resume, compressed gradients), of
 its HTTP serving tier (dedup cache, hot reload from the streaming fit's
-published checkpoints, admission, drain), of the training launcher's
+published checkpoints, admission, drain), of bfloat16 tables through
+B5-B8 (streaming, SGD and serving), of the training launcher's
 ``--mode linear`` at k=500, b=16, of the cost model's calibration and of
 banded-LSH search on one NVIDIA GPU.
 
@@ -161,6 +162,30 @@ Phases, one line of output each (or more), any failure exits non-zero:
            equal from a fresh, a cached and a rebuilt plan; the first
            1,024-row chunk's k=500 codes against B3's plain version; the
            reference tests' accuracy limits;
+  bf16     bfloat16 tables (BBitLinearConfig.param_dtype): B5 on the
+           engine's 64 held-out documents (B2, k=256, b=8) and B7 on the
+           paper phase's 16,000 x 500 codes (V=65536, its logistic table
+           rounded) bitwise equal to the same kernel on the table widened
+           and allclose 1e-5 to their plain versions; B6 on 1,024 training
+           rows and B8 (V=65536, a cached plan) bitwise the float32 dW
+           rounded to bfloat16, the float32 dW within 1e-5 of each bin's
+           sum of absolute terms of the plain version's; each bfloat16
+           instantiation timed beside the float32 one on the same inputs.
+           Then, with the launch counters at zero: fit_streaming on the
+           stream phase's oph archive (configs/rcv1_oph.py's streaming
+           settings, a bfloat16 table: B5, B6), stopped after 4 shards and
+           resumed (bitwise), and the same fit folding 2 logical slots a
+           step (data_parallel=2, elastic); held-out accuracy of its Polyak mean above
+           0.9 (B2, B5); train_bbit_sgd (AdamW) at k=500, b=16 on the paper
+           codes, 100 steps of 128 rows (B7, B8 on a 65.5 MB table), test
+           accuracy above 0.9; an engine (oph, k=256, b=8) serving the
+           fit's bfloat16 params and one serving them widened, their
+           scores of the 4,000 held-out documents bitwise equal; the four
+           bfloat16 instantiations launched, no plain call.  Then both
+           fits on the CPU, each allclose (1e-4, 1e-5), or else replayed
+           with the card's roundings (B6's dW, AdamW's store of the param)
+           where the two sides straddle a bfloat16 boundary, each flip
+           checked as in the dp phase, and then allclose;
   linear   launch/train.py --mode linear in process at
            configs/rcv1_bbit.py's k=500, b=16 on the train corpus: the
            4-shard archive preprocess_and_save writes (B1 at b=16, one
@@ -216,14 +241,15 @@ Phases, one line of output each (or more), any failure exits non-zero:
            candidate set.
 
 The phases run in the order engine, train, stream, dp, serve, paper,
-linear, calibrate, search, timing.  The last three lines are the card's
+bf16, linear, calibrate, search, timing.  The last three lines are the card's
 name and power limit, one JSON
 object describing every kernel, and {"ok": true, "device": {...}}.  A
 kernel's max_abs_err there is its largest error at the main path's
 shapes (B1, B2 and B5 in the kernels phase at the engine's rows and
 lanes, B3, B4 and B6-B9 in the train and paper phases, B10 in the
-search phase); the errors of the edge-case checks of B6-B9 (ragged k and
-n, b=1..12, C=4) go to --out only.
+search phase, the bfloat16 instantiations in the bf16 phase); the errors
+of the edge-case checks of B6-B9 (ragged k and n, b=1..12, C=4) go to
+--out only.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -354,6 +380,10 @@ KERNELS = {
     "hamming_distance": ("src/repro_torch/csrc/hamming.cu",
                          "src/repro/kernels/hamming.py:44"),
 }
+# B5-B8 on a bfloat16 table (BBitLinearConfig.param_dtype), counted apart
+KERNELS_BF16 = ("bbit_linear_packed_fwd_bf16",
+                "bbit_linear_packed_bwd_dw_bf16", "bbit_linear_fwd_bf16",
+                "bbit_linear_bwd_dw_bf16")
 
 
 def fail(msg: str):
@@ -1218,7 +1248,7 @@ def phase_stream(torch, dev, card: str, data: dict):
     except BaseException:
         shutil.rmtree(work, ignore_errors=True)
         raise
-    # the dp phase fits the same archive, then removes the directory
+    # the dp and bf16 phases fit the same archive; main() removes it
     handover["stream_work"] = work
     return out, handover
 
@@ -1652,102 +1682,142 @@ def free_port() -> int:
 FLIP_TOL = 1e-5
 
 
-def rounding_replay(torch, name: str, card_fit, cpu_fit) -> dict:
-    """The compressed gradient (int8) and the bfloat16 moments round
-    float32 state: where the card's and the CPU's inputs straddle a
-    rounding boundary by a float32 rounding, they take neighbouring
-    values a whole quantum apart, and the fits part by far more than
-    their float32 sums do.  So: the card fit again, recording each
-    rounding; then the CPU fit, its rounding taking the card's result
-    wherever the two differ -- each such flip checked to be a boundary
-    one (inputs within FLIP_TOL of the largest magnitude the rounding
-    sees, int8 results one quantum apart) -- and every other operation
-    its own.  → the flips and the CPU replay's fit (the
-    card's recorded fit must equal ``card_fit`` bit for bit)."""
+def split_int8(orig, g, block):
+    """The compressed gradient's rounding (``_blockwise_quantize``): its
+    int8 values, the input in quanta (each block over its own scale)."""
+    import torch
+    q, scale = orig(g, block)
+    flat = torch.nn.functional.pad(
+        g.reshape(-1), (0, (-g.numel()) % block)).reshape(-1, block)
+    units = flat / scale[:, None]
+    return (q, scale), q, units, lambda forced: (forced, scale)
+
+
+def split_store(orig, x, dtype, block=0):
+    """The optimizer's bfloat16 storage (``maybe_quantize``: the moments,
+    a bfloat16 param's AdamW step); any other storage rounds nothing
+    here."""
+    out = orig(x, dtype, block)
+    if dtype != "bfloat16":
+        return out, None, None, None
+    return out, out, x, lambda forced: forced
+
+
+def split_dw(orig, *args, dtype=None, **kw):
+    """B6's dW in a bfloat16 table's dtype (the wrapper on the card, its
+    plain version on the CPU): the float32 sums, rounded here -- the
+    bfloat16 kernel's output bit for bit, as bf16_kernels checks."""
+    import torch
+    wide = orig(*args, **kw)
+    if dtype != torch.bfloat16:
+        return wide, None, None, None
+    out = wide.to(dtype)
+    return out, out, wide, lambda forced: forced
+
+
+def replay_hooks(which: str) -> list:
+    """The roundings a replay records and forces, as (module, attr,
+    split): ``int8`` the compressed gradient, ``moments`` AdamW's
+    bfloat16 moments, ``bf16`` a bfloat16 table's two roundings a step
+    (B6's dW and AdamW's store of the param).  Hooks that share a split
+    share one record, in call order."""
     from repro_torch.distributed import grad_compression as gc
+    from repro_torch.kernels import bbit_linear as bl
     from repro_torch.optim import optimizers as optmod
+    return {"int8": [(gc, "_blockwise_quantize", split_int8)],
+            "moments": [(optmod, "maybe_quantize", split_store)],
+            "bf16": [(bl, "bbit_linear_packed_bwd_dw", split_dw),
+                     (bl, "bbit_linear_packed_bwd_dw_plain", split_dw),
+                     (optmod, "maybe_quantize", split_store)]}[which]
+
+
+def rounding_replay(torch, hooks: list, card_fit, cpu_fit) -> dict:
+    """The compressed gradient (int8), the bfloat16 moments and a
+    bfloat16 table's dW and param round float32 state: where the card's
+    and the CPU's inputs straddle a rounding boundary by a float32
+    rounding, they take neighbouring values a whole quantum apart, and
+    the fits part by far more than their float32 sums do.  So: the card
+    fit again with ``hooks`` (``replay_hooks``) recording each rounding;
+    then the CPU fit, each rounding taking the card's result wherever the
+    two differ -- each such flip checked to be a boundary one (inputs
+    within FLIP_TOL of the largest magnitude the rounding sees, int8
+    results one quantum apart) -- and every other operation its own.
+    → the flips and the CPU replay's fit (the card's recorded fit must
+    equal ``card_fit`` bit for bit)."""
+    import functools
     from repro_torch.train.metrics import trees_bitwise_equal
 
-    if name.startswith("compress"):
-        mod, attr = gc, "_blockwise_quantize"
-    else:
-        mod, attr = optmod, "maybe_quantize"
-    orig = getattr(mod, attr)
-    record, flips = [], {"calls": 0, "flips": 0, "bad": 0, "worst": 0.0}
+    record = {split: [] for _, _, split in hooks}
+    at = dict.fromkeys(record, 0)
+    flips = {"calls": 0, "flips": 0, "bad": 0, "worst": 0.0}
 
-    def rounded(args):
-        """(input, rounded output, the input in the output's units)."""
-        if attr == "_blockwise_quantize":
-            g, block = args
-            q, scale = orig(g, block)
-            flat = torch.nn.functional.pad(
-                g.reshape(-1), (0, (-g.numel()) % block)).reshape(-1, block)
-            return (q, scale), flat / scale
-        x, dtype, block = (tuple(args) + (0,))[:3]
-        out = orig(x, dtype, block)
-        return out, x
-
-    def recording(*args):
-        out, units = rounded(args)
-        if attr == "maybe_quantize" and args[1] != "bfloat16":
+    def recording(orig, split):
+        def call(*args, **kw):
+            out, got, units, _ = split(orig, *args, **kw)
+            if got is not None:
+                record[split].append((got.detach().cpu().clone(),
+                                      units.detach().cpu().clone()))
             return out
-        record.append(tuple(t.detach().cpu().clone() for t in
-                            ((out[0],) if attr == "_blockwise_quantize"
-                             else (out,)) + (units,)))
-        return out
+        return call
 
-    def forcing(*args):
-        out, units = rounded(args)
-        if attr == "maybe_quantize" and args[1] != "bfloat16":
-            return out
-        want, want_units = record[flips["calls"]]
-        flips["calls"] += 1
-        got = out[0] if attr == "_blockwise_quantize" else out
-        diff = got != want
-        if attr == "_blockwise_quantize":
-            # the inputs in quanta: an int8 block's absmax is 127 of them
-            gap = (units - want_units).abs() / 127.0
-            step = (got.to(torch.int32) - want.to(torch.int32)).abs()
-            ok = (step[diff] == 1) & (gap[diff] <= FLIP_TOL)
-        else:
-            gap = (units - want_units).abs() / want_units.abs().max(
-            ).clamp_min(1e-30)
-            ok = gap[diff] <= FLIP_TOL
-        n = int(diff.sum())
-        if n:
-            flips["flips"] += n
-            flips["bad"] += int((~ok).sum())
-            flips["worst"] = max(flips["worst"], float(gap[diff].max()))
-        forced = torch.where(diff, want, got)
-        return (forced, out[1]) if attr == "_blockwise_quantize" else forced
+    def forcing(orig, split):
+        def call(*args, **kw):
+            out, got, units, put = split(orig, *args, **kw)
+            if got is None:
+                return out
+            want, want_units = record[split][at[split]]
+            at[split] += 1
+            flips["calls"] += 1
+            diff = got != want
+            if got.is_floating_point():
+                gap = (units - want_units).abs() / want_units.abs().max(
+                ).clamp_min(1e-30)
+                ok = gap[diff] <= FLIP_TOL
+            else:
+                # the inputs in quanta: an int8 block's absmax is 127
+                gap = (units - want_units).abs() / 127.0
+                step = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                ok = (step[diff] == 1) & (gap[diff] <= FLIP_TOL)
+            n = int(diff.sum())
+            if n:
+                flips["flips"] += n
+                flips["bad"] += int((~ok).sum())
+                flips["worst"] = max(flips["worst"], float(gap[diff].max()))
+            return put(torch.where(diff, want, got))
+        return call
+
+    origs = {(mod, attr): getattr(mod, attr) for mod, attr, _ in hooks}
+
+    def patch(wrap):
+        # a kernel wrapper counts its launches on itself: keep its counters
+        for mod, attr, split in hooks:
+            orig = origs[(mod, attr)]
+            setattr(mod, attr, functools.wraps(orig)(wrap(orig, split)))
 
     try:
-        setattr(mod, attr, recording)
+        patch(recording)
         again = card_fit["fit"]()
-        setattr(mod, attr, forcing)
+        patch(forcing)
         cpu_replay = cpu_fit()
     finally:
-        setattr(mod, attr, orig)
+        for (mod, attr), orig in origs.items():
+            setattr(mod, attr, orig)
     same = (trees_bitwise_equal(again.params, card_fit["res"].params)
             and trees_bitwise_equal(again.avg_params,
                                     card_fit["res"].avg_params))
-    return dict(flips, recorded=len(record), card_repeats=same,
-                replay=cpu_replay)
+    return dict(flips, recorded=sum(map(len, record.values())),
+                card_repeats=same, replay=cpu_replay)
 
 
 def phase_dp(torch, dev, card: str, data: dict, handover: dict) -> dict:
     """The paper's data-parallel streaming path on the stream phase's oph
-    archive (removed after): fit_streaming folding 2 logical slots in one
-    process, a 2-rank gang (both ranks on the card, over gloo) killed
-    once, an elastic 2 -> 1 resume, the compressed exchanges and the
-    narrow AdamW moments against the CPU, and the fold's step through a
-    one-rank NCCL group."""
-    work = handover["stream_work"]
-    try:
-        return dp_in(torch, dev, card, data, handover["oph_root"],
-                     os.path.join(work, "dp"))
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    archive: fit_streaming folding 2 logical slots in one process, a
+    2-rank gang (both ranks on the card, over gloo) killed once, an
+    elastic 2 -> 1 resume, the compressed exchanges and the narrow AdamW
+    moments against the CPU, and the fold's step through a one-rank NCCL
+    group."""
+    return dp_in(torch, dev, card, data, handover["oph_root"],
+                 os.path.join(handover["stream_work"], "dp"))
 
 
 def gang_matches(path: str, res) -> bool:
@@ -2005,7 +2075,8 @@ def dp_in(torch, dev, card: str, data: dict, root: str, work: str) -> dict:
         # a path that rounds its state: replay the CPU fit with the card's
         # rounding decisions, each one a checked boundary flip
         rep = rounding_replay(
-            torch, name,
+            torch, replay_hooks("int8" if name.startswith("compress")
+                                else "moments"),
             {"res": res,
              "fit": lambda: fit_streaming(root, cfg, device=dev, **opts)},
             lambda: fit_streaming(root, cfg, device="cpu", **opts))
@@ -2711,6 +2782,352 @@ def check_paper_shapes(torch, dev, labels, codes, params, errs):
         fail("bbit_linear_bwd_dw differs between a fresh and a rebuilt plan")
     del x, table, logits, dout, fresh, cached, rebuilt
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+def _words(torch, t):
+    """A tensor's bits: int16 for bfloat16, int32 for float32."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _bitwise(torch, a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(_words(torch, a),
+                                              _words(torch, b))
+
+
+def bf16_kernels(torch, dev, data, paper, card: str) -> dict:
+    """B5-B8 at bfloat16 at the main paths' shapes: B5 and B7 against the
+    same kernel on the table widened (bitwise) and their plain versions
+    (allclose); B6 and B8 against the float32 instantiation rounded to
+    bfloat16 (bitwise), the float32 one against the plain version (1e-5
+    of each bin's sum of absolute terms).  Then each bfloat16
+    instantiation timed beside the float32 one on the same inputs, its
+    plain version and its one-call yardstick.  → {"errs", "main"}."""
+    import torch.nn.functional as F
+    from repro_torch.core.bbit import packed_width, unpack_codes_torch
+    from repro_torch.data.hashed_dataset import preprocess_rows_packed
+    from repro_torch.data.packing import pad_rows
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.kernels import bbit_linear as bl
+
+    bf = torch.bfloat16
+    rows, n = data["rows"], TRAIN_ROWS
+    gen = torch.Generator().manual_seed(22)
+    errs, main, fp32 = {}, {}, {}
+    v, pv = 1 << B, 1 << PAPER_B
+
+    def record(name, shape, ms, ms32, plain, bnd, lib):
+        main[f"{name}_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                                    bound_by=bnd[1], library_ms=lib)
+        fp32[name] = ms32
+        print(f"timing: {name} bf16 table {shape} ms={ms} (float32 table "
+              f"{ms32}) plain_ms={plain} bound_ms={bnd[0]} ({bnd[1]}) "
+              f"library_ms={lib} card={card}")
+
+    # B5 at the engine's batch: 64 held-out documents in the 8,192 lane,
+    # encoded by B2 (oph, k=256, b=8)
+    idx, nnz = pad_rows(rows[n:n + ROWS], pad_to_multiple=1)
+    full = np.zeros((ROWS, NNZ_BUCKETS[-1]), np.int32)
+    full[:, :idx.shape[1]] = idx
+    packed, _ = make_scheme("oph", K, HASH_SEED).encode_packed(
+        torch.from_numpy(full).to(dev), torch.from_numpy(nnz).to(dev), B)
+    table = (0.01 * torch.randn((K, v, 1), generator=gen)).to(dev, bf)
+    wide = table.float()
+    got = bl.bbit_linear_packed_fwd(packed, table, k=K, bits=B)
+    same = _bitwise(torch, got, bl.bbit_linear_packed_fwd(packed, wide, k=K,
+                                                          bits=B))
+    plain = bl.bbit_linear_packed_fwd_plain(packed, table, k=K, bits=B)
+    errs["bbit_linear_packed_fwd_bf16"] = float((got - plain).abs().max())
+    ok = torch.allclose(got, plain, **TOL)
+    print(f"bf16: bbit_linear_packed_fwd rows={ROWS} k={K} b={B}: bitwise "
+          f"the widened table's={same}; vs plain max_abs_err="
+          f"{errs['bbit_linear_packed_fwd_bf16']} allclose(1e-5)={ok}")
+    if not same or not ok:
+        fail("bbit_linear_packed_fwd at bfloat16 departs")
+    flat = (torch.arange(K, device=dev)[None, :] * v
+            + unpack_codes_torch(packed, K, B))
+    touched = int(torch.unique(flat).numel())
+    record("bbit_linear_packed_fwd", f"rows={ROWS} k={K} V={v} C=1",
+           time_ms(torch, lambda: bl.bbit_linear_packed_fwd(
+               packed, table, k=K, bits=B), 500),
+           time_ms(torch, lambda: bl.bbit_linear_packed_fwd(
+               packed, wide, k=K, bits=B), 500),
+           time_ms(torch, lambda: bl.bbit_linear_packed_fwd_plain(
+               packed, table, k=K, bits=B), 50),
+           bound(ROWS * packed_width(K, B) + 2 * touched + 4 * ROWS,
+                 ROWS * K, PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: F.embedding_bag(
+               flat, table.view(K * v, 1), mode="sum"), 500))
+
+    # B6 at the stream batch: 1,024 training documents (oph, k=256, b=8)
+    pk, _ = preprocess_rows_packed(rows[:STREAM_BATCH], K, B, scheme="oph",
+                                   seed=HASH_SEED, device=dev)
+    pk = torch.from_numpy(pk).to(dev)
+    dout = torch.randn((STREAM_BATCH, 1), generator=gen).to(dev)
+    kw = dict(k=K, bits=B)
+    g16 = bl.bbit_linear_packed_bwd_dw(pk, dout, v, dtype=bf, **kw)
+    g32 = bl.bbit_linear_packed_bwd_dw(pk, dout, v, **kw)
+    plain = bl.bbit_linear_packed_bwd_dw_plain(pk, dout, v, **kw)
+    same = _bitwise(torch, g16, g32.to(bf))
+    e32 = _close(torch, "bbit_linear_packed_bwd_dw", {}, g32, plain,
+                 scale=bl.bbit_linear_packed_bwd_dw_plain(pk, dout.abs(), v,
+                                                          **kw))
+    errs["bbit_linear_packed_bwd_dw_bf16"] = float(
+        (g16.float() - plain.to(bf).float()).abs().max())
+    print(f"bf16: bbit_linear_packed_bwd_dw rows={STREAM_BATCH} k={K} b={B}:"
+          f" bitwise the float32 dW rounded={same}; float32 vs plain "
+          f"max_abs_err={e32}; bf16 vs plain rounded max_abs_err="
+          f"{errs['bbit_linear_packed_bwd_dw_bf16']}")
+    if not same:
+        fail("bbit_linear_packed_bwd_dw at bfloat16 is not the float32 dW "
+             "rounded")
+    f1 = (torch.arange(K, device=dev)[None, :] * v
+          + unpack_codes_torch(pk, K, B)).reshape(-1)
+    wr = dout[:, 0].repeat_interleave(K)
+    record("bbit_linear_packed_bwd_dw", f"n={STREAM_BATCH} k={K} V={v} C=1",
+           time_ms(torch, lambda: bl.bbit_linear_packed_bwd_dw(
+               pk, dout, v, dtype=bf, **kw), 200),
+           time_ms(torch, lambda: bl.bbit_linear_packed_bwd_dw(
+               pk, dout, v, **kw), 200),
+           time_ms(torch, lambda: bl.bbit_linear_packed_bwd_dw_plain(
+               pk, dout, v, **kw).to(bf), 20),
+           bound(STREAM_BATCH * packed_width(K, B) + 4 * STREAM_BATCH
+                 + 2 * K * v, STREAM_BATCH * K, PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: torch.bincount(
+               f1, weights=wr, minlength=K * v).to(bf), 200))
+
+    # B7 and B8 at the paper fits' shape: the k=500, b=16 codes of the
+    # 16,000 training documents, the logistic TRON fit's table rounded
+    x = torch.from_numpy(paper["codes"][:n].astype(np.int32)).to(dev)
+    ptable = paper["params"]["table"].detach().to(bf).contiguous()
+    pwide = ptable.float()
+    got = bl.bbit_linear_fwd(x, ptable)
+    same = _bitwise(torch, got, bl.bbit_linear_fwd(x, pwide))
+    plain = bl.bbit_linear_fwd_plain(x, ptable)
+    errs["bbit_linear_fwd_bf16"] = float((got - plain).abs().max())
+    ok = torch.allclose(got, plain, **TOL)
+    print(f"bf16: bbit_linear_fwd n={n} k={PAPER_K} V={pv}: bitwise the "
+          f"widened table's={same}; vs plain max_abs_err="
+          f"{errs['bbit_linear_fwd_bf16']} allclose(1e-5)={ok}")
+    if not same or not ok:
+        fail("bbit_linear_fwd at bfloat16 departs")
+    pdout = torch.randn((n, 1), generator=gen).to(dev)
+    d16 = bl.bbit_linear_bwd_dw(x, pdout, pv, bf)
+    d32 = bl.bbit_linear_bwd_dw(x, pdout, pv)
+    plain = bl.bbit_linear_bwd_dw_plain(x, pdout, pv)
+    same = _bitwise(torch, d16, d32.to(bf))
+    e32 = _close(torch, "bbit_linear_bwd_dw", {}, d32, plain,
+                 scale=bl.bbit_linear_bwd_dw_plain(x, pdout.abs(), pv))
+    errs["bbit_linear_bwd_dw_bf16"] = float(
+        (d16.float() - plain.to(bf).float()).abs().max())
+    print(f"bf16: bbit_linear_bwd_dw n={n} k={PAPER_K} V={pv} (a cached "
+          f"plan): bitwise the float32 dW rounded={same}; float32 vs plain "
+          f"max_abs_err={e32}; bf16 vs plain rounded max_abs_err="
+          f"{errs['bbit_linear_bwd_dw_bf16']}")
+    if not same:
+        fail("bbit_linear_bwd_dw at bfloat16 is not the float32 dW rounded")
+    del plain, d16, d32
+    pflat = (torch.arange(PAPER_K, device=dev)[None, :] * pv
+             + x.to(torch.int64))
+    ptouched = int(torch.unique(pflat).numel())
+    shape = f"n={n} k={PAPER_K} V={pv} C=1"
+    record("bbit_linear_fwd", shape,
+           time_ms(torch, lambda: bl.bbit_linear_fwd(x, ptable), 50),
+           time_ms(torch, lambda: bl.bbit_linear_fwd(x, pwide), 50),
+           time_ms(torch, lambda: bl.bbit_linear_fwd_plain(x, ptable), 10),
+           bound(4 * n * PAPER_K + 2 * ptouched + 4 * n, n * PAPER_K,
+                 PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: F.embedding_bag(
+               pflat, ptable.view(PAPER_K * pv, 1), mode="sum"), 50))
+    pf1 = pflat.reshape(-1)
+    pw = pdout[:, 0].repeat_interleave(PAPER_K)
+    record("bbit_linear_bwd_dw", shape,
+           time_ms(torch, lambda: bl.bbit_linear_bwd_dw(x, pdout, pv, bf),
+                   50),
+           time_ms(torch, lambda: bl.bbit_linear_bwd_dw(x, pdout, pv), 50),
+           time_ms(torch, lambda: bl.bbit_linear_bwd_dw_plain(
+               x, pdout, pv).to(bf), 10),
+           bound(4 * n * PAPER_K + 4 * n + 2 * PAPER_K * pv, n * PAPER_K,
+                 PEAK_F32_OPS_PER_S),
+           time_ms(torch, lambda: torch.bincount(
+               pf1, weights=pw, minlength=PAPER_K * pv).to(bf), 20))
+    bl.bbit_linear_bwd_dw.clear_plans()
+    del x, pflat, pf1, pw, ptable, pwide
+    torch.cuda.empty_cache()
+    return {"errs": errs, "main": main, "float32_ms": fp32}
+
+
+def phase_bf16(torch, dev, card: str, data: dict, handover: dict,
+               paper: dict) -> dict:
+    """bfloat16 tables (``param_dtype="bfloat16"``): B5-B8 at bfloat16
+    against the float32 instantiations and the plain versions; the stream
+    phase's oph archive fitted at bfloat16, serially (resumed too) and
+    folding 2 logical slots, each held to the CPU through the rounding
+    replay; train_bbit_sgd at the paper's k=500, b=16; an engine at the
+    rcv1_oph width serving the bfloat16 table bitwise as the widened one;
+    the bfloat16 kernels timed."""
+    return bf16_in(torch, dev, card, data, handover["oph_root"], paper,
+                   os.path.join(handover["stream_work"], "bf16"))
+
+
+def bf16_in(torch, dev, card: str, data: dict, root: str, paper: dict,
+            work: str) -> dict:
+    import dataclasses
+    from repro_torch.configs.rcv1_oph import CONFIG
+    from repro_torch.data.hashed_dataset import preprocess_rows_packed
+    from repro_torch.kernels import ops
+    from repro_torch.models.linear import (BBitLinearConfig,
+                                           bbit_scores_packed)
+    from repro_torch.serving import HashedClassifierEngine
+    from repro_torch.train.linear_trainer import train_bbit_sgd
+    from repro_torch.train.metrics import accuracy, trees_bitwise_equal
+    from repro_torch.train.streaming import fit_streaming
+
+    rows, labels = data["rows"], data["labels"]
+    n = TRAIN_ROWS
+    cfg = dataclasses.replace(CONFIG.linear_config(), param_dtype="bfloat16")
+    kw = CONFIG.stream_kwargs(seed=CONFIG.seed)
+    dp_kw = dict(data_parallel=DP_WORLD, elastic=True)
+    kern = bf16_kernels(torch, dev, data, paper, card)
+    out = {"card": card, "kernels": kern}
+
+    def fit(device=dev, **extra):
+        return fit_streaming(root, cfg, device=device, **dict(kw, **extra))
+
+    # -- the main path on the card: every launch counted from here ----
+    ops.reset_counts()
+    u = fit()
+    fold = fit(**dp_kw)
+    ck = os.path.join(work, "ckpt")
+    part = fit(ckpt_dir=ck, stop_after_shards=STREAM_SHARDS // 2)
+    resumed = fit(ckpt_dir=ck)
+    held, _ = preprocess_rows_packed(rows[n:], K, B, scheme="oph",
+                                     seed=HASH_SEED, device=dev)
+    held = torch.from_numpy(held).to(dev)
+    with torch.no_grad():
+        acc_eval = accuracy(bbit_scores_packed(u.eval_params, held, cfg) > 0,
+                            labels[n:])
+        acc_raw = accuracy(bbit_scores_packed(u.params, held, cfg) > 0,
+                           labels[n:])
+    m = LINEAR_STEPS * LINEAR_BATCH
+    pcfg = BBitLinearConfig(k=PAPER_K, b=PAPER_B, n_classes=N_CLASSES,
+                            param_dtype="bfloat16")
+    pcodes = paper["codes"]
+    sgd = train_bbit_sgd(pcodes[:m], labels[:m], pcodes[n:], labels[n:],
+                         pcfg, epochs=1, batch_size=LINEAR_BATCH, lr=1e-2,
+                         seed=LINEAR_SEED, device=dev)
+    engines = {}
+    for name, params in (("bf16", u.params),
+                         ("widened", {k: t.float()
+                                      for k, t in u.params.items()})):
+        with HashedClassifierEngine(params, cfg, seed=HASH_SEED,
+                                    scheme="oph", device=dev,
+                                    max_batch=ROWS, nnz_buckets=NNZ_BUCKETS,
+                                    row_buckets=(1, ROWS)) as eng:
+            engines[name] = (eng.params["table"].dtype,
+                             eng.score_docs(rows[n:]))
+    torch.cuda.synchronize()
+    counts = ops.counts()
+    # -- end of the main path -------------------------------------------
+    out["counts"] = counts
+    out["fit"] = fit_line(u)
+    print(f"bf16: fit_streaming oph archive (configs/rcv1_oph.py streaming "
+          f"settings, bfloat16 table) {json.dumps(out['fit'])}; params "
+          f"{u.params['table'].dtype}, eval params "
+          f"{u.eval_params['table'].dtype} card={card}")
+    out["fold"] = fit_line(fold)
+    print(f"bf16: the same fit folding {DP_WORLD} logical slots "
+          f"{json.dumps(out['fold'])}; params {fold.params['table'].dtype}, "
+          f"eval params {fold.eval_params['table'].dtype}")
+    for res, steps in ((u, STREAM_STEPS), (fold, DP_STEPS)):
+        if (res.n_steps != steps or not res.completed
+                or res.params["table"].dtype != torch.bfloat16
+                or res.eval_params["table"].dtype != torch.float32):
+            fail("bf16: the stream fits' steps or dtypes")
+    same = (not part.completed and resumed.completed
+            and trees_bitwise_equal(u.params, resumed.params)
+            and trees_bitwise_equal(u.avg_params, resumed.avg_params))
+    out["resume_bitwise"] = same
+    out["test_acc"] = {"eval": acc_eval, "raw": acc_raw}
+    print(f"bf16: stopped after {STREAM_SHARDS // 2} shards and resumed: "
+          f"bitwise the uninterrupted fit={same}; held-out accuracy over "
+          f"{len(rows) - n} rows (B2, B5): eval params {acc_eval}, bfloat16 "
+          f"params {acc_raw}")
+    if not same or acc_eval <= 0.9:
+        fail(f"bf16: resume bitwise={same}, held-out accuracy {acc_eval}")
+    out["sgd"] = dict(seconds=sgd.train_seconds, steps=sgd.n_iter,
+                      test_acc=sgd.test_acc, train_acc=sgd.train_acc,
+                      table_dtype=str(sgd.params["table"].dtype))
+    print(f"bf16: train_bbit_sgd AdamW k={PAPER_K} b={PAPER_B} (a "
+          f"{PAPER_K * (1 << PAPER_B) * 2 / 1e6} MB bfloat16 table) "
+          f"{json.dumps(out['sgd'])} card={card}")
+    if (sgd.n_iter != LINEAR_STEPS or sgd.test_acc <= 0.9
+            or sgd.params["table"].dtype != torch.bfloat16):
+        fail(f"bf16: train_bbit_sgd {out['sgd']}")
+    served = np.array_equal(engines["bf16"][1], engines["widened"][1])
+    acc_served = accuracy(engines["bf16"][1] > 0, labels[n:])
+    out["serve"] = dict(bitwise=served, test_acc=acc_served,
+                        table_dtype=str(engines["bf16"][0]))
+    print(f"bf16: engine oph k={K} b={B} on the bfloat16 params "
+          f"(table kept {engines['bf16'][0]}) over {len(rows) - n} held-out "
+          f"docs: scores bitwise the widened table's={served}; accuracy "
+          f"{acc_served}")
+    if not served or engines["bf16"][0] != torch.bfloat16:
+        fail("bf16: the engine's scores on the bfloat16 table")
+    need = ("bbit_linear_packed_fwd_bf16", "bbit_linear_packed_bwd_dw_bf16",
+            "bbit_linear_fwd_bf16", "bbit_linear_bwd_dw_bf16", "oph_pack")
+    missing = [name for name in need if counts[name] < 1]
+    stray = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+    print(f"bf16: launches {json.dumps(counts)}")
+    if missing or stray:
+        fail(f"bf16: kernels not launched {missing}, plain calls {stray}")
+
+    # -- the same fits on the CPU, and the rounding replay --------------
+    def gap(a, b):
+        err = max(float((a[k].cpu().float() - b[k].float()).abs().max())
+                  for k in a)
+        close = all(torch.allclose(a[k].cpu().float(), b[k].float(),
+                                   **STREAM_CPU_TOL) for k in a)
+        return err, close
+
+    def held_to(res, cpu):
+        err, close = gap(res.params, cpu.params)
+        err_avg, close_avg = gap(res.avg_params, cpu.avg_params)
+        return dict(params_max_abs_err=err, avg_max_abs_err=err_avg,
+                    close=close and close_avg)
+
+    for name, res, extra in (("cpu", u, {}), ("fold_cpu", fold, dp_kw)):
+        cpu = fit(device="cpu", **extra)
+        out[name] = dict(fit_line(cpu), **held_to(res, cpu))
+        print(f"bf16: {name} fit steps={cpu.n_steps} progressive_acc="
+              f"{cpu.progressive_acc} (card {res.progressive_acc}); params "
+              f"max_abs_err={out[name]['params_max_abs_err']} (average "
+              f"{out[name]['avg_max_abs_err']}) allclose(1e-4, 1e-5)="
+              f"{out[name]['close']}")
+        if (cpu.n_steps, cpu.examples_seen) != (res.n_steps,
+                                                res.examples_seen):
+            fail(f"bf16: the {name} fit's steps")
+        if out[name]["close"]:
+            continue
+        rep = rounding_replay(
+            torch, replay_hooks("bf16"),
+            {"res": res, "fit": lambda: fit(**extra)},
+            lambda: fit(device="cpu", **extra))
+        replay = rep.pop("replay")
+        out[name]["replay"] = dict(rep, **held_to(res, replay))
+        r = out[name]["replay"]
+        print(f"bf16: {name} rounding replay: {rep['flips']} flips in "
+              f"{rep['calls']} roundings (recorded {rep['recorded']}), "
+              f"{rep['bad']} not at a boundary (worst input gap "
+              f"{rep['worst']}); the card's recorded fit repeats its bits="
+              f"{rep['card_repeats']}; the replay vs the card max_abs_err="
+              f"{r['params_max_abs_err']} (average {r['avg_max_abs_err']}) "
+              f"allclose(1e-4, 1e-5)={r['close']}")
+        if (rep["bad"] or not rep["card_repeats"] or not r["close"]
+                or rep["calls"] != rep["recorded"]):
+            fail(f"bf16: the card's {name} fit departs from the CPU's "
+                 "replay")
+    return out
 
 
 def phase_search(torch, dev, card: str, rows, errs: dict) -> dict:
@@ -3554,10 +3971,16 @@ def main() -> int:
     train, train_data = run("train", phase_train, torch, dev, card, errs)
     stream, handover = run("stream", phase_stream, torch, dev, card,
                            train_data)
-    dp = run("dp", phase_dp, torch, dev, card, train_data, handover)
-    serve = run("serve", phase_serve, torch, dev, card, train_data, handover)
-    paper, paper_data = run("paper", phase_paper, torch, dev, card,
-                            train_data, errs)
+    try:
+        dp = run("dp", phase_dp, torch, dev, card, train_data, handover)
+        serve = run("serve", phase_serve, torch, dev, card, train_data,
+                    handover)
+        paper, paper_data = run("paper", phase_paper, torch, dev, card,
+                                train_data, errs)
+        bf16 = run("bf16", phase_bf16, torch, dev, card, train_data,
+                   handover, paper_data)
+    finally:
+        shutil.rmtree(handover["stream_work"], ignore_errors=True)
     linear = run("linear", phase_linear, torch, dev, card, train_data,
                  int_rate)
     calib = run("calibrate", phase_calibrate, torch, dev, card, train_data)
@@ -3571,7 +3994,7 @@ def main() -> int:
     print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
-    # (engine, train, gradient, stream, dp, serve, paper, linear,
+    # (engine, train, gradient, stream, dp, serve, paper, bf16, linear,
     # calibrate, search; the dp gang's workers count apart), its error
     # and time at its main path's shapes
     launches = {name: engine["launches"].get(name, 0)
@@ -3584,6 +4007,7 @@ def main() -> int:
                 + serve["counts"][name]
                 + linear["counts"][name]
                 + calib["counts"][name]
+                + bf16["counts"][name]
                 for name in KERNELS}
     main_rec = {**timing["main"], **timing_train["main"],
                 **timing_raw["main"]}
@@ -3595,6 +4019,18 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], **rec})
+    # the bfloat16 table instantiations of B5-B8: launched on the bf16
+    # phase's main path only
+    for name in KERNELS_BF16:
+        base = name[:-len("_bf16")]
+        if bf16["counts"][name] < 1:
+            fail(f"kernel {name} was launched on no main path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": KERNELS[base][0],
+                        "replaces": KERNELS[base][1],
+                        "launches": bf16["counts"][name],
+                        "max_abs_err": bf16["kernels"]["errs"][name],
+                        **bf16["kernels"]["main"][name]})
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "int32_ops_per_s": int_rate,
@@ -3604,7 +4040,7 @@ def main() -> int:
                        "timing_train": timing_train["shapes"],
                        "timing_raw": timing_raw["shapes"], "train": train,
                        "paper": paper, "stream": stream, "dp": dp,
-                       "serve": serve,
+                       "serve": serve, "bf16": bf16,
                        "linear": linear, "calibrate": calib,
                        "search": {k: search[k] for k in ("counts", "recall",
                                                          "candidates")},

@@ -132,7 +132,7 @@ def stage_probe(_build, dev):
                       dout.data_ptr(), got.data_ptr(), n, k, bits, v, c,
                       packed.shape[1],
                       0 if empty is None else empty.shape[1], warps, parts,
-                      int(vec), dev.index, _build.stream(packed))
+                      int(vec), 0, dev.index, _build.stream(packed))
         if code:
             raise RuntimeError(f"B6 stage probe: CUDA error {code}")
         return got

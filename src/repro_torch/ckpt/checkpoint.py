@@ -47,6 +47,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import bfloat16
 from repro_torch import tree as _tree
 from repro_torch.ft import faults
 
@@ -107,12 +108,9 @@ def _fsync_path(path: str) -> None:
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
-        if x.dtype == torch.bfloat16:
-            # numpy has no bfloat16: its 2-byte words, stored as the
-            # reference's bfloat16 arrays are (void, '<V2')
-            return x.view(torch.int16).numpy().view("V2")
-        return x.numpy()
+        # a bfloat16 tensor as its 2-byte words, stored as the reference's
+        # bfloat16 arrays are (void, '|V2')
+        return bfloat16.to_numpy(x)
     return np.asarray(x)
 
 
@@ -224,7 +222,10 @@ def _load_validated(d: str, meta: Optional[dict]) -> dict:
 
 
 def _like(arr: np.ndarray, leaf: Any):
-    """``arr`` in the dtype, shape and place of the template ``leaf``."""
+    """``arr`` in the dtype, shape and place of the template ``leaf``;
+    bfloat16 words (a bfloat16 tensor's, or a ``|V2`` array's) are kept
+    bit for bit, rounded to from a float array, or widened exactly to a
+    float template (``bfloat16.cast_like``)."""
     if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
         arr = np.asarray(arr)
         if arr.dtype.itemsize == 2 and arr.dtype.kind in "Vui":
@@ -236,9 +237,10 @@ def _like(arr: np.ndarray, leaf: Any):
     if isinstance(leaf, torch.Tensor):
         want = torch.empty((), dtype=leaf.dtype).numpy().dtype
         # np.array keeps a 0-d leaf 0-d (ascontiguousarray would not)
-        host = np.array(arr, dtype=want).reshape(tuple(leaf.shape))
+        host = np.array(bfloat16.cast_like(arr, want)).reshape(
+            tuple(leaf.shape))
         return torch.from_numpy(host).to(leaf.device)
-    return np.asarray(arr).astype(np.asarray(leaf).dtype).reshape(
+    return bfloat16.cast_like(arr, np.asarray(leaf).dtype).reshape(
         np.shape(leaf))
 
 

@@ -83,6 +83,11 @@ class HashingScheme:
             self._params[device] = got
         return got
 
+    @property
+    def hash_evals_per_nonzero(self) -> int:
+        """Hash evaluations issued per nonzero (the Table-2 cost driver)."""
+        raise NotImplementedError
+
     # -- dispatch (routed through the cost model) ---------------------------
 
     def _encode_shape(self, indices: torch.Tensor, b: int) -> dict:
@@ -155,6 +160,10 @@ class MinwiseScheme(HashingScheme):
         super().__init__(k, seed)
         self.family = MultiplyShiftHash.make(k, seed)
 
+    @property
+    def hash_evals_per_nonzero(self) -> int:
+        return self.k
+
     def encode_torch(self, indices, mask, b):
         a, bv = self.hash_params(indices.device)
         z = minhash_torch(indices, mask, int32_to_words(a),
@@ -206,6 +215,10 @@ class OPHScheme(HashingScheme):
     def __init__(self, k: int, seed: int):
         super().__init__(k, seed)
         self.family = OPHHash.make(k, seed)
+
+    @property
+    def hash_evals_per_nonzero(self) -> int:
+        return 1
 
     def _check_b(self, b: int) -> None:
         if not self.densify and b > 15:

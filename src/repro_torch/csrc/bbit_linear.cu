@@ -24,6 +24,18 @@
 //   (kernels/bbit_linear.py::packed_fwd_layout), so a few rows spread over
 //   as many SMs.  Classes are taken one after another.
 //
+// B5 and B7 read a float32 or a bfloat16 table in place (the table type T
+// a template argument): a lane gathers its values' bits, widens them to
+// float32 (exactly: a bfloat16 is a float32's high 16 bits) and sums them
+// in the same order as from a float32 table, so a bfloat16 table's logits
+// are the bits of the same kernel on that table widened.  B6 and B8 sum
+// in float32 and write dW as float32 or, for a bfloat16 table, as
+// bfloat16 rounded to nearest even (the output type a template argument):
+// the bits of the float32 dW rounded by torch's .to(torch.bfloat16).  The
+// 2-byte table halves the table and dW's bytes; B7's gathers gain little
+// from it, as B7 takes nearly as long on a table that fits L2 (8 MB) as
+// on the 131 MB one (scripts/sweep_table_dtypes.py; PERF.md section 6).
+//
 // B7 bbit_linear_fwd replaces bbit_linear.py::bbit_linear_fwd_pallas: the
 //   same sum from widened int32 (n, k) codes.  Bound: bytes -- the codes
 //   and the table entries they select, read once, and the logits.  What
@@ -106,6 +118,7 @@
 #include <algorithm>
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -168,6 +181,45 @@ __device__ __forceinline__ long long global_ns() {
 #define DW_PROBE_END
 #endif
 
+// A table value's bits, and the bits widened to float32 (exact for
+// bfloat16: its 16 bits are a float's high half; 0 bits widen to +0).  A
+// lane gathers all its values' bits first and widens them after: widening
+// each value as it is loaded let the compiler wait on every bfloat16
+// gather in turn (B5 at 64 rows took 4.17 us on an H100, float32 2.95).
+__device__ __forceinline__ uint32_t table_bits(const float* p) {
+  return __float_as_uint(__ldg(p));
+}
+__device__ __forceinline__ uint32_t table_bits(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ float widen_bits(const float*, uint32_t u) {
+  return __uint_as_float(u);
+}
+__device__ __forceinline__ float widen_bits(const __nv_bfloat16*,
+                                            uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+
+// A dW value stored as float32, or as bfloat16 rounded to nearest even.
+__device__ __forceinline__ void store_value(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_value(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Four consecutive dW values at p, aligned to 4 of them: one 16-byte
+// store of floats, or one 8-byte store of bfloat16s.
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 __device__ __forceinline__ float warp_sum(float acc) {
   for (int off = 16; off > 0; off >>= 1) {
     acc += __shfl_down_sync(kFull, acc, off);
@@ -205,11 +257,11 @@ __device__ __forceinline__ uint64_t packed_group(const uint8_t* prow, int g,
   return word;
 }
 
-// B5.  blockDim.x / 32 rows a block, one warp a row.
-template <int BITS, bool kVec>
+// B5.  blockDim.x / 32 rows a block, one warp a row; T the table's type.
+template <int BITS, bool kVec, typename T>
 __global__ void __launch_bounds__(kPackedFwdMaxRows * 32)
 bbit_linear_packed_fwd_kernel(const uint8_t* __restrict__ packed,
-                              const float* __restrict__ w,
+                              const T* __restrict__ w,
                               const uint8_t* __restrict__ empty,
                               float* __restrict__ out, int n, int k, int v,
                               int c, int p_w, int e_w) {
@@ -228,15 +280,18 @@ bbit_linear_packed_fwd_kernel(const uint8_t* __restrict__ packed,
       const bool full = j0 + 8 <= k;
       const uint64_t word = packed_group<BITS, kVec>(prow, g, full, p_w);
       const uint32_t drop = erow == nullptr ? 0u : __ldg(erow + g);
-      const float* wj = w + static_cast<size_t>(j0) * v * c + cc;
-      float x[8];
+      const T* wj = w + static_cast<size_t>(j0) * v * c + cc;
+      uint32_t raw[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const uint32_t code = static_cast<uint32_t>(word >> (e * BITS)) & kMask;
         const bool live = (full || j0 + e < k) && !((drop >> (7 - e)) & 1u);
-        x[e] = live ? __ldg(wj + (static_cast<size_t>(e) * v + code) * c)
-                    : 0.f;
+        raw[e] = live ? table_bits(wj + (static_cast<size_t>(e) * v + code) * c)
+                      : 0u;
       }
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = widen_bits(wj, raw[e]);
       acc += ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
     }
     acc = warp_sum(acc);
@@ -244,30 +299,57 @@ bbit_linear_packed_fwd_kernel(const uint8_t* __restrict__ packed,
   }
 }
 
-template <int BITS>
+template <int BITS, typename T>
 cudaError_t launch_packed_fwd(int blocks, int rows, bool vec,
                               cudaStream_t st, const uint8_t* packed,
-                              const float* w, const uint8_t* empty,
-                              float* out, int n, int k, int v, int c,
-                              int p_w, int e_w) {
+                              const T* w, const uint8_t* empty, float* out,
+                              int n, int k, int v, int c, int p_w, int e_w) {
   if (vec) {
-    bbit_linear_packed_fwd_kernel<BITS, true><<<blocks, rows * 32, 0, st>>>(
-        packed, w, empty, out, n, k, v, c, p_w, e_w);
+    bbit_linear_packed_fwd_kernel<BITS, true, T>
+        <<<blocks, rows * 32, 0, st>>>(packed, w, empty, out, n, k, v, c,
+                                       p_w, e_w);
   } else {
-    bbit_linear_packed_fwd_kernel<BITS, false><<<blocks, rows * 32, 0, st>>>(
-        packed, w, empty, out, n, k, v, c, p_w, e_w);
+    bbit_linear_packed_fwd_kernel<BITS, false, T>
+        <<<blocks, rows * 32, 0, st>>>(packed, w, empty, out, n, k, v, c,
+                                       p_w, e_w);
   }
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_packed_fwd_bits(int bits, int blocks, int rows, bool vec,
+                                   cudaStream_t st, const uint8_t* packed,
+                                   const void* w, const uint8_t* empty,
+                                   float* out, int n, int k, int v, int c,
+                                   int p_w, int e_w) {
+  const T* wp = static_cast<const T*>(w);
+  switch (bits) {
+    case 1:
+      return launch_packed_fwd<1, T>(blocks, rows, vec, st, packed, wp, empty,
+                                     out, n, k, v, c, p_w, e_w);
+    case 2:
+      return launch_packed_fwd<2, T>(blocks, rows, vec, st, packed, wp, empty,
+                                     out, n, k, v, c, p_w, e_w);
+    case 4:
+      return launch_packed_fwd<4, T>(blocks, rows, vec, st, packed, wp, empty,
+                                     out, n, k, v, c, p_w, e_w);
+    case 8:
+      return launch_packed_fwd<8, T>(blocks, rows, vec, st, packed, wp, empty,
+                                     out, n, k, v, c, p_w, e_w);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // B7.  grid (ceil(n / kFwdThreads), ceil(k / group)), the bin group on y;
 // out is (groups, n, c): each group's partial logits (the logits
 // themselves when there is one group).  A thread takes one row's bins of
 // its group, 32 at a time, in order.  kVec: rows start 16-byte aligned.
-template <bool kVec>
+// T: the table's type.
+template <bool kVec, typename T>
 __global__ void __launch_bounds__(kFwdThreads)
 bbit_linear_fwd_kernel(const int32_t* __restrict__ codes,
-                       const float* __restrict__ w, float* __restrict__ out,
+                       const T* __restrict__ w, float* __restrict__ out,
                        int n, int k, int v, int c, int group) {
   const int row = blockIdx.x * kFwdThreads + threadIdx.x;
   if (row >= n) return;
@@ -297,15 +379,18 @@ bbit_linear_fwd_kernel(const int32_t* __restrict__ codes,
           code[e] = e < len ? __ldg(crow + j0 + e) : -1;
         }
       }
-      const float* wj = w + static_cast<size_t>(j0) * v * c + cc;
-      float x[kFwdChunk];
+      const T* wj = w + static_cast<size_t>(j0) * v * c + cc;
+      uint32_t raw[kFwdChunk];
 #pragma unroll
       for (int e = 0; e < kFwdChunk; ++e) {
         const int cd = code[e];
-        x[e] = static_cast<unsigned>(cd) < static_cast<unsigned>(v)
-                   ? __ldg(wj + (static_cast<size_t>(e) * v + cd) * c)
-                   : 0.f;
+        raw[e] = static_cast<unsigned>(cd) < static_cast<unsigned>(v)
+                     ? table_bits(wj + (static_cast<size_t>(e) * v + cd) * c)
+                     : 0u;
       }
+      float x[kFwdChunk];
+#pragma unroll
+      for (int e = 0; e < kFwdChunk; ++e) x[e] = widen_bits(wj, raw[e]);
 #pragma unroll
       for (int w = kFwdChunk / 2; w > 0; w >>= 1) {
 #pragma unroll
@@ -314,6 +399,19 @@ bbit_linear_fwd_kernel(const int32_t* __restrict__ codes,
       acc += x[0];
     }
     dst[cc] = acc;
+  }
+}
+
+template <typename T>
+void launch_fwd(dim3 grid, bool vec, cudaStream_t st, const int32_t* codes,
+                const T* w, float* out, int n, int k, int v, int c,
+                int group) {
+  if (vec) {
+    bbit_linear_fwd_kernel<true, T>
+        <<<grid, kFwdThreads, 0, st>>>(codes, w, out, n, k, v, c, group);
+  } else {
+    bbit_linear_fwd_kernel<false, T>
+        <<<grid, kFwdThreads, 0, st>>>(codes, w, out, n, k, v, c, group);
   }
 }
 
@@ -482,12 +580,14 @@ __device__ int block_lower_bound(const int32_t* sc, int lo, int hi,
 // run's carry from earlier windows) gives each thread the sum of its
 // first run's entries before it.  The thread that holds a run's last
 // entry writes the run's sum to res; res, zeros included, is stored once.
-// Every sum's order depends on the shapes and the codes only.
+// Every sum's order depends on the shapes and the codes only.  OutT: dW's
+// type, float or bfloat16 (each float32 sum rounded as it is stored).
+template <typename OutT>
 __global__ void __launch_bounds__(kSumThreads)
 dw_sum_kernel(const int32_t* __restrict__ scode,
               const int32_t* __restrict__ perm,
               const int32_t* __restrict__ offsets,
-              const float* __restrict__ dout, float* __restrict__ out, int n,
+              const float* __restrict__ dout, OutT* __restrict__ out, int n,
               int v, int c, int span, int shift) {
   __shared__ __align__(16) float res[kSumMaxSpan];    // the slice's sums
   __shared__ int first_key[kSumThreads + 1];  // [kSumThreads]: the next one
@@ -617,19 +717,19 @@ dw_sum_kernel(const int32_t* __restrict__ scode,
       }
     }
     __syncthreads();  // res is complete
-    float* dst = out + (static_cast<size_t>(j) * v + v0) * c + cc;
-    if (c == 1 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    OutT* dst = out + (static_cast<size_t>(j) * v + v0) * c + cc;
+    if (c == 1 &&
+        (reinterpret_cast<uintptr_t>(dst) & (4 * sizeof(OutT) - 1)) == 0) {
       const int n4 = nv >> 2;
       for (int q = threadIdx.x; q < n4; q += kSumThreads) {
-        reinterpret_cast<float4*>(dst)[q] =
-            reinterpret_cast<const float4*>(res)[q];
+        store4(dst + 4 * q, reinterpret_cast<const float4*>(res)[q]);
       }
       for (int t = 4 * n4 + threadIdx.x; t < nv; t += kSumThreads) {
-        dst[t] = res[t];
+        store_value(dst + t, res[t]);
       }
     } else {
       for (int t = threadIdx.x; t < nv; t += kSumThreads) {
-        dst[static_cast<size_t>(t) * c] = res[t];
+        store_value(dst + static_cast<size_t>(t) * c, res[t]);
       }
     }
     __syncthreads();  // res is stored before the next class clears it
@@ -646,13 +746,13 @@ dw_sum_kernel(const int32_t* __restrict__ scode,
 // the step; the lowest lane of each code adds their douts in lane order
 // and adds the sum to the warp's histogram of the bin.
 // Dynamic shared memory: warps x 8 x 2^BITS floats ([warp][bin][value]),
-// then the stage.
-template <int BITS, bool kVec>
+// then the stage.  OutT: dW's type, float or bfloat16.
+template <int BITS, bool kVec, typename OutT>
 __global__ void __launch_bounds__(kDwMaxWarps * 32)
 bbit_linear_packed_dw_kernel(const uint8_t* __restrict__ packed,
                              const uint8_t* __restrict__ empty,
                              const float* __restrict__ dout,
-                             float* __restrict__ out, int n, int k, int v,
+                             OutT* __restrict__ out, int n, int k, int v,
                              int c, int p_w, int e_w) {
   constexpr int kVals = 1 << BITS;
   constexpr int kCells = kDwBins * kVals;
@@ -832,7 +932,8 @@ bbit_linear_packed_dw_kernel(const uint8_t* __restrict__ packed,
         const int be = (4 * i + t) / kVals;
         const int x = (4 * i + t) % kVals;
         if (j0 + be < k) {
-          out[(static_cast<size_t>(j0 + be) * v + x) * c + cc] = vals[t];
+          store_value(out + (static_cast<size_t>(j0 + be) * v + x) * c + cc,
+                      vals[t]);
         }
       }
     }
@@ -842,8 +943,10 @@ bbit_linear_packed_dw_kernel(const uint8_t* __restrict__ packed,
          i += parts * blockDim.x) {
       const int be = i / rest;
       if (j0 + be < k) {
-        out[(static_cast<size_t>(j0 + be) * v + kVals + i % rest) * c + cc] =
-            0.f;
+        store_value(
+            out + (static_cast<size_t>(j0 + be) * v + kVals + i % rest) * c +
+                cc,
+            0.f);
       }
     }
     cluster.sync();  // the histograms are read before the next class clears them
@@ -852,13 +955,13 @@ bbit_linear_packed_dw_kernel(const uint8_t* __restrict__ packed,
   DW_PROBE_END
 }
 
-template <int BITS>
+template <int BITS, typename OutT>
 int launch_packed_dw(const uint8_t* packed, const uint8_t* empty,
-                     const float* dout, float* out, int n, int k, int v,
+                     const float* dout, OutT* out, int n, int k, int v,
                      int c, int p_w, int e_w, int warps, int parts, bool vec,
                      cudaStream_t stream) {
-  auto kernel = vec ? bbit_linear_packed_dw_kernel<BITS, true>
-                    : bbit_linear_packed_dw_kernel<BITS, false>;
+  auto kernel = vec ? bbit_linear_packed_dw_kernel<BITS, true, OutT>
+                    : bbit_linear_packed_dw_kernel<BITS, false, OutT>;
   const size_t smem = sizeof(float) * static_cast<size_t>(warps) * kDwBins *
                           (1 << BITS) +
                       kDwStage * (sizeof(uint64_t) + sizeof(float) + 1);
@@ -882,6 +985,31 @@ int launch_packed_dw(const uint8_t* packed, const uint8_t* empty,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename OutT>
+int launch_packed_dw_bits(int bits, const uint8_t* packed,
+                          const uint8_t* empty, const float* dout, void* out,
+                          int n, int k, int v, int c, int p_w, int e_w,
+                          int warps, int parts, bool vec,
+                          cudaStream_t stream) {
+  OutT* op = static_cast<OutT*>(out);
+  switch (bits) {
+    case 1:
+      return launch_packed_dw<1, OutT>(packed, empty, dout, op, n, k, v, c,
+                                       p_w, e_w, warps, parts, vec, stream);
+    case 2:
+      return launch_packed_dw<2, OutT>(packed, empty, dout, op, n, k, v, c,
+                                       p_w, e_w, warps, parts, vec, stream);
+    case 4:
+      return launch_packed_dw<4, OutT>(packed, empty, dout, op, n, k, v, c,
+                                       p_w, e_w, warps, parts, vec, stream);
+    case 8:
+      return launch_packed_dw<8, OutT>(packed, empty, dout, op, n, k, v, c,
+                                       p_w, e_w, warps, parts, vec, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // out[i] = sum over splits s, in order, of part[s][i].
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, size_t total,
@@ -898,13 +1026,14 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
 }  // namespace repro_torch
 
 // Launches B5 with `rows` rows (warps) a block; vec: every row starts
-// aligned to `bits` bytes, so a whole group of 8 codes is one load.
+// aligned to `bits` bytes, so a whole group of 8 codes is one load;
+// bf16: the table w is bfloat16 (else float32).
 extern "C" int repro_bbit_linear_packed_fwd(const void* packed, const void* w,
                                             const void* empty, void* out,
                                             int n, int k, int bits, int v,
                                             int c, int p_w, int e_w,
-                                            int rows, int vec, int device,
-                                            void* stream) {
+                                            int rows, int vec, int bf16,
+                                            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n == 0) return 0;
@@ -914,38 +1043,23 @@ extern "C" int repro_bbit_linear_packed_fwd(const void* packed, const void* w,
   const int blocks = (n + rows - 1) / rows;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
-  const float* wp = static_cast<const float*>(w);
   const uint8_t* ep = static_cast<const uint8_t*>(empty);
   float* op = static_cast<float*>(out);
-  switch (bits) {
-    case 1:
-      err = repro_torch::launch_packed_fwd<1>(blocks, rows, vec, st, pp, wp,
-                                              ep, op, n, k, v, c, p_w, e_w);
-      break;
-    case 2:
-      err = repro_torch::launch_packed_fwd<2>(blocks, rows, vec, st, pp, wp,
-                                              ep, op, n, k, v, c, p_w, e_w);
-      break;
-    case 4:
-      err = repro_torch::launch_packed_fwd<4>(blocks, rows, vec, st, pp, wp,
-                                              ep, op, n, k, v, c, p_w, e_w);
-      break;
-    case 8:
-      err = repro_torch::launch_packed_fwd<8>(blocks, rows, vec, st, pp, wp,
-                                              ep, op, n, k, v, c, p_w, e_w);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  err = bf16 ? repro_torch::launch_packed_fwd_bits<__nv_bfloat16>(
+                   bits, blocks, rows, vec, st, pp, w, ep, op, n, k, v, c,
+                   p_w, e_w)
+             : repro_torch::launch_packed_fwd_bits<float>(
+                   bits, blocks, rows, vec, st, pp, w, ep, op, n, k, v, c,
+                   p_w, e_w);
   return static_cast<int>(err);
 }
 
 // Launches B7: out (n, c), part (groups, n, c) scratch (unused when there
-// is one group).
+// is one group); bf16: the table w is bfloat16 (else float32).
 extern "C" int repro_bbit_linear_fwd(const void* codes, const void* w,
                                      void* part, void* out, int n, int k,
                                      int v, int c, int group, int vec,
-                                     int device, void* stream) {
+                                     int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -960,15 +1074,13 @@ extern "C" int repro_bbit_linear_fwd(const void* codes, const void* w,
                   groups);
   float* dst = static_cast<float*>(groups == 1 ? out : part);
   const int32_t* cp = static_cast<const int32_t*>(codes);
-  const float* wp = static_cast<const float*>(w);
-  if (vec) {
-    repro_torch::bbit_linear_fwd_kernel<true>
-        <<<grid, repro_torch::kFwdThreads, 0, st>>>(cp, wp, dst, n, k, v, c,
-                                                    group);
+  if (bf16) {
+    repro_torch::launch_fwd(grid, vec, st, cp,
+                            static_cast<const __nv_bfloat16*>(w), dst, n, k,
+                            v, c, group);
   } else {
-    repro_torch::bbit_linear_fwd_kernel<false>
-        <<<grid, repro_torch::kFwdThreads, 0, st>>>(cp, wp, dst, n, k, v, c,
-                                                    group);
+    repro_torch::launch_fwd(grid, vec, st, cp, static_cast<const float*>(w),
+                            dst, n, k, v, c, group);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || groups == 1) return static_cast<int>(err);
@@ -1018,12 +1130,13 @@ extern "C" int repro_bbit_linear_dw_plan(const void* codes, void* tmp_code,
 }
 
 // B8's sum over a plan: out (k, v, c), span values of dW per block; shift
-// is the plan's last radix digit's, 8 x (passes - 1).
+// is the plan's last radix digit's, 8 x (passes - 1); bf16: out is
+// bfloat16 (else float32).
 extern "C" int repro_bbit_linear_dw_sum(const void* scode, const void* perm,
                                         const void* offsets,
                                         const void* dout, void* out, int n,
                                         int k, int v, int c, int span,
-                                        int shift, int device,
+                                        int shift, int bf16, int device,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1033,20 +1146,29 @@ extern "C" int repro_bbit_linear_dw_sum(const void* scode, const void* perm,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(k, (v + span - 1) / span);
-  repro_torch::dw_sum_kernel<<<grid, repro_torch::kSumThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(scode), static_cast<const int32_t*>(perm),
-      static_cast<const int32_t*>(offsets), static_cast<const float*>(dout),
-      static_cast<float*>(out), n, v, c, span, shift);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* sp = static_cast<const int32_t*>(scode);
+  const int32_t* pp = static_cast<const int32_t*>(perm);
+  const int32_t* op = static_cast<const int32_t*>(offsets);
+  const float* dp = static_cast<const float*>(dout);
+  if (bf16) {
+    repro_torch::dw_sum_kernel<<<grid, repro_torch::kSumThreads, 0, st>>>(
+        sp, pp, op, dp, static_cast<__nv_bfloat16*>(out), n, v, c, span,
+        shift);
+  } else {
+    repro_torch::dw_sum_kernel<<<grid, repro_torch::kSumThreads, 0, st>>>(
+        sp, pp, op, dp, static_cast<float*>(out), n, v, c, span, shift);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches B6: out (k, v, c); `warps` warps a block, `parts` blocks a
-// cluster along the rows; vec: every row starts aligned to `bits` bytes.
+// cluster along the rows; vec: every row starts aligned to `bits` bytes;
+// bf16: out is bfloat16 (else float32).
 extern "C" int repro_bbit_linear_packed_bwd_dw(
     const void* packed, const void* empty, const void* dout, void* out, int n,
     int k, int bits, int v, int c, int p_w, int e_w, int warps, int parts,
-    int vec, int device, void* stream) {
+    int vec, int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (k == 0 || c == 0) return 0;
@@ -1058,24 +1180,13 @@ extern "C" int repro_bbit_linear_packed_bwd_dw(
   const uint8_t* pp = static_cast<const uint8_t*>(packed);
   const uint8_t* ep = static_cast<const uint8_t*>(empty);
   const float* dp = static_cast<const float*>(dout);
-  float* op = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 1:
-      return repro_torch::launch_packed_dw<1>(pp, ep, dp, op, n, k, v, c, p_w,
-                                              e_w, warps, parts, vec, st);
-    case 2:
-      return repro_torch::launch_packed_dw<2>(pp, ep, dp, op, n, k, v, c, p_w,
-                                              e_w, warps, parts, vec, st);
-    case 4:
-      return repro_torch::launch_packed_dw<4>(pp, ep, dp, op, n, k, v, c, p_w,
-                                              e_w, warps, parts, vec, st);
-    case 8:
-      return repro_torch::launch_packed_dw<8>(pp, ep, dp, op, n, k, v, c, p_w,
-                                              e_w, warps, parts, vec, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bf16 ? repro_torch::launch_packed_dw_bits<__nv_bfloat16>(
+                    bits, pp, ep, dp, out, n, k, v, c, p_w, e_w, warps,
+                    parts, vec, st)
+              : repro_torch::launch_packed_dw_bits<float>(
+                    bits, pp, ep, dp, out, n, k, v, c, p_w, e_w, warps,
+                    parts, vec, st);
 }
 
 #ifdef REPRO_DW_STAGES

@@ -51,3 +51,24 @@ def pad_rows(
         idx[i, :k] = (np.asarray(r[:k], dtype=np.int64) & mask31).astype(
             np.int32)
     return idx, nnz
+
+
+def batch_iterator(
+    indices: np.ndarray,
+    nnz: np.ndarray,
+    labels: np.ndarray,
+    batch_size: int,
+    *,
+    shuffle_seed: Optional[int] = None,
+    drop_remainder: bool = True,
+):
+    """Yields (indices, nnz, labels) minibatches, optionally shuffled
+    (``default_rng(shuffle_seed)``, the reference's order)."""
+    n = indices.shape[0]
+    order = np.arange(n)
+    if shuffle_seed is not None:
+        np.random.default_rng(shuffle_seed).shuffle(order)
+    stop = (n // batch_size) * batch_size if drop_remainder else n
+    for lo in range(0, stop, batch_size):
+        sel = order[lo: lo + batch_size]
+        yield indices[sel], nnz[sel], labels[sel]

@@ -43,13 +43,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "bbit_linear": {
         "repro_bbit_linear_packed_fwd": [P, P, P, P, I, I, I, I, I, I, I,
-                                         I, I, I, P],
-        "repro_bbit_linear_fwd": [P, P, P, P, I, I, I, I, I, I, I, P],
+                                         I, I, I, I, P],
+        "repro_bbit_linear_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, P],
         "repro_bbit_linear_dw_plan": [P, P, P, P, P, P, P, I, I, I, I, I,
                                       P],
-        "repro_bbit_linear_dw_sum": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+        "repro_bbit_linear_dw_sum": [P, P, P, P, P, I, I, I, I, I, I, I, I,
+                                     P],
         "repro_bbit_linear_packed_bwd_dw": [P, P, P, P, I, I, I, I, I, I, I,
-                                            I, I, I, I, P],
+                                            I, I, I, I, I, P],
     },
     "vw_sketch": {
         "repro_vw_sketch": [P, P, P, P, I, I, I, I, I, U, I, P],

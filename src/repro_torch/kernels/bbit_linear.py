@@ -11,9 +11,18 @@ from widened int32 (n, k) codes (B7 ``bbit_linear_fwd``, B8
 (``oph_zero``) drops the marked bins.  A widened code outside [0, V)
 adds nothing, as in the reference's kernels.  Each wrapper launches its
 CUDA kernel of ``csrc/bbit_linear.cu`` on CUDA tensors and takes the
-plain version on CPU tensors.  The kernels sum in another order than
-torch, so the two agree to float32 rounding (allclose), not bit for
-bit; the kernels themselves sum in a fixed order, with no float atomics,
+plain version on CPU tensors.
+
+The table is float32 or bfloat16 (``TABLE_DTYPES``).  The forwards read
+a bfloat16 table in place, widen each value to float32 (exact) and sum
+in float32, so their logits are float32 and equal the same kernel's on
+the table widened.  The dW wrappers take ``dtype``, dW's type: float32,
+or bfloat16 for a bfloat16 table, the float32 sums rounded to nearest
+even as torch's ``.to(torch.bfloat16)`` rounds them (the reference's
+``dw.astype(weights.dtype)``); so do their plain versions.  A launch
+counts on the wrapper's ``launches`` or, at bfloat16, its
+``launches_bf16``.  The kernels sum in another order than torch, so the
+two agree to float32 rounding (allclose), not bit for bit; the kernels themselves sum in a fixed order, with no float atomics,
 and give the same bits on every run.
 
 B8 works from a plan of its codes: for each bin j, the rows whose code
@@ -64,6 +73,8 @@ PACKED_DW_MAX_PARTS = 8
 # the blocks an SM is given before a block takes more rows
 PACKED_FWD_MAX_ROWS = 8
 PACKED_FWD_BLOCKS_PER_SM = 8
+# the table types B5/B7 read and B6/B8 write dW in
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _kept(codes: torch.Tensor, vsize: int) -> torch.Tensor:
@@ -141,11 +152,12 @@ def bbit_linear_fwd_grouped_plain(codes: torch.Tensor,
 
 def bbit_linear_bwd_dw_plain(codes: torch.Tensor, dout: torch.Tensor,
                              vsize: int,
-                             empty: Optional[torch.Tensor] = None
+                             empty: Optional[torch.Tensor] = None, *,
+                             dtype: torch.dtype = torch.float32
                              ) -> torch.Tensor:
     """B8's plain version (``ref.bbit_linear_bwd_dw``); bool ``empty``
-    (n, k) drops the marked bins."""
-    return _histogram(codes, dout, vsize, empty)
+    (n, k) drops the marked bins; the float32 sums cast to ``dtype``."""
+    return _histogram(codes, dout, vsize, empty).to(dtype)
 
 
 def dw_plan_passes(vsize: int) -> int:
@@ -273,11 +285,14 @@ def bbit_linear_packed_fwd_plain(packed: torch.Tensor,
 
 def bbit_linear_packed_bwd_dw_plain(packed: torch.Tensor, dout: torch.Tensor,
                                     vsize: int, *, k: int, bits: int,
-                                    empty: Optional[torch.Tensor] = None
+                                    empty: Optional[torch.Tensor] = None,
+                                    dtype: torch.dtype = torch.float32
                                     ) -> torch.Tensor:
-    """B6's plain version (``ref.bbit_linear_packed_bwd_dw``)."""
+    """B6's plain version (``ref.bbit_linear_packed_bwd_dw``); the
+    float32 sums cast to ``dtype``."""
     return _histogram(unpack_codes_torch(packed, k, bits), dout, vsize,
-                      None if empty is None else unpack_mask_torch(empty, k))
+                      None if empty is None else unpack_mask_torch(empty, k)
+                      ).to(dtype)
 
 
 def _check_same_device(what: str, first: torch.Tensor, *rest) -> None:
@@ -289,11 +304,22 @@ def _check_same_device(what: str, first: torch.Tensor, *rest) -> None:
 
 
 def _check_table(what: str, weights: torch.Tensor, k: int, min_v: int):
-    if (weights.dtype != torch.float32 or weights.dim() != 3
+    if (weights.dtype not in TABLE_DTYPES or weights.dim() != 3
             or weights.shape[0] != k or weights.shape[1] < min_v):
-        raise ValueError(f"{what}: weights must be float32 (k={k}, "
-                         f"V>={min_v}, C), got {weights.dtype} "
+        raise ValueError(f"{what}: weights must be float32 or bfloat16 "
+                         f"(k={k}, V>={min_v}, C), got {weights.dtype} "
                          f"{tuple(weights.shape)}")
+
+
+def _check_dtype(what: str, dtype: torch.dtype) -> None:
+    if dtype not in TABLE_DTYPES:
+        raise ValueError(f"{what}: dW is float32 or bfloat16, not {dtype}")
+
+
+def _count(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s kernel at table type ``dtype``."""
+    (wrapper.launches_bf16 if dtype == torch.bfloat16
+     else wrapper.launches).add()
 
 
 def _check_dout(what: str, dout: torch.Tensor, n: int) -> None:
@@ -341,15 +367,16 @@ def _fwd_launch(codes: torch.Tensor, weights: torch.Tensor,
         code = lib.repro_bbit_linear_fwd(
             codes.data_ptr(), weights.data_ptr(), part.data_ptr(),
             out.data_ptr(), n, k, v, c, group, int(vec),
-            codes.device.index, _build.stream(codes))
+            int(weights.dtype == torch.bfloat16), codes.device.index,
+            _build.stream(codes))
     _build.check("bbit_linear", code, "bbit_linear_fwd")
     return out
 
 
 def bbit_linear_fwd(codes: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
-    """B7: logits f32 (n, C) from int32 codes (n, k) and a table f32
-    (k, V, C); codes outside [0, V) add nothing."""
+    """B7: logits f32 (n, C) from int32 codes (n, k) and a table f32 or
+    bf16 (k, V, C); codes outside [0, V) add nothing."""
     if _build.on_cpu("bbit_linear_fwd", codes):
         return bbit_linear_fwd_plain(codes, weights)
     _check_codes("bbit_linear_fwd", codes)
@@ -358,11 +385,12 @@ def bbit_linear_fwd(codes: torch.Tensor,
     _check_same_device("bbit_linear_fwd", codes, weights)
     out = _fwd_launch(codes, weights,
                       fwd_layout(k, weights.shape[1], weights.shape[2]))
-    bbit_linear_fwd.launches.add()
+    _count(bbit_linear_fwd, weights.dtype)
     return out
 
 
 bbit_linear_fwd.launches = LaunchCount()
+bbit_linear_fwd.launches_bf16 = LaunchCount()
 
 
 def bbit_linear_dw_plan(codes: torch.Tensor, vsize: int) -> DwPlan:
@@ -396,12 +424,14 @@ def bbit_linear_dw_plan(codes: torch.Tensor, vsize: int) -> DwPlan:
     return plan
 
 
-def bbit_linear_dw_sum(plan: DwPlan, dout: torch.Tensor,
-                       vsize: int) -> torch.Tensor:
-    """B8's sum over a plan: dW f32 (k, V, C) from a ``DwPlan`` and dout
-    f32 (n, C); each launch counts on ``bbit_linear_bwd_dw.launches``."""
+def bbit_linear_dw_sum(plan: DwPlan, dout: torch.Tensor, vsize: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B8's sum over a plan: dW (k, V, C) in ``dtype`` from a ``DwPlan``
+    and dout f32 (n, C); each launch counts on ``bbit_linear_bwd_dw``'s
+    counter of ``dtype``."""
+    _check_dtype("bbit_linear_dw_sum", dtype)
     if _build.on_cpu("bbit_linear_dw_sum", plan.perm):
-        return bbit_linear_dw_sum_plain(plan, dout, vsize)
+        return bbit_linear_dw_sum_plain(plan, dout, vsize).to(dtype)
     k, n = plan.perm.shape
     if (any(t.dtype != torch.int32 for t in plan)
             or plan.scode.shape != plan.perm.shape
@@ -412,50 +442,55 @@ def bbit_linear_dw_sum(plan: DwPlan, dout: torch.Tensor,
     _check_dout("bbit_linear_dw_sum", dout, n)
     _check_same_device("bbit_linear_dw_sum", plan.perm, plan.scode,
                        plan.offsets, dout)
-    out = _dw_sum_launch(plan, dout, vsize, dw_sum_span(n, vsize))
-    bbit_linear_bwd_dw.launches.add()
+    out = _dw_sum_launch(plan, dout, vsize, dw_sum_span(n, vsize), dtype)
+    _count(bbit_linear_bwd_dw, dtype)
     return out
 
 
 def _dw_sum_launch(plan: DwPlan, dout: torch.Tensor, vsize: int,
-                   span: int) -> torch.Tensor:
+                   span: int, dtype: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
     """Launches B8's sum with ``span`` values of dW a block
-    (``dw_sum_span``'s, on the main path)."""
+    (``dw_sum_span``'s, on the main path), dW in ``dtype``."""
     k, n = plan.perm.shape
     if -(-vsize // span) > MAX_GRID_Y:
         raise ValueError(f"bbit_linear_dw_sum: V={vsize} needs more than "
                          f"{MAX_GRID_Y} blocks of {span} values")
     c = dout.shape[1]
     dev = plan.perm.device
-    out = torch.empty((k, vsize, c), dtype=torch.float32, device=dev)
+    out = torch.empty((k, vsize, c), dtype=dtype, device=dev)
     lib = _build.load("bbit_linear")
     with torch.cuda.device(dev):
         code = lib.repro_bbit_linear_dw_sum(
             plan.scode.data_ptr(), plan.perm.data_ptr(),
             plan.offsets.data_ptr(), dout.data_ptr(), out.data_ptr(), n, k,
-            vsize, c, span, 8 * (dw_plan_passes(vsize) - 1), dev.index,
+            vsize, c, span, 8 * (dw_plan_passes(vsize) - 1),
+            int(dtype == torch.bfloat16), dev.index,
             _build.stream(plan.perm))
     _build.check("bbit_linear", code, "bbit_linear_dw_sum")
     return out
 
 
 def bbit_linear_bwd_dw(codes: torch.Tensor, dout: torch.Tensor,
-                       vsize: int) -> torch.Tensor:
-    """B8: dW f32 (k, V, C) from int32 codes (n, k) and dout f32 (n, C);
-    codes outside [0, V) add nothing.  On the card: the plan of
-    ``codes`` (built once per tensor and kept, see the module's
-    docstring), then the sum over it."""
+                       vsize: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B8: dW (k, V, C) in ``dtype`` (float32 or bfloat16) from int32
+    codes (n, k) and dout f32 (n, C); codes outside [0, V) add nothing.
+    On the card: the plan of ``codes`` (built once per tensor and kept,
+    see the module's docstring), then the sum over it."""
+    _check_dtype("bbit_linear_bwd_dw", dtype)
     if _build.on_cpu("bbit_linear_bwd_dw", codes):
-        return bbit_linear_bwd_dw_plain(codes, dout, vsize)
+        return bbit_linear_bwd_dw_plain(codes, dout, vsize, dtype=dtype)
     _check_codes("bbit_linear_bwd_dw", codes)
     _check_dout("bbit_linear_bwd_dw", dout, codes.shape[0])
     _check_same_device("bbit_linear_bwd_dw", codes, dout)
     return bbit_linear_dw_sum(_DW_PLANS.get(codes, vsize,
                                             bbit_linear_dw_plan),
-                              dout, vsize)
+                              dout, vsize, dtype)
 
 
 bbit_linear_bwd_dw.launches = LaunchCount()
+bbit_linear_bwd_dw.launches_bf16 = LaunchCount()
 bbit_linear_bwd_dw.plan_builds = _DW_PLANS.builds
 bbit_linear_bwd_dw.clear_plans = _DW_PLANS.clear
 
@@ -493,7 +528,8 @@ def _packed_fwd_launch(packed: torch.Tensor, weights: torch.Tensor, k: int,
             None if empty is None else empty.data_ptr(), out.data_ptr(),
             n, k, bits, v, c, packed.shape[1],
             0 if empty is None else empty.shape[1], rows, int(vec),
-            packed.device.index, _build.stream(packed))
+            int(weights.dtype == torch.bfloat16), packed.device.index,
+            _build.stream(packed))
     _build.check("bbit_linear", code, "bbit_linear_packed_fwd")
     return out
 
@@ -503,8 +539,8 @@ def bbit_linear_packed_fwd(packed: torch.Tensor, weights: torch.Tensor, *,
                            empty: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """B5: logits f32 (n, C) from packed uint8 (n, ceil(k·bits/8)), table
-    f32 (k, V, C) with V ≥ 2^bits, and ``empty`` uint8 (n, ceil(k/8))
-    or None."""
+    f32 or bf16 (k, V, C) with V ≥ 2^bits, and ``empty`` uint8 (n,
+    ceil(k/8)) or None."""
     check_bits(bits)
     if _build.on_cpu("bbit_linear_packed_fwd", packed):
         return bbit_linear_packed_fwd_plain(packed, weights, k=k, bits=bits,
@@ -517,11 +553,12 @@ def bbit_linear_packed_fwd(packed: torch.Tensor, weights: torch.Tensor, *,
         packed_fwd_layout(packed.shape[0],
                           _build.sm_count(packed.device.index)),
         packed_fwd_vec(bits, packed.shape[1], packed.data_ptr()))
-    bbit_linear_packed_fwd.launches.add()
+    _count(bbit_linear_packed_fwd, weights.dtype)
     return out
 
 
 bbit_linear_packed_fwd.launches = LaunchCount()
+bbit_linear_packed_fwd.launches_bf16 = LaunchCount()
 
 
 def packed_dw_layout(n: int) -> Tuple[int, int]:
@@ -540,36 +577,39 @@ def packed_dw_layout(n: int) -> Tuple[int, int]:
 
 def _packed_dw_launch(packed: torch.Tensor, dout: torch.Tensor, vsize: int,
                       k: int, bits: int, empty: Optional[torch.Tensor],
-                      warps: int, parts: int, vec: bool) -> torch.Tensor:
+                      warps: int, parts: int, vec: bool,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One launch of B6 on checked CUDA inputs: ``warps`` warps a block,
     ``parts`` blocks a cluster along the rows (``packed_dw_layout``'s, on
     the main path); ``vec``: one load a row's 8 codes
-    (``packed_fwd_vec``)."""
+    (``packed_fwd_vec``); dW in ``dtype``."""
     n, c = dout.shape
-    out = torch.empty((k, vsize, c), dtype=torch.float32,
-                      device=packed.device)
+    out = torch.empty((k, vsize, c), dtype=dtype, device=packed.device)
     lib = _build.load("bbit_linear")
     with torch.cuda.device(packed.device):
         code = lib.repro_bbit_linear_packed_bwd_dw(
             packed.data_ptr(), None if empty is None else empty.data_ptr(),
             dout.data_ptr(), out.data_ptr(), n, k, bits, vsize, c,
             packed.shape[1], 0 if empty is None else empty.shape[1], warps,
-            parts, int(vec), packed.device.index, _build.stream(packed))
+            parts, int(vec), int(dtype == torch.bfloat16),
+            packed.device.index, _build.stream(packed))
     _build.check("bbit_linear", code, "bbit_linear_packed_bwd_dw")
     return out
 
 
 def bbit_linear_packed_bwd_dw(packed: torch.Tensor, dout: torch.Tensor,
                               vsize: int, *, k: int, bits: int,
-                              empty: Optional[torch.Tensor] = None
+                              empty: Optional[torch.Tensor] = None,
+                              dtype: torch.dtype = torch.float32
                               ) -> torch.Tensor:
-    """B6: dW f32 (k, V, C), V = ``vsize`` ≥ 2^bits, from packed uint8
-    rows, dout f32 (n, C) and ``empty`` uint8 (n, ceil(k/8)) or None;
-    marked bins add nothing."""
+    """B6: dW (k, V, C) in ``dtype`` (float32 or bfloat16), V =
+    ``vsize`` ≥ 2^bits, from packed uint8 rows, dout f32 (n, C) and
+    ``empty`` uint8 (n, ceil(k/8)) or None; marked bins add nothing."""
     check_bits(bits)
+    _check_dtype("bbit_linear_packed_bwd_dw", dtype)
     if _build.on_cpu("bbit_linear_packed_bwd_dw", packed):
-        return bbit_linear_packed_bwd_dw_plain(packed, dout, vsize, k=k,
-                                               bits=bits, empty=empty)
+        return bbit_linear_packed_bwd_dw_plain(
+            packed, dout, vsize, k=k, bits=bits, empty=empty, dtype=dtype)
     _check_packed("bbit_linear_packed_bwd_dw", packed, k, bits, empty)
     n = packed.shape[0]
     _check_dout("bbit_linear_packed_bwd_dw", dout, n)
@@ -580,9 +620,10 @@ def bbit_linear_packed_bwd_dw(packed: torch.Tensor, dout: torch.Tensor,
     warps, parts = packed_dw_layout(n)
     out = _packed_dw_launch(packed, dout, vsize, k, bits, empty, warps, parts,
                             packed_fwd_vec(bits, packed.shape[1],
-                                           packed.data_ptr()))
-    bbit_linear_packed_bwd_dw.launches.add()
+                                           packed.data_ptr()), dtype)
+    _count(bbit_linear_packed_bwd_dw, dtype)
     return out
 
 
 bbit_linear_packed_bwd_dw.launches = LaunchCount()
+bbit_linear_packed_bwd_dw.launches_bf16 = LaunchCount()

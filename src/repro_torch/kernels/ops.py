@@ -42,6 +42,15 @@ the gradient in the table, the dW kernel (B8, B6).  Integer inputs carry
 no gradient.  B8 keeps a plan of each codes tensor it sees (see
 ``kernels/bbit_linear.py``); ``counts()`` shows the plans built as
 ``bbit_linear_bwd_dw_plans``.
+
+The table may be float32 or bfloat16 (``BBitLinearConfig.param_dtype``).
+The forwards give float32 logits either way, and the backwards give dW
+in the table's dtype, summed in float32 first, as the reference's
+``dw.astype(weights.dtype)`` does; B6 and B8 write it so themselves.
+No eligibility depends on the dtype: a bfloat16 table takes the kernel
+or plain arm exactly where a float32 one would.  ``counts()`` shows a
+bfloat16 table's launches of B5-B8 as ``<kernel>_bf16``; their plain
+calls count with the float32 ones'.
 """
 from __future__ import annotations
 
@@ -77,6 +86,10 @@ LAUNCHES: Dict[str, LaunchCount] = {
     "hamming_distance": _hd.hamming_distance.launches,
 }
 PLAIN: Dict[str, LaunchCount] = {name: LaunchCount() for name in LAUNCHES}
+# the bfloat16 table instantiations of B5-B8, counted apart
+LAUNCHES.update({f"{w.__name__}_bf16": w.launches_bf16 for w in (
+    _bl.bbit_linear_packed_fwd, _bl.bbit_linear_packed_bwd_dw,
+    _bl.bbit_linear_fwd, _bl.bbit_linear_bwd_dw)})
 PLAN_BUILDS = _bl.bbit_linear_bwd_dw.plan_builds
 
 
@@ -182,7 +195,7 @@ class _BBitLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, codes, weights, shape, impl):
         ctx.save_for_backward(codes)
-        ctx.vsize = weights.shape[1]
+        ctx.vsize, ctx.dtype = weights.shape[1], weights.dtype
         if _launches(codes, "bbit_linear_fwd", "logits", shape, impl):
             return _bl.bbit_linear_fwd(codes, weights)
         return _bl.bbit_linear_fwd_plain(codes, weights)
@@ -194,9 +207,10 @@ class _BBitLinear(torch.autograd.Function):
         shape = {"v": ctx.vsize, "k": int(codes.shape[1]),
                  "rows": int(codes.shape[0])}
         if _launches(codes, "bbit_linear_bwd_dw", "logits_bwd", shape):
-            dw = _bl.bbit_linear_bwd_dw(codes, dout, ctx.vsize)
+            dw = _bl.bbit_linear_bwd_dw(codes, dout, ctx.vsize, ctx.dtype)
         else:
-            dw = _bl.bbit_linear_bwd_dw_plain(codes, dout, ctx.vsize)
+            dw = _bl.bbit_linear_bwd_dw_plain(codes, dout, ctx.vsize,
+                                              dtype=ctx.dtype)
         return None, dw, None, None
 
 
@@ -218,7 +232,7 @@ class _BBitLinearMasked(torch.autograd.Function):
     @staticmethod
     def forward(ctx, codes, empty, weights):
         ctx.save_for_backward(codes, empty)
-        ctx.vsize = weights.shape[1]
+        ctx.vsize, ctx.dtype = weights.shape[1], weights.dtype
         PLAIN["bbit_linear_fwd"].add()
         return _bl.bbit_linear_fwd_plain(codes, weights, empty)
 
@@ -227,7 +241,7 @@ class _BBitLinearMasked(torch.autograd.Function):
         codes, empty = ctx.saved_tensors
         PLAIN["bbit_linear_bwd_dw"].add()
         return None, None, _bl.bbit_linear_bwd_dw_plain(
-            codes, dout.to(torch.float32), ctx.vsize, empty)
+            codes, dout.to(torch.float32), ctx.vsize, empty, dtype=ctx.dtype)
 
 
 def bbit_linear_masked(codes: torch.Tensor, weights: torch.Tensor,
@@ -247,6 +261,7 @@ class _BBitLinearPacked(torch.autograd.Function):
     def forward(ctx, packed, empty, weights, k, bits, shape, impl):
         ctx.save_for_backward(packed, empty)
         ctx.k, ctx.bits, ctx.vsize = k, bits, weights.shape[1]
+        ctx.dtype = weights.dtype
         if _launches(packed, "bbit_linear_packed_fwd", "logits_packed",
                      shape, impl):
             return _bl.bbit_linear_packed_fwd(packed, weights, k=k,
@@ -263,10 +278,11 @@ class _BBitLinearPacked(torch.autograd.Function):
                  "rows": int(packed.shape[0])}
         if _launches(packed, "bbit_linear_packed_bwd_dw",
                      "logits_packed_bwd", shape):
-            dw = _bl.bbit_linear_packed_bwd_dw(packed, dout, ctx.vsize, **kw)
+            dw = _bl.bbit_linear_packed_bwd_dw(packed, dout, ctx.vsize,
+                                               dtype=ctx.dtype, **kw)
         else:
-            dw = _bl.bbit_linear_packed_bwd_dw_plain(packed, dout,
-                                                     ctx.vsize, **kw)
+            dw = _bl.bbit_linear_packed_bwd_dw_plain(
+                packed, dout, ctx.vsize, dtype=ctx.dtype, **kw)
         return None, None, dw, None, None, None, None
 
 

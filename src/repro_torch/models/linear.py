@@ -1,9 +1,12 @@
 """Linear models over b-bit codes and over VW sketches (counterpart of
 ``repro/models/linear.py``).
 
-The b-bit weight is a (k, 2^b, C) float32 table — the expanded 2^b·k
-weight vector reshaped, the reference's layout — plus a (C,) bias, held
-in a plain dict of tensors ``{"table", "bias"}``.  Each b-bit forward
+The b-bit weight is a (k, 2^b, C) table — the expanded 2^b·k weight
+vector reshaped, the reference's layout — plus a (C,) bias, held in a
+plain dict of tensors ``{"table", "bias"}``, both in
+``BBitLinearConfig.param_dtype``: float32 or bfloat16.  The kernels read
+a bfloat16 table in place and widen it, so logits are float32 either
+way, and the gradient comes back in the table's dtype.  Each b-bit forward
 picks its arm through the cost model (``perf.choose``, op ``logits`` or
 ``logits_packed``); ``BBitLinearConfig.use_kernel`` pins it.  The VW model is a
 dense (m, C) weight over the sketches, ``{"w", "bias"}``.  Binary
@@ -21,12 +24,13 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch import perf
+from repro_torch import bfloat16, perf
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
-# the table dtypes the kernels read (B5-B8 read float32 tables)
-PARAM_DTYPES = ("float32",)
+# the table dtypes B5-B8 read (and write dW in)
+PARAM_DTYPES = ("float32", "bfloat16")
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,35 +55,35 @@ class BBitLinearConfig:
         return self.k * (1 << self.b) * self.n_out + self.n_out
 
 
-def check_param_dtype(cfg: BBitLinearConfig) -> None:
-    """Raises for a table dtype the kernels do not read.  The reference's
-    kernels read a bfloat16 table in place (one-hot products accumulated
-    in float32, dW cast back to bfloat16); the port's B5-B8 read float32
-    only, and a cast would change the model silently, so a bfloat16
-    table waits for ROADMAP A7."""
+def check_param_dtype(cfg: BBitLinearConfig) -> torch.dtype:
+    """The torch dtype of the config's table; raises for one the kernels
+    do not read.  The reference's ``jnp.dtype`` also takes float16; the
+    port has no float16 table (ROADMAP), and a cast would change the
+    model silently."""
     if cfg.param_dtype not in PARAM_DTYPES:
         raise ValueError(
             f"param_dtype={cfg.param_dtype!r}: the port's kernels (B5-B8) "
-            f"read float32 tables only; a {cfg.param_dtype} table waits "
-            "for ROADMAP A7 (no silent cast)")
+            f"read {' or '.join(PARAM_DTYPES)} tables only (no silent "
+            "cast)")
+    return _TORCH_DTYPES[cfg.param_dtype]
 
 
 def init_bbit_linear(cfg: BBitLinearConfig,
                      generator: Optional[torch.Generator] = None,
                      device: DeviceLike = None) -> dict:
-    """Zero table and bias, or a 0.01·N(0, 1) table drawn from
-    ``generator`` (on the generator's device, then moved)."""
-    check_param_dtype(cfg)
+    """Zero table and bias in ``cfg.param_dtype``, or a 0.01·N(0, 1)
+    table drawn in float32 from ``generator`` (on the generator's device),
+    then cast and moved."""
+    dtype = check_param_dtype(cfg)
     dev = resolve_device(device)
     shape = (cfg.k, 1 << cfg.b, cfg.n_out)
     if generator is None:
-        table = torch.zeros(shape, dtype=torch.float32, device=dev)
+        table = torch.zeros(shape, dtype=dtype, device=dev)
     else:
-        table = 0.01 * torch.randn(shape, generator=generator,
-                                   device=generator.device).to(dev)
+        table = (0.01 * torch.randn(shape, generator=generator,
+                                    device=generator.device)).to(dev, dtype)
     return {"table": table,
-            "bias": torch.zeros((cfg.n_out,), dtype=torch.float32,
-                                device=dev)}
+            "bias": torch.zeros((cfg.n_out,), dtype=dtype, device=dev)}
 
 
 def params_from_jax(params_np: Mapping[str, np.ndarray],
@@ -87,12 +91,21 @@ def params_from_jax(params_np: Mapping[str, np.ndarray],
     """The reference's params → the port's: b-bit ``{"table" (k, 2^b,
     n_out), "bias" (n_out,)}`` or VW ``{"w" (m, n_out), "bias"}``, as
     numpy arrays.  The layout is the same, so this converts the array
-    type only."""
+    type only: a bfloat16 array stays bfloat16, bit for bit, anything
+    else becomes float32."""
     dev = resolve_device(device)
     names = ("w", "bias") if "w" in params_np else ("table", "bias")
-    return {name: torch.tensor(np.asarray(params_np[name], np.float32),
-                               device=dev)
-            for name in names}
+    return {name: param_tensor(params_np[name]).to(dev) for name in names}
+
+
+def param_tensor(arr) -> torch.Tensor:
+    """A numpy param as a CPU tensor: bfloat16 words
+    (``bfloat16.is_bfloat16_array``) as bfloat16, bit for bit, anything
+    else as float32."""
+    arr = np.asarray(arr)
+    if bfloat16.is_bfloat16_array(arr):
+        return bfloat16.from_numpy(arr)
+    return torch.from_numpy(np.array(arr, np.float32))
 
 
 def _forced_impl(cfg: BBitLinearConfig, op: str, shape: dict,

@@ -15,6 +15,16 @@ widens them to float32, updates and stores them again, as the reference
 does.  A leaf of more than ``chunked_update_threshold`` elements (and at
 least two dims) updates one slice of its leading axis at a time, so its
 float32 moments never exist whole.
+
+A bfloat16 leaf keeps the reference's dtypes.  AdamW steps it in float32
+and rounds the result back to bfloat16 (through ``maybe_quantize``'s
+bfloat16 storage, as the reference's ``.astype(p.dtype)`` does; an
+in-place ``p.sub_`` of the float32 step would round the same).  SGD and
+momentum widen it: the reference's ``p - lr_t * g`` meets a float32
+array ``lr_t``, so after the first step the leaf is float32 (ROADMAP C7, copied on purpose).  Such a
+leaf, and a momentum buffer that widens with it, is replaced in the
+dict, not updated in place; the momentum factor meets a bfloat16 buffer
+rounded to bfloat16, as jnp rounds a Python scalar.
 """
 from __future__ import annotations
 
@@ -45,23 +55,46 @@ def _lr_at(lr: LR, step: torch.Tensor):
     return lr(step) if callable(lr) else float(np.float32(lr))
 
 
+def _weak(s: float, x: torch.Tensor) -> float:
+    """The Python scalar ``s`` rounded to ``x``'s dtype, as jnp rounds a
+    Python scalar that meets an array."""
+    return float(torch.tensor(s, dtype=x.dtype))
+
+
+def _f32(x: torch.Tensor) -> bool:
+    return x.dtype == torch.float32
+
+
 def sgd(lr: LR, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
     def init(params):
         if momentum == 0.0:
             return ()
         return {name: torch.zeros_like(p) for name, p in params.items()}
 
+    def descend(params, name, lr_t, upd):
+        """p - lr_t·upd in float32: in place on float32 leaves, else a
+        new float32 leaf (the reference's widening)."""
+        p = params[name]
+        if _f32(p) and _f32(upd):
+            p.sub_(lr_t * upd)
+        else:
+            params[name] = p.float() - lr_t * upd.float()
+
     @torch.no_grad()
     def update(grads, state, params, step):
         lr_t = _lr_at(lr, step)
         if momentum == 0.0:
-            for name, p in params.items():
-                p.sub_(lr_t * grads[name])
+            for name in params:
+                descend(params, name, lr_t, grads[name])
             return params, ()
-        for name, p in params.items():
-            vel = state[name].mul_(momentum).add_(grads[name])
-            upd = momentum * vel + grads[name] if nesterov else vel
-            p.sub_(lr_t * upd)
+        for name in params:
+            g, vel = grads[name], state[name]
+            if _f32(vel) and _f32(g):
+                vel.mul_(momentum).add_(g)
+            else:
+                vel = state[name] = _weak(momentum, vel) * vel + g
+            upd = _weak(momentum, vel) * vel + g if nesterov else vel
+            descend(params, name, lr_t, upd)
         return params, state
 
     return Optimizer(init, update)
@@ -102,7 +135,12 @@ def adamw(lr: LR, cfg: AdamWConfig = AdamWConfig()) -> Optimizer:
         delta = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
-        p.sub_(lr_t * delta)
+        if _f32(p):
+            p.sub_(lr_t * delta)
+        else:
+            new = p.float() - lr_t * delta
+            p.copy_(maybe_quantize(new, "bfloat16")
+                    if p.dtype == torch.bfloat16 else new)
         if in_place:
             return m, v
         return (maybe_quantize(m, cfg.moment_dtype, cfg.quant_block),

@@ -67,8 +67,9 @@ def dequantize(qa: QuantizedArray) -> torch.Tensor:
 
 def maybe_quantize(x: torch.Tensor, dtype: str, block: int = 0
                    ) -> Union[torch.Tensor, QuantizedArray]:
-    """'float32' | 'bfloat16' | 'int8' storage of a moment tensor
-    (``block`` is accepted and unused, as in the reference)."""
+    """'float32' | 'bfloat16' | 'int8' storage of a moment tensor, or
+    of a bfloat16 param's AdamW step (``block`` is accepted and unused,
+    as in the reference)."""
     del block
     if dtype == "int8":
         return quantize(x)

@@ -41,3 +41,16 @@ def inverse_sqrt(peak_lr: float, warmup_steps: int):
             warmup_steps / torch.clamp(step, min=1.0))
         return torch.where(step < warmup_steps, warm, decay)
     return f
+
+
+def make(name: str, lr: float, total_steps: int = 10000,
+         warmup_steps: int = 100):
+    """The schedule ``name`` ('constant', 'warmup_cosine' or
+    'inverse_sqrt') peaking at ``lr``."""
+    if name == "constant":
+        return constant(lr)
+    if name == "warmup_cosine":
+        return warmup_cosine(lr, warmup_steps, total_steps)
+    if name == "inverse_sqrt":
+        return inverse_sqrt(lr, warmup_steps)
+    raise ValueError(f"unknown schedule {name!r}")

@@ -1,10 +1,15 @@
 """TRON: trust-region Newton-CG, LIBLINEAR's primal solver (counterpart
 of ``repro/optim/tron.py``).
 
-Steihaug conjugate-gradient inner solves on one flat float32 tensor, on
-the params' device.  The params are flattened in the order of the
-reference's ``ravel_pytree`` (sorted keys: ``bias`` before ``table``),
-so the two solvers walk like vectors.  The scalar tests of the outer and
+Steihaug conjugate-gradient inner solves on one flat tensor, on the
+params' device.  The params are flattened as the reference's
+``ravel_pytree`` flattens them (sorted keys: ``bias`` before ``table``;
+leaves of one dtype give a vector of that dtype), so the two solvers walk
+like vectors, in the same dtypes: from a bfloat16 start the first
+gradient and the first CG direction are bfloat16, and the arithmetic
+that meets a float32 Hessian product or scalar widens to float32 as jnp
+promotes (``_wide``), so the iterate is float32 after the first accepted
+step, as the reference's is.  The scalar tests of the outer and
 inner loops run on the host, as in the reference.  Hessian-vector
 products come from the caller (``hvp``, the analytic Hv = v +
 C·Xᵀ(ℓ″(m)⊙Xv) of a linear model) or else from double backward.
@@ -33,22 +38,50 @@ class TronResult:
 
 
 def ravel_params(params: Params) -> Tuple[torch.Tensor, Callable]:
-    """→ (flat float32 tensor, unravel): a dict's tensors in sorted key
-    order, or a tensor as it is."""
+    """→ (flat tensor, unravel): a dict's tensors in sorted key order,
+    or a tensor as it is.  Leaves of one dtype give a flat tensor of that
+    dtype and an unravel that keeps the dtype of the flat tensor it is
+    given; leaves of several give a float32 one (the float32 params
+    here), which unravel casts back leaf by leaf."""
     if isinstance(params, torch.Tensor):
         shape = params.shape
-        return params.reshape(-1).to(torch.float32), lambda f: f.view(shape)
+        return params.reshape(-1), lambda f: f.view(shape)
     names = sorted(params)
     shapes = [params[name].shape for name in names]
     sizes = [params[name].numel() for name in names]
-    flat = torch.cat([params[name].reshape(-1).to(torch.float32)
-                      for name in names])
+    dtypes = {params[name].dtype for name in names}
+    one = len(dtypes) == 1
+    flat = torch.cat([params[name].reshape(-1).to(
+        next(iter(dtypes)) if one else torch.float32) for name in names])
+    back = {name: params[name].dtype for name in names}
 
     def unravel(f: torch.Tensor) -> dict:
-        return {name: part.view(shape) for name, part, shape
+        return {name: (part if one else part.to(back[name])).view(shape)
+                for name, part, shape
                 in zip(names, torch.split(f, sizes), shapes)}
 
     return flat, unravel
+
+
+def _wide(*xs):
+    """``xs`` in their common dtype, as jnp promotes arrays: a 0-d
+    float32 tensor widens a bfloat16 vector (torch's own rule would keep
+    the vector's dtype), and ``@`` takes two of one dtype."""
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return tuple(x.to(dtype) for x in xs)
+
+
+def _dot(a, b):
+    a, b = _wide(a, b)
+    return a @ b
+
+
+def _axpy(x, alpha, y):
+    """x + alpha·y in the common dtype of the three."""
+    x, alpha, y = _wide(x, alpha, y)
+    return x + alpha * y
 
 
 def _cg_steihaug(hvp, g, delta, cg_tol, cg_max):
@@ -62,24 +95,24 @@ def _cg_steihaug(hvp, g, delta, cg_tol, cg_max):
         if torch.sqrt(rTr) <= cg_tol * g_norm:
             return s, False
         Hd = hvp(d)
-        dHd = d @ Hd
+        dHd = _dot(d, Hd)
         if dHd <= 0:
-            return s + _boundary_tau(s, d, delta) * d, True
+            return _axpy(s, _boundary_tau(s, d, delta), d), True
         alpha = rTr / dHd
-        s_next = s + alpha * d
+        s_next = _axpy(s, alpha, d)
         if torch.sqrt(s_next @ s_next) >= delta:
-            return s + _boundary_tau(s, d, delta) * d, True
+            return _axpy(s, _boundary_tau(s, d, delta), d), True
         s = s_next
-        r = r - alpha * Hd
+        r = _axpy(r, -alpha, Hd)
         rTr_new = r @ r
-        d = r + (rTr_new / rTr) * d
+        d = _axpy(r, rTr_new / rTr, d)
         rTr = rTr_new
     return s, False
 
 
 def _boundary_tau(s, d, delta):
     """Positive root of ||s + tau·d|| = delta."""
-    sd = s @ d
+    sd = _dot(s, d)
     dd = d @ d
     ss = s @ s
     rad = torch.sqrt(sd * sd + dd * (delta * delta - ss))
@@ -144,8 +177,8 @@ def tron_minimize(
             break
         s, _ = _cg_steihaug(lambda v: hvp_at(w, v), g, delta, cg_tol, cg_max)
         f_new = val_only(w + s)
-        gs = float(g @ s)
-        sHs = float(s @ hvp_at(w, s))
+        gs = float(_dot(g, s))
+        sHs = float(_dot(s, hvp_at(w, s)))
         pred = -(gs + 0.5 * sHs)                 # predicted decrease
         actual = float(f - f_new)
         rho = actual / pred if pred > 0 else -1.0

@@ -70,7 +70,7 @@ from repro_torch.data.packing import bucket_width, pad_rows
 from repro_torch.devices import DeviceLike, replica_devices
 from repro_torch.kernels import ops
 from repro_torch.models.linear import (BBitLinearConfig, bbit_scores,
-                                       bbit_scores_packed)
+                                       bbit_scores_packed, param_tensor)
 from repro_torch.retrieval.bands import band_geometry, band_keys_packed
 from repro_torch.serving.batcher import BucketBatcher
 from repro_torch.serving.dedup import DedupCache
@@ -210,7 +210,10 @@ class HashedClassifierEngine:
     # ---------------------------------------------------------- weights --
     def _stage(self, params) -> Tuple[dict, ...]:
         """Checks ``params`` against the config and copies them onto every
-        replica device (float32, contiguous, owned by the engine)."""
+        replica device (contiguous, owned by the engine): a bfloat16
+        tensor, or numpy array of bfloat16 words, stays bfloat16, as the
+        reference's ``device_put`` keeps it (B5 reads it in place); any
+        other becomes float32."""
         shapes = {"table": (self.cfg.k, 1 << self.cfg.b, self.cfg.n_out),
                   "bias": (self.cfg.n_out,)}
         if set(params) != set(shapes):
@@ -223,14 +226,13 @@ class HashedClassifierEngine:
                     f", the config needs {shape} — a hot swap cannot "
                     "change k/b/n_classes")
         host = {name: (params[name] if isinstance(params[name], torch.Tensor)
-                       else torch.from_numpy(np.array(params[name],
-                                                      np.float32)))
+                       else param_tensor(params[name]))
                 for name in shapes}
         staged = []
         for dev in self.devices:
-            staged.append({name: t.to(device=dev, dtype=torch.float32,
-                                      copy=True).contiguous()
-                           for name, t in host.items()})
+            staged.append({name: t.to(device=dev, dtype=(
+                t.dtype if t.dtype == torch.bfloat16 else torch.float32),
+                copy=True).contiguous() for name, t in host.items()})
             if dev.type == "cuda":
                 # resident before the swap: wait on the copies (the
                 # device's current stream), not on the whole device

@@ -39,6 +39,7 @@ import threading
 import time
 from typing import Any, List, Optional, Tuple
 
+from repro_torch import bfloat16
 from repro_torch.ckpt import checkpoint as ckpt
 
 
@@ -115,12 +116,14 @@ class ReloadManager:
         Raises ``FileNotFoundError`` (no checkpoint there) or
         ``ValueError`` (structure mismatch) without touching the live
         weights — a failed reload leaves serving exactly as it was.
-        The template is the live params as host numpy arrays, so the
-        restored leaves land on the host and ``swap_weights`` copies
-        them onto every replica.
+        The template is the live params as host numpy arrays (a
+        bfloat16 table as its ``|V2`` words), so the restored leaves land
+        on the host in the live dtype (a float32 snapshot rounded to a
+        bfloat16 engine's, as the reference's template casts it) and
+        ``swap_weights`` copies them onto every replica.
         """
         with self._lock:
-            template = {name: t.detach().cpu().numpy()
+            template = {name: bfloat16.to_numpy(t)
                         for name, t in self.engine.params.items()}
             params, got_step = load_serving_params(ckpt_dir, template,
                                                    step)

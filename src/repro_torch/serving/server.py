@@ -175,12 +175,14 @@ class ScoreServer:
             await self._drain()
         finally:
             server.close()
-            await server.wait_closed()
-            for w in list(self._writers):   # idle keep-alive connections
+            # idle keep-alive connections close first: since Python
+            # 3.12.1 wait_closed waits for every connection to end
+            for w in list(self._writers):
                 try:
                     w.close()
                 except Exception:  # noqa: BLE001
                     pass
+            await server.wait_closed()
             self._finished.set()
 
     async def _drain(self) -> None:

@@ -6,12 +6,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import bfloat16, tree
 
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return bfloat16.to_numpy(x)   # a bfloat16 tensor as its words
     return np.asarray(x)
 
 
@@ -26,8 +26,14 @@ def trees_bitwise_equal(a: Any, b: Any) -> bool:
     determinism contract of the port (prefetch depth, kill/resume,
     supervised restarts)."""
     la, lb = tree.leaves(a), tree.leaves(b)
-    return len(la) == len(lb) and all(
-        np.array_equal(_host(x), _host(y)) for x, y in zip(la, lb))
+    return len(la) == len(lb) and all(_same(x, y) for x, y in zip(la, lb))
+
+
+def _same(x, y) -> bool:
+    hx, hy = _host(x), _host(y)
+    if (hx.dtype.kind == "V") != (hy.dtype.kind == "V"):
+        return False              # bfloat16 words against numbers
+    return np.array_equal(hx, hy)
 
 
 def batched_accuracy(predict_fn, inputs, labels: np.ndarray,

@@ -565,13 +565,20 @@ def test_config_calibrate_fields_match_the_reference():
     assert CONFIG.profile_path != J.profile_path
 
 
-def test_param_dtype_bfloat16_raises_naming_its_item():
-    cfg = BBitLinearConfig(k=16, b=8, param_dtype="bfloat16")
-    with pytest.raises(ValueError, match="ROADMAP A7"):
+def test_param_dtype_float16_raises_naming_the_supported_dtypes():
+    """float32 and bfloat16 tables are read by the kernels; float16, which
+    the reference's ``jnp.dtype`` also takes, is not ported and raises
+    naming both, with no silent cast."""
+    cfg = BBitLinearConfig(k=16, b=8, param_dtype="float16")
+    with pytest.raises(ValueError, match="float32 or bfloat16 tables only"):
         init_bbit_linear(cfg, device="cpu")
     params = init_bbit_linear(BBitLinearConfig(k=16, b=8), device="cpu")
-    with pytest.raises(ValueError, match="float32 tables only"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         bbit_logits(params, torch.zeros((2, 16), dtype=torch.int32), cfg)
+    bf16 = init_bbit_linear(BBitLinearConfig(k=16, b=8,
+                                             param_dtype="bfloat16"),
+                            device="cpu")
+    assert bf16["table"].dtype == torch.bfloat16
     assert (dataclasses.asdict(BBitLinearConfig(k=3, b=4))
             == dataclasses.asdict(JCfg(k=3, b=4)))
     assert BBitLinearConfig(k=16, b=8).n_weights == JCfg(k=16, b=8).n_weights

@@ -251,9 +251,10 @@ def test_encode_packed_numpy_matches_reference(scheme, b):
 
 
 def test_port_imports_no_jax_and_no_reference(repo_src):
-    """A fresh interpreter imports the port (its HTTP tier and launchers
-    too), scores, hashes and stream-trains over a two-shard archive on
-    the CPU without loading jax or any module of the reference
+    """A fresh interpreter imports the port (its HTTP tier, launchers
+    and every package's exports too), scores, hashes and stream-trains
+    over a two-shard archive on the CPU, and runs a bfloat16 table's
+    gradient, without loading jax or any module of the reference
     package."""
     code = textwrap.dedent("""
         import sys
@@ -336,6 +337,25 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
                     batch_size=4, lr=1e-2, seed=0, ckpt_every=1,
                     fail_at=None, device="cpu"))
                 assert repro_torch.launch.fsck.main([root + "/hashed"]) == 0
+        # the package exports (ROADMAP A8), each name resolved, and a
+        # bfloat16 table through the packed forward and its gradient
+        import importlib
+        for pkg in ("optim", "train", "data", "core", "ft", "configs",
+                    "kernels"):
+            mod = importlib.import_module("repro_torch." + pkg)
+            for name in mod.__all__:
+                getattr(mod, name)
+        from repro_torch.optim import make
+        from repro_torch.data import batch_iterator
+        from repro_torch.train import fit_streaming as fs
+        from repro_torch.kernels import ref
+        assert fs is fit_streaming and float(make("constant", 0.5)(0)) == 0.5
+        bf = BBitLinearConfig(k=16, b=8, param_dtype="bfloat16")
+        p16 = {n: t.requires_grad_(True) for n, t in init_bbit_linear(
+            bf, torch.Generator().manual_seed(0), device="cpu").items()}
+        from repro_torch.models.linear import bbit_logits_packed
+        bbit_logits_packed(p16, torch.from_numpy(packed), bf).sum().backward()
+        assert p16["table"].grad.dtype == torch.bfloat16
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

@@ -32,7 +32,14 @@ minibatch) allclose to the CPU at 1e-4 / 1e-5 with the same steps;
 prefetch depths 0-2 and a resume bit-identical; the pinned encode
 pipeline (two chunks in flight) byte-equal to the CPU; B5 and B6 on a
 padded shard slot of the dp step, and the dp fit (two slots folded onto
-the card) allclose to the CPU's."""
+the card) allclose to the CPU's.
+
+bfloat16 tables: B5 and B7 on a bfloat16 table give the bits of the same
+kernel on the table widened, and B6 and B8 the float32 dW rounded to
+bfloat16, bit for bit, at chip_smoke.py's shapes and at every b; their
+launches count on the ``_bf16`` counters; ``fit_streaming``,
+``train_bbit_sgd`` and TRON at bfloat16 on the card against the CPU, and
+an engine serving a bfloat16 table bitwise as the table widened."""
 import os
 
 import numpy as np
@@ -1277,3 +1284,173 @@ def test_calibrate_profile_sizes_the_engine_on_the_card(cuda, tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     finally:
         perf.reset()
+
+
+# ------------------------------------------------------ bfloat16 tables --
+# B5 and B7 read a bfloat16 table in place and widen it exactly, so their
+# logits equal the same kernel's on the table widened, bit for bit; B6 and
+# B8 write the float32 dW rounded to bfloat16, bit for bit what torch's
+# .to(torch.bfloat16) gives.  Shapes: chip_smoke.py's bf16 phase (B5 at the
+# engine's 64 rows of k=256, b=8; B6 at the stream batch's 1,024 rows; B7
+# and B8 at 16,000 x 500 codes, V=65536) and smaller ones at every b.
+def _words(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(
+        torch.int32)
+
+
+def _bitwise(a, b):
+    return a.dtype == b.dtype and torch.equal(_words(a), _words(b))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bits,k,n", [(8, 256, 64), (8, 256, 1024),
+                                      (1, 37, 300), (2, 64, 4099),
+                                      (4, 256, 16000)])
+def test_bf16_packed_kernels_are_bitwise_the_float32_ones(cuda, masked, bits,
+                                                          k, n):
+    rng = np.random.default_rng(n + bits)
+    v = 1 << bits
+    packed = torch.from_numpy(pack_codes(
+        rng.integers(0, v, size=(n, k)).astype(np.uint16), bits)).to(cuda)
+    empty = (torch.from_numpy(np.packbits(rng.random((n, k)) < 0.3, axis=1))
+             .to(cuda) if masked else None)
+    table = torch.from_numpy(rng.normal(size=(k, v, 1)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    dout = torch.from_numpy(rng.normal(size=(n, 1)).astype(np.float32)).to(
+        cuda)
+    kw = dict(k=k, bits=bits, empty=empty)
+    got = bbit_linear.bbit_linear_packed_fwd(packed, table, **kw)
+    wide = bbit_linear.bbit_linear_packed_fwd(packed, table.float(), **kw)
+    plain = bbit_linear.bbit_linear_packed_fwd_plain(packed, table, **kw)
+    dw = bbit_linear.bbit_linear_packed_bwd_dw(packed, dout, v,
+                                               dtype=torch.bfloat16, **kw)
+    dw32 = bbit_linear.bbit_linear_packed_bwd_dw(packed, dout, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _bitwise(got, wide)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+    assert _bitwise(dw, dw32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("bits,k,n", [(8, 256, 16000), (16, 500, 16000),
+                                      (12, 30, 4099), (1, 37, 67)])
+def test_bf16_widened_kernels_are_bitwise_the_float32_ones(cuda, bits, k, n):
+    rng = np.random.default_rng(bits)
+    v = 1 << bits
+    codes = torch.from_numpy(rng.integers(0, v, size=(n, k)).astype(
+        np.int32)).to(cuda)
+    table = (0.01 * torch.randn((k, v, 1), device=cuda)).to(torch.bfloat16)
+    dout = torch.randn((n, 1), device=cuda)
+    got = bbit_linear.bbit_linear_fwd(codes, table)
+    wide = bbit_linear.bbit_linear_fwd(codes, table.float())
+    plain = bbit_linear.bbit_linear_fwd_plain(codes, table)
+    dw = bbit_linear.bbit_linear_bwd_dw(codes, dout, v, torch.bfloat16)
+    dw32 = bbit_linear.bbit_linear_bwd_dw(codes, dout, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _bitwise(got, wide)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+    assert _bitwise(dw, dw32.to(torch.bfloat16))
+
+
+def test_bf16_launches_count_apart(cuda):
+    """A bfloat16 table's launches count on the ``_bf16`` counters, the
+    gradient of ``ops.bbit_linear_packed`` comes back bfloat16, and no
+    plain version runs."""
+    rng = np.random.default_rng(0)
+    packed = torch.from_numpy(pack_codes(
+        rng.integers(0, 256, size=(128, 64)).astype(np.uint16), 8)).to(cuda)
+    table = torch.zeros((64, 256, 1), dtype=torch.bfloat16, device=cuda,
+                        requires_grad=True)
+    ops.reset_counts()
+    ops.bbit_linear_packed(packed, table, 64, 8).sum().backward()
+    codes = torch.randint(0, 256, (128, 64), dtype=torch.int32, device=cuda)
+    ops.bbit_linear(codes, table).sum().backward()
+    counts = ops.counts()
+    assert table.grad.dtype == torch.bfloat16
+    for name in ("bbit_linear_packed_fwd", "bbit_linear_packed_bwd_dw",
+                 "bbit_linear_fwd", "bbit_linear_bwd_dw"):
+        assert counts[f"{name}_bf16"] == 1 and counts[name] == 0, name
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
+
+
+# bfloat16 params of a fit on the card against the CPU's: one bfloat16 ulp
+# relative, and 1e-4 where douts cancel (tests/test_torch_bf16_tables.py)
+BF16_FIT_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+
+
+def test_fit_streaming_bf16_on_the_card_matches_the_cpu(cuda,
+                                                        stream_archives):
+    from repro_torch.models.linear import BBitLinearConfig as Cfg
+    from repro_torch.train.streaming import fit_streaming
+    root = stream_archives["oph_zero"]
+    cfg = Cfg(k=64, b=8, param_dtype="bfloat16")
+    ops.reset_counts()
+    card = fit_streaming(root, cfg, device=cuda, **STREAM_FIT)
+    counts = ops.counts()
+    cpu = fit_streaming(root, cfg, device="cpu", **STREAM_FIT)
+    assert counts["bbit_linear_packed_fwd_bf16"] == card.n_steps
+    assert counts["bbit_linear_packed_bwd_dw_bf16"] == card.n_steps
+    assert counts["bbit_linear_packed_fwd"] == 0
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
+    assert card.params["table"].dtype == torch.bfloat16
+    assert card.avg_params["table"].dtype == torch.float32
+    assert (card.n_steps, card.examples_seen) == (cpu.n_steps,
+                                                  cpu.examples_seen)
+    for which in ("params", "avg_params"):
+        for name in ("bias", "table"):
+            torch.testing.assert_close(
+                getattr(card, which)[name].cpu().float(),
+                getattr(cpu, which)[name].float(), **BF16_FIT_TOL)
+
+
+def test_bf16_trainers_on_the_card_match_the_cpu(cuda):
+    from repro_torch.data.synth_rcv1 import SynthRcv1Config, generate_arrays
+    from repro_torch.data.hashed_dataset import preprocess_rows
+    from repro_torch.train.linear_trainer import (train_bbit_liblinear,
+                                                  train_bbit_sgd)
+    rows, labels = generate_arrays(400, SynthRcv1Config(seed=11))
+    codes = preprocess_rows(rows, k=64, b=12, seed=1, device="cpu")
+    cfg = BBitLinearConfig(k=64, b=12, param_dtype="bfloat16")
+    split = (codes[:300], labels[:300], codes[300:], labels[300:])
+    ops.reset_counts()
+    card = train_bbit_sgd(*split, cfg, epochs=2, batch_size=64, device=cuda)
+    tron = train_bbit_liblinear(*split, cfg, max_iter=20, device=cuda)
+    counts = ops.counts()
+    cpu = train_bbit_sgd(*split, cfg, epochs=2, batch_size=64, device="cpu")
+    tron_cpu = train_bbit_liblinear(*split, cfg, max_iter=20, device="cpu")
+    assert counts["bbit_linear_fwd_bf16"] > 0
+    assert counts["bbit_linear_bwd_dw_bf16"] > 0
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
+    assert card.params["table"].dtype == torch.bfloat16
+    torch.testing.assert_close(card.params["table"].cpu().float(),
+                               cpu.params["table"].float(), **BF16_FIT_TOL)
+    assert tron.params["table"].dtype == torch.float32
+    assert abs(tron.objective - tron_cpu.objective) <= 1e-3 * abs(
+        tron_cpu.objective)
+
+
+@pytest.mark.parametrize("scheme", ["minwise", "oph", "oph_zero"])
+def test_engine_serving_a_bf16_table_on_the_card(cuda, scheme):
+    """The engine keeps a bfloat16 table bfloat16 on the card (B5 reads
+    it in place); its scores equal an engine's on the table widened, bit
+    for bit."""
+    cfg = BBitLinearConfig(k=256, b=8, param_dtype="bfloat16")
+    params = init_bbit_linear(cfg, torch.Generator().manual_seed(3),
+                              device=cuda)
+    docs = _serving_docs(5)
+    kw = dict(seed=1, scheme=scheme, device=cuda, nnz_buckets=(2048, 8192))
+    ops.reset_counts()
+    with HashedClassifierEngine(params, cfg, **kw) as eng:
+        assert eng.params["table"].dtype == torch.bfloat16
+        got = eng.score_docs(docs)
+    counts = ops.counts()
+    with HashedClassifierEngine({n: t.float() for n, t in params.items()},
+                                cfg, **kw) as eng:
+        want = eng.score_docs(docs)
+    assert np.array_equal(got, want)
+    assert counts["bbit_linear_packed_fwd_bf16"] > 0
+    assert counts["bbit_linear_packed_fwd"] == 0
+    assert all(v == 0 for name, v in counts.items()
+               if name.endswith("_plain"))
