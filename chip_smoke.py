@@ -9,7 +9,9 @@ its HTTP serving tier (dedup cache, hot reload from the streaming fit's
 published checkpoints, admission, drain), of bfloat16 tables through
 B5-B8 (streaming, SGD and serving), of the training launcher's
 ``--mode linear`` at k=500, b=16, of the cost model's calibration and of
-banded-LSH search on one NVIDIA GPU.
+banded-LSH search on one NVIDIA GPU, and of the LM zoo's models
+(internlm2-1.8b at full width and depth, dense and with b-bit hashed
+embeddings; the ten architectures reduced, against the CPU).
 
     python3 chip_smoke.py [--out results.json]
 
@@ -240,8 +242,34 @@ Phases, one line of output each (or more), any failure exits non-zero:
            corpus; B10 over the 20,000 indexed rows and over a typical
            candidate set.
 
+  lm       the LM zoo (ROADMAP A6a, no B-kernel and no plain version:
+           the launch counters stay at 0): internlm2-1.8b as registered
+           (24 layers, d_model 2048, 16 heads / 8 KV heads, d_ff 8192,
+           vocab 92544, bfloat16; 1.89 B params) from a seeded generator
+           on the card, with the dense embedding and then with
+           embedding="bbit_hash" (k=8 tables of 4,096 rows): the loss of a
+           2 x 512 lm_example_stream batch (finite, within 1 of
+           ln(vocab)), prefill of the 2 x 512 prompt (timed), decode held
+           to a fresh prefill over the prompt and the tokens so far at the
+           first 4 generated positions (16 bfloat16 ulps of the largest
+           logit), 31 decode steps timed, one prefill and 4 decode steps
+           under torch.profiler (device ms; the busy share is the
+           profiled device ms a step over the unprofiled step's ms),
+           greedy_generate of 32 tokens equal to the checked loop's, peak
+           memory, and the decode step's bound (the bytes it must move
+           over 3.35 TB/s: the params but the embedding, the tokens'
+           embedding rows, the KV cache's valid positions, the logits).
+           Then each of the ten architectures at reduced_config (float32,
+           no TF32), the card against the port on the CPU on the same
+           params: the loss
+           (1e-5 relative), prefill's logits and cache and one decode step
+           (1e-4), greedy_generate of 8 tokens (equal, or parted where the
+           CPU's top-2 margin is within 2e-4); and
+           build_microbatched_train_step, 3 AdamW steps (eps 1e-4) at
+           n_micro=2 on reduced internlm2, card against CPU within 1e-5.
+
 The phases run in the order engine, train, stream, dp, serve, paper,
-bf16, linear, calibrate, search, timing.  The last three lines are the card's
+bf16, linear, calibrate, search, timing, lm.  The last three lines are the card's
 name and power limit, one JSON
 object describing every kernel, and {"ok": true, "device": {...}}.  A
 kernel's max_abs_err there is its largest error at the main path's
@@ -359,6 +387,23 @@ DW_SUM_TOL = 1e-5
 # leaves two paths' objectives apart by far more than their rounding
 # (8.9e-5 relative for a squared-hinge fit at k=256 on the H100)
 FIT_OBJECTIVE_RTOL = 1e-3
+# the lm phase (ROADMAP A6a): internlm2-1.8b as registered (24 layers,
+# d_model 2048, bfloat16), a 2 x 512 prompt and 32 greedy tokens, decode
+# held to a fresh prefill at the first 4 generated positions; the ten
+# architectures at reduced_config (float32, sequences of 16, 8 greedy
+# tokens) and the microbatched step (3 AdamW steps, n_micro 2, batches of
+# 4), card against CPU at the CPU tests' tolerances
+LM_ARCH = "internlm2-1.8b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_SELF_CHECKS = 2, 512, 32, 4
+LM_PROFILE_STEPS = 4
+LM_REDUCED_SEQ, LM_REDUCED_NEW = 16, 8
+LM_MICRO_STEPS, LM_MICRO = 3, 2
+LM_LOSS_RTOL, LM_LOGIT_ATOL, LM_MICRO_ATOL = 1e-5, 1e-4, 1e-5
+# decode against a fresh prefill, both bfloat16: the two round their
+# activations to bfloat16 after matmuls of other shapes, so elements part
+# by an ulp (2^-8 relative) and the gap grows through 24 layers; the
+# bound is 16 ulps of the largest |logit| (2^-4 of it)
+LM_BF16_SELF_TOL = 16 * 2.0 ** -8
 KERNELS = {
     "minhash_pack": ("src/repro_torch/csrc/fused_encode.cu",
                      "src/repro/kernels/fused_encode.py:128"),
@@ -3938,6 +3983,375 @@ def phase_calibrate(torch, dev, card: str, data: dict) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the lm phase: the LM zoo (ROADMAP A6a)
+# ---------------------------------------------------------------------------
+def _lm_batch(torch, cfg, batch: int, seq: int, seed: int, dev) -> dict:
+    """tests/_lm_parity.py's batch: tokens and targets uniform in
+    [0, vocab), the modality's float input N(0, 1), from numpy."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (batch, seq)),
+           "targets": rng.integers(0, cfg.vocab, (batch, seq))}
+    extra = {"vision_stub": "vision_embeds",
+             "audio_stub": "frames"}.get(cfg.frontend)
+    if extra:
+        out[extra] = rng.normal(size=(batch, cfg.frontend_len, cfg.d_model))
+    return {k: torch.from_numpy(v.astype(np.int32 if k in ("tokens",
+                                                           "targets")
+                                         else np.float32)).to(dev)
+            for k, v in out.items()}
+
+
+def _grown(api, cache, batch: int, max_len: int, dev):
+    """A prefill cache grown into init_cache(batch, max_len)."""
+    from repro_torch.serving.engine import grow_cache
+    return grow_cache(api.init_cache(batch, max_len, device=dev), cache)
+
+
+def _decode_bytes(cfg, params, cache, batch: int, valid_len: float) -> float:
+    """The bytes one decode step must move: every param but the
+    embedding once, the embedding rows of the batch's tokens (one each,
+    or hash_k with embedding="bbit_hash"), the KV cache's first
+    ``valid_len`` positions read and one position written, and the
+    logits written."""
+    from repro_torch import tree
+    el = params["lm_head"].element_size()
+    body = sum(t.numel() * t.element_size() for t in tree.leaves(params)) \
+        - sum(t.numel() * t.element_size() for t in params["embed"].values())
+    rows = cfg.hash_k if cfg.embedding == "bbit_hash" else 1
+    kv_per_pos = sum(t.numel() * t.element_size() / t.shape[2]
+                     for t in cache.values())
+    return (body + batch * rows * cfg.d_model * el
+            + kv_per_pos * (valid_len + 1) + batch * cfg.vocab * el)
+
+
+def _wall_ms(torch, fn, reps: int = 3) -> float:
+    """Median wall time of ``fn`` (synchronized), after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def lm_full(torch, dev, card: str, embedding: str) -> dict:
+    """internlm2-1.8b as registered, with the dense or the b-bit hashed
+    embedding: the loss, prefill, greedy_generate, decode held to a fresh
+    prefill, and the numbers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_synth import lm_example_stream
+    from repro_torch.models.api import get_model_api
+    from repro_torch.serving import greedy_generate
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), embedding=embedding)
+    api = get_model_api(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    from repro_torch import tree
+    leaves = tree.leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    emb = params["embed"]
+    emb_shape = {k: list(v.shape) for k, v in emb.items()}
+    emb_n = sum(v.numel() for v in emb.values())
+    _, toks, tgts = next(lm_example_stream(LM_BATCH, LM_PROMPT, cfg.vocab,
+                                           seed=0))
+    prompt = torch.from_numpy(toks).to(dev)
+    with torch.no_grad():
+        loss = float(api.loss_fn(params, {
+            "tokens": prompt, "targets": torch.from_numpy(tgts).to(dev)}))
+        prefill_ms = _wall_ms(torch, lambda: api.prefill(
+            params, {"tokens": prompt}))
+        # decode held to a fresh prefill over the prompt and the tokens so
+        # far, at the first LM_SELF_CHECKS generated positions
+        logits, cache = api.prefill(params, {"tokens": prompt})
+        cache = _grown(api, cache, LM_BATCH, LM_PROMPT + LM_NEW, dev)
+        seq = torch.cat([prompt, torch.argmax(logits, -1)[:, None].to(
+            torch.int32)], 1)
+        self_err, self_scale = 0.0, 0.0
+        for t in range(1, LM_SELF_CHECKS + 1):
+            dec, cache = api.decode_step(params, {"token": seq[:, -1:]},
+                                         cache, LM_PROMPT + t - 1)
+            fresh, _ = api.prefill(params, {"tokens": seq})
+            self_err = max(self_err, float((dec.float() - fresh.float())
+                                           .abs().max()))
+            self_scale = max(self_scale, float(fresh.float().abs().max()))
+            seq = torch.cat([seq, torch.argmax(dec, -1)[:, None].to(
+                torch.int32)], 1)
+        # the decode loop alone, timed: the same steps as greedy_generate
+        cache = _grown(api, api.prefill(params, {"tokens": prompt})[1],
+                       LM_BATCH, LM_PROMPT + LM_NEW, dev)
+        nxt = seq[:, LM_PROMPT:LM_PROMPT + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(1, LM_NEW):
+            dec, cache = api.decode_step(params, {"token": nxt}, cache,
+                                         LM_PROMPT + t - 1)
+            nxt = torch.argmax(dec, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (LM_NEW - 1)
+        # the timed steps attend over LM_PROMPT + 1 .. LM_PROMPT + LM_NEW
+        # - 1 positions: their bound at the mean
+        step_bytes = _decode_bytes(cfg, params, cache, LM_BATCH,
+                                   LM_PROMPT + LM_NEW / 2)
+        bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+        # under torch.profiler: one prefill, and LM_PROFILE_STEPS decode
+        # steps (the trace of a whole generate takes longer to read back
+        # than to run)
+        _, prof_pre = profiled(torch, lambda: api.prefill(
+            params, {"tokens": prompt}))
+
+        def steps():
+            tok = nxt
+            for t in range(LM_PROFILE_STEPS):
+                dec, _ = api.decode_step(params, {"token": tok}, cache,
+                                         LM_PROMPT + LM_NEW - 1)
+                tok = torch.argmax(dec, -1)[:, None].to(torch.int32)
+
+        _, prof = profiled(torch, steps)
+    t0 = time.perf_counter()
+    out = greedy_generate(api, params, toks, LM_NEW, device=dev)
+    generate_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    # the device's busy share of an unprofiled step (the profiler about
+    # doubles a step's wall time), and of the profiled steps
+    busy = prof["device_ms"] / LM_PROFILE_STEPS / decode_ms
+    busy_profiled = prof["device_ms"] / prof["wall_ms"]
+    same = bool(np.array_equal(out[:, :LM_PROMPT + LM_SELF_CHECKS + 1],
+                               seq.cpu().numpy()))
+    tol = LM_BF16_SELF_TOL * max(self_scale, 1.0)
+    rec = {"embedding": embedding, "n_params": n_params,
+           "n_params_cfg": cfg.n_params(), "param_bytes": p_bytes,
+           "embed_shape": emb_shape, "embed_params": emb_n,
+           "init_s": init_s, "loss": loss, "ln_vocab": math.log(cfg.vocab),
+           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "tokens_per_s": LM_BATCH * 1e3 / decode_ms,
+           "decode_bytes": step_bytes, "bound_ms": bound_ms,
+           "generate_s": generate_s,
+           "prefill_profiled": prof_pre, "decode_profiled": prof,
+           "decode_device_ms": prof["device_ms"] / LM_PROFILE_STEPS,
+           "busy": busy, "busy_profiled": busy_profiled,
+           "peak_bytes": peak,
+           "self_err": self_err, "self_scale": self_scale,
+           "self_tol": tol, "tokens_match_manual_loop": same}
+    print(f"lm: {LM_ARCH} {embedding} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, "
+          f"{cfg.dtype}): {n_params} params ({p_bytes / 1e9:.4f} GB; "
+          f"cfg.n_params() {cfg.n_params()}), embedding {emb_shape} = "
+          f"{emb_n} params, init {init_s:.2f} s")
+    print(f"lm: {embedding}: loss of a {LM_BATCH} x {LM_PROMPT} "
+          f"lm_example_stream batch {loss:.4f} (ln vocab "
+          f"{math.log(cfg.vocab):.4f}); decode vs fresh prefill over "
+          f"{LM_SELF_CHECKS} positions max|diff| {self_err:.4g} (bound "
+          f"{tol:.4g}, max|logit| {self_scale:.4g}); greedy tokens equal "
+          f"the checked loop's: {same}")
+    print(f"lm: {embedding}: prefill {LM_BATCH} x {LM_PROMPT} "
+          f"{prefill_ms:.3f} ms (device {prof_pre['device_ms']:.3f} ms); "
+          f"decode {decode_ms:.3f} ms a step ({LM_BATCH * 1e3 / decode_ms:.1f}"
+          f" tokens/s at batch {LM_BATCH}; device "
+          f"{prof['device_ms'] / LM_PROFILE_STEPS:.3f} ms a step over "
+          f"{LM_PROFILE_STEPS} profiled steps, busy {busy:.4f} of the "
+          f"unprofiled step, {busy_profiled:.4f} under the profiler) "
+          f"against a bound of {bound_ms:.4f} ms ({step_bytes / 1e9:.4f} "
+          f"GB a step / 3.35 TB/s); "
+          f"greedy_generate of {LM_NEW} tokens {generate_s:.3f} s; peak "
+          f"memory {peak / 2**30:.3f} GiB card={card}")
+    print(f"lm: {embedding}: decode steps' top device ops (us) "
+          f"{json.dumps(prof['top'][:5])}; top host ops (ms, calls) "
+          f"{json.dumps(prof['host_top'][:5])}")
+    if not math.isfinite(loss) or abs(loss - math.log(cfg.vocab)) > 1.0:
+        fail(f"lm {embedding}: loss {loss} is not near ln(vocab)")
+    if out.shape != (LM_BATCH, LM_PROMPT + LM_NEW) or \
+            not np.array_equal(out[:, :LM_PROMPT], toks):
+        fail(f"lm {embedding}: greedy_generate gave {out.shape}")
+    if not (out[:, LM_PROMPT:] >= 0).all() or \
+            not (out[:, LM_PROMPT:] < cfg.vocab).all():
+        fail(f"lm {embedding}: tokens outside the vocabulary")
+    if self_err > tol:
+        fail(f"lm {embedding}: decode vs prefill {self_err} > {tol}")
+    if not same:
+        fail(f"lm {embedding}: greedy_generate's tokens differ from the "
+             "checked loop's")
+    del params, cache
+    return rec
+
+
+def _top2_margin(torch, logits, rows) -> float:
+    top = torch.topk(logits.float()[rows], 2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
+def lm_reduced(torch, dev) -> dict:
+    """Each architecture at reduced_config (float32), the card against
+    the CPU on the same params and inputs: the loss, prefill's logits
+    and cache, one decode step, greedy_generate of LM_REDUCED_NEW tokens
+    (equal where the CPU's top-2 margin exceeds twice the logits'
+    tolerance; after a tie the two sequences may part)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.archs import ALL_ARCHS
+    from repro_torch.launch.smoke_configs import reduced_config
+    from repro_torch.models.api import get_model_api
+    from repro_torch.models.linear import full_float32_matmul
+    from repro_torch.serving import greedy_generate
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in ALL_ARCHS:
+        cfg = reduced_config(get_config(arch))
+        api = get_model_api(cfg)
+        p_cpu = api.init_params(torch.Generator().manual_seed(1),
+                                device="cpu")
+        p_dev = tree.tree_map(lambda t: t.to(dev), p_cpu)
+        b_cpu = _lm_batch(torch, cfg, 2, LM_REDUCED_SEQ, 3, cpu)
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        pre = [{k: v for k, v in b.items() if k != "targets"}
+               for b in (b_cpu, b_dev)]
+        res = []
+        with torch.no_grad(), full_float32_matmul():
+            for params, batch, pb, d in ((p_cpu, b_cpu, pre[0], cpu),
+                                         (p_dev, b_dev, pre[1], dev)):
+                loss = float(api.loss_fn(params, batch))
+                logits, cache = api.prefill(params, pb)
+                cache_l = [t.float().cpu() for t in tree.leaves(cache)]
+                cache = _grown(api, cache, 2, LM_REDUCED_SEQ + 4, d)
+                dec, _ = api.decode_step(
+                    params, {"token": batch["tokens"][:, :1]}, cache,
+                    LM_REDUCED_SEQ)
+                extras = {k: v for k, v in pb.items() if k != "tokens"}
+                toks = greedy_generate(api, params, pb["tokens"].cpu()
+                                       .numpy(), LM_REDUCED_NEW,
+                                       extras=extras, device=d)
+                res.append((loss, logits.float().cpu(), cache_l,
+                            dec.float().cpu(), toks))
+            (l_c, lg_c, c_c, d_c, t_c), (l_d, lg_d, c_d, d_d, t_d) = res
+            errs = {"loss_rel": abs(l_d - l_c) / abs(l_c),
+                    "prefill": float((lg_d - lg_c).abs().max()),
+                    "cache": max(float((a - b).abs().max())
+                                 for a, b in zip(c_d, c_c)),
+                    "decode": float((d_d - d_c).abs().max())}
+            # greedy tokens: equal, or parted where the CPU's margin is a tie
+            diff = np.argwhere(t_c != t_d)
+            parted = None
+            if len(diff):
+                pos = int(diff[:, 1].min())
+                rows = sorted({int(r) for r, c in diff if c == pos})
+                ctx = {"tokens": torch.from_numpy(t_c[:, :pos])}
+                ctx.update({k: v for k, v in pre[0].items()
+                            if k != "tokens"})
+                lg, _ = api.prefill(p_cpu, ctx)
+                parted = {"position": pos, "rows": rows,
+                          "cpu_margin": _top2_margin(torch, lg, rows)}
+        out[arch] = dict(errs, parted=parted)
+        bad = [k for k, lim in (("loss_rel", LM_LOSS_RTOL),
+                                ("prefill", LM_LOGIT_ATOL),
+                                ("cache", LM_LOGIT_ATOL),
+                                ("decode", LM_LOGIT_ATOL))
+               if not errs[k] <= lim]
+        if parted is not None and \
+                parted["cpu_margin"] > 2 * LM_LOGIT_ATOL:
+            bad.append(f"greedy parted at {parted}")
+        if bad:
+            fail(f"lm reduced {arch}: card vs CPU {bad}: {errs}")
+    worst = {k: max(v[k] for v in out.values())
+             for k in ("loss_rel", "prefill", "cache", "decode")}
+    parted = {a: v["parted"] for a, v in out.items() if v["parted"]}
+    print(f"lm: ten archs at reduced_config, float32, card vs CPU (no "
+          f"TF32): worst loss rel {worst['loss_rel']:.3g} (limit "
+          f"{LM_LOSS_RTOL}), prefill logits {worst['prefill']:.3g}, cache "
+          f"{worst['cache']:.3g}, decode {worst['decode']:.3g} (limit "
+          f"{LM_LOGIT_ATOL}); greedy_generate of {LM_REDUCED_NEW} tokens "
+          f"equal for {10 - len(parted)} of 10"
+          + (f", parted at ties {json.dumps(parted)}" if parted else ""))
+    return {"archs": out, "worst": worst}
+
+
+def lm_microbatched(torch, dev) -> dict:
+    """build_microbatched_train_step: LM_MICRO_STEPS AdamW steps at
+    n_micro=LM_MICRO on reduced internlm2, the card against the CPU.
+    AdamW's eps is 1e-4: at 1e-8 a gradient element at float32 noise
+    level becomes a full step of the rounding's sign
+    (tests/test_torch_lm_generate.py)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_synth import lm_example_stream
+    from repro_torch.launch.smoke_configs import reduced_config
+    from repro_torch.models.api import get_model_api
+    from repro_torch.models.linear import full_float32_matmul
+    from repro_torch.optim.optimizers import AdamWConfig, adamw
+    from repro_torch.train.steps import (build_microbatched_train_step,
+                                         init_state)
+
+    cfg = reduced_config(get_config(LM_ARCH))
+    api = get_model_api(cfg)
+    p_cpu = api.init_params(torch.Generator().manual_seed(2), device="cpu")
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        opt = adamw(1e-3, AdamWConfig(eps=1e-4))
+        step = build_microbatched_train_step(
+            lambda p, b: api.loss_fn(p, b), opt, LM_MICRO)
+        state = init_state(tree.tree_map(lambda t: t.clone().to(d), p_cpu),
+                           opt)
+        losses = []
+        stream = lm_example_stream(4, LM_REDUCED_SEQ, cfg.vocab, seed=4)
+        with full_float32_matmul():
+            for _, toks, tgts in (next(stream)
+                                  for _ in range(LM_MICRO_STEPS)):
+                state, loss = step(state, {
+                    "tokens": torch.from_numpy(toks).to(d),
+                    "targets": torch.from_numpy(tgts).to(d)})
+                losses.append(float(loss))
+        runs.append((losses, [t.cpu() for t in tree.leaves(state.params)]))
+    (l_c, p_c), (l_d, p_d) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_c))
+    err = max(float((a - b).abs().max()) for a, b in zip(p_d, p_c))
+    print(f"lm: build_microbatched_train_step, {LM_MICRO_STEPS} AdamW steps "
+          f"at n_micro={LM_MICRO} on reduced {LM_ARCH}, card vs CPU: "
+          f"losses {[round(x, 6) for x in l_d]} (rel {loss_rel:.3g}), "
+          f"params max|diff| {err:.3g} (limit {LM_MICRO_ATOL})")
+    if loss_rel > LM_LOSS_RTOL or err > LM_MICRO_ATOL:
+        fail(f"lm microbatched step: card vs CPU loss {loss_rel}, "
+             f"params {err}")
+    return {"losses": l_d, "loss_rel": loss_rel, "param_err": err}
+
+
+def phase_lm(torch, dev, card: str) -> dict:
+    """The LM zoo: internlm2-1.8b at full width and depth, dense and
+    hashed; the ten architectures reduced, card vs CPU; the microbatched
+    step.  No B-kernel and no plain version runs here."""
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    parts_s = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        parts_s[name] = round(time.perf_counter() - t0, 2)
+        return out
+
+    dense = part("dense", lm_full, torch, dev, card, "dense")
+    hashed = part("bbit_hash", lm_full, torch, dev, card, "bbit_hash")
+    reduced = part("reduced", lm_reduced, torch, dev)
+    micro = part("microbatched", lm_microbatched, torch, dev)
+    print(f"lm: parts (s): {json.dumps(parts_s)}")
+    counts = {n: v for n, v in ops.counts().items() if v}
+    if counts:
+        fail(f"the lm phase launched kernels or plain versions: {counts}")
+    torch.cuda.empty_cache()
+    return {"dense": dense, "bbit_hash": hashed, "reduced": reduced,
+            "microbatched": micro, "parts_s": parts_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3955,7 +4369,6 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     card = card_line()
-    int_rate = int32_ops_per_s(torch)
     phase_s = {}
 
     def run(name, fn, *args):
@@ -3963,6 +4376,8 @@ def main() -> int:
         out = fn(*args)
         phase_s[name] = time.perf_counter() - t0
         return out
+
+    int_rate = int32_ops_per_s(torch)
 
     run("build", phase_build)
     errs, edge_errs = run("kernels", phase_kernels, torch, dev)
@@ -3991,6 +4406,7 @@ def main() -> int:
                        train_data, paper_data, card, int_rate)
     timing_raw = run("timing_raw", phase_timing_raw, torch, dev,
                      train_data["rows"], search, card, int_rate)
+    lm = run("lm", phase_lm, torch, dev, card)
     print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
@@ -4041,7 +4457,7 @@ def main() -> int:
                        "timing_raw": timing_raw["shapes"], "train": train,
                        "paper": paper, "stream": stream, "dp": dp,
                        "serve": serve, "bf16": bf16,
-                       "linear": linear, "calibrate": calib,
+                       "linear": linear, "calibrate": calib, "lm": lm,
                        "search": {k: search[k] for k in ("counts", "recall",
                                                          "candidates")},
                        "docs_per_s": engine["docs_per_s"],

@@ -1,6 +1,9 @@
-"""Run configurations of the port: the paper's b-bit deployment
-(``rcv1_bbit``) and the OPH serving and streaming one (``rcv1_oph``).
-The reference's exports here (``ArchConfig``, ``register``,
-``get_config``, ``list_configs``) are its LM zoo's (ROADMAP A6)."""
+"""Run configurations of the port: the LM zoo's architecture schema and
+registry (``ArchConfig``, ``register``, ``get_config``, ``list_configs``;
+``archs`` imports the ten published architectures), the paper's b-bit
+deployment (``rcv1_bbit``) and the OPH serving and streaming one
+(``rcv1_oph``)."""
+from repro_torch.configs.base import (ArchConfig, get_config, list_configs,
+                                      register)
 
-__all__: list = []
+__all__ = ["ArchConfig", "register", "get_config", "list_configs"]

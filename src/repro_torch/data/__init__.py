@@ -2,8 +2,8 @@
 (numpy, copied from the reference), LIBSVM files, hashing a corpus into
 b-bit codes and the packed shard archive (``hashed_dataset``), the batch
 stream and prefetcher of the streaming trainer (``prefetch``) and the
-in-memory loaders (counterpart of ``repro/data``).  The reference's
-``lm_synth`` goes with the LM zoo (ROADMAP A6)."""
+in-memory loaders, and the LM zoo's synthetic token streams
+(``lm_synth``, numpy, copied) (counterpart of ``repro/data``)."""
 from repro_torch.data.hashed_dataset import (HashedShardWriter,
                                              ShardCorruptionError,
                                              ShardReadError, iter_hashed,
@@ -18,6 +18,7 @@ from repro_torch.data.hashed_dataset import (HashedShardWriter,
 from repro_torch.data.libsvm_io import (read_libsvm, read_shards,
                                         shard_paths, write_libsvm,
                                         write_shards)
+from repro_torch.data.lm_synth import lm_example_stream, token_batch
 from repro_torch.data.loader import HashedCodesLoader, SparseRowsLoader
 from repro_torch.data.packing import batch_iterator, bucket_width, pad_rows
 from repro_torch.data.prefetch import (Boundary, ShardStreamError,
@@ -40,4 +41,5 @@ __all__ = [
     "StreamBatch", "Boundary", "ShardStreamError", "shard_order",
     "serial_batch_stream", "group_batch_stream", "ThreadedPrefetcher",
     "HashedCodesLoader", "SparseRowsLoader",
+    "token_batch", "lm_example_stream",
 ]

@@ -2,7 +2,7 @@
 runtime and its process groups, the dp step's collectives and their
 record, and error-feedback gradient compression (the reference's
 ``repro/distributed`` without its LM-zoo parts: ``shardings``,
-``sequence_parallel`` and ``pipeline`` belong to ROADMAP A6)."""
+``sequence_parallel`` and ``pipeline`` belong to ROADMAP A6c)."""
 from repro_torch.distributed.collectives import (
     COLLECTIVE_OPS, all_gather_stacked, collective_bytes, collective_stats,
     psum, psum_mean, reset_collective_stats,

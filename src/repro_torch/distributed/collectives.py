@@ -15,7 +15,7 @@ the dict shape of ``collective_bytes_from_hlo``.
 
 The reference's two HLO-text parsers read XLA's compiled programs,
 which torch does not have; they belong with ``launch/roofline.py`` to
-the LM zoo (ROADMAP A6).
+the LM zoo's launch tools (ROADMAP A6b).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@ one-dimensional meshes).
 
 Functions, not module-level constants: importing this module touches no
 device.  The reference's production and test meshes serve only its
-dry-run of the LM zoo (ROADMAP A6).
+dry-run of the LM zoo (ROADMAP A6b).
 """
 from __future__ import annotations
 

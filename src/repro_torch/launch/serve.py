@@ -26,8 +26,8 @@ if it exists; ``python -m repro_torch.launch.calibrate`` writes one): with
 a usable one the engine sizes each lane's row buckets and drain cap from
 its measured ``serve_score`` curve; a missing, corrupt or other-box
 profile leaves the static pair of row buckets (1, ``--max-batch``).
-``--mode lm`` (the LM zoo, ROADMAP A6) is not ported yet and exits 2
-with a message.
+``--mode lm`` (serving the LM zoo, ROADMAP A6b) is not ported yet and
+exits 2 with a message; its models and ``greedy_generate`` are (A6a).
 """
 from __future__ import annotations
 
@@ -38,8 +38,8 @@ import time
 import numpy as np
 
 NOT_PORTED = {
-    "lm": "--mode lm decodes the LM zoo (greedy_generate), which waits "
-          "for ROADMAP A6",
+    "lm": "--mode lm serves the LM zoo (launch/serve.py::serve_lm), which "
+          "waits for ROADMAP A6b",
 }
 
 

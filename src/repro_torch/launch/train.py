@@ -40,7 +40,7 @@ does.
 Both run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions).  ``--profile`` loads a cost-model profile (default:
 ``configs/rcv1_oph.py``'s ``profile_path`` if it exists).  ``--mode lm``
-(ROADMAP A6) is not ported yet and exits with a message.
+(``run_lm``, ROADMAP A6b) is not ported yet and exits with a message.
 """
 from __future__ import annotations
 
@@ -51,7 +51,8 @@ import sys
 import numpy as np
 
 NOT_PORTED = {
-    "lm": "--mode lm trains the LM zoo, which waits for ROADMAP A6",
+    "lm": "--mode lm trains the LM zoo (launch/train.py::run_lm), which "
+          "waits for ROADMAP A6b",
 }
 
 

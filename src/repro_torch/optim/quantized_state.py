@@ -14,7 +14,7 @@ flattens it in that order, as the reference's pytree node does, so a
 checkpoint of int8 moments reads in either package.
 
 The reference's ``moment_pspec`` (a ``PartitionSpec`` helper) belongs
-with the sharding rules of the LM zoo (ROADMAP A6).
+with the sharding rules of the LM zoo (ROADMAP A6c).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Serving engine for the b-bit hashed classifier (counterpart of
-``repro/serving/engine.py::HashedClassifierEngine``).
+"""Serving engine for the b-bit hashed classifier, and the LM zoo's
+``greedy_generate`` (counterpart of ``repro/serving/engine.py``).
 
 Raw sparse documents are served through one pass per micro-batch:
 
@@ -64,10 +64,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import perf
+from repro_torch import perf, tree
 from repro_torch.core.schemes import make_scheme
 from repro_torch.data.packing import bucket_width, pad_rows
-from repro_torch.devices import DeviceLike, replica_devices
+from repro_torch.devices import (DeviceLike, replica_devices,
+                                 resolve_device)
 from repro_torch.kernels import ops
 from repro_torch.models.linear import (BBitLinearConfig, bbit_scores,
                                        bbit_scores_packed, param_tensor)
@@ -665,3 +666,53 @@ class HashedClassifierEngine:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+def grow_cache(full, cache):
+    """A prefill ``cache`` in ``full`` (an ``init_cache`` of the decode
+    length), leaf by leaf: written at the start of the one axis where the
+    shapes differ (the sequence axis), or cast to ``full``'s dtype where
+    they agree."""
+    def grow(f: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
+        if f.shape == pre.shape:
+            return pre.to(f.dtype)
+        axis = [i for i, (a, c) in enumerate(zip(f.shape, pre.shape))
+                if a != c][0]
+        f.narrow(axis, 0, pre.shape[axis]).copy_(pre)
+        return f
+
+    return tree.tree_map(grow, full, cache)
+
+
+@torch.no_grad()
+def greedy_generate(api, params, prompt: np.ndarray, max_new: int,
+                    max_len: Optional[int] = None,
+                    extras: Optional[dict] = None,
+                    device=None) -> np.ndarray:
+    """Greedy decode of the LM zoo's ``api`` (``models/api.py``): prefill
+    of ``prompt`` (B, S0) int32, the cache grown into ``init_cache(B,
+    max_len)``, then ``max_new - 1`` cached decode steps → int32 (B, S0 +
+    max_new).  ``params`` and ``extras`` (modality inputs) live on
+    ``device`` (``None`` is ``cuda:0``).  The tokens stay on the device:
+    each step's argmax (the first maximum, as numpy's) feeds the next
+    step, and the tokens come back to the host once, at the end."""
+    dev = resolve_device(device)
+    b, s0 = prompt.shape
+    if max_new <= 0:
+        return np.asarray(prompt, dtype=np.int32).copy()
+    max_len = max_len or (s0 + max_new)
+    prompt_t = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)
+    batch = {"tokens": prompt_t}
+    if extras:
+        batch.update({k: torch.as_tensor(v, device=dev)
+                      for k, v in extras.items()})
+    logits, cache = api.prefill(params, batch)
+    cache = grow_cache(api.init_cache(b, max_len, device=dev), cache)
+    out = torch.empty((b, s0 + max_new), dtype=torch.int32, device=dev)
+    out[:, :s0] = prompt_t
+    out[:, s0] = torch.argmax(logits, dim=-1)
+    for t in range(1, max_new):
+        logits, cache = api.decode_step(
+            params, {"token": out[:, s0 + t - 1:s0 + t]}, cache, s0 + t - 1)
+        out[:, s0 + t] = torch.argmax(logits, dim=-1)
+    return out.cpu().numpy()

@@ -1,8 +1,8 @@
 """Training: the LIBLINEAR objectives, metrics and the TRON trainers of
 the paper's experiment; minibatch SGD steps, the in-memory SGD baseline,
 the streaming trainer over packed shards, its data-parallel step and its
-restart supervisors (counterpart of ``repro/train``, the same exports
-but the LM zoo's ``build_microbatched_train_step``, ROADMAP A6).
+restart supervisors, and the LM zoo's microbatched step (counterpart of
+``repro/train``, the same exports).
 
 The exports load on first use (a module ``__getattr__``), so that
 ``python -m repro_torch.train.worker`` starts a gang worker without
@@ -17,7 +17,7 @@ _MODULES = {
                "LOSSES"),
     "data_parallel": ("build_dp_averaged_train_step", "device_put_sharded"),
     "steps": ("TrainState", "init_state", "build_train_step",
-              "AveragedTrainState", "init_averaged_state",
+              "build_microbatched_train_step", "AveragedTrainState", "init_averaged_state",
               "build_averaged_train_step"),
     "metrics": ("accuracy", "batched_accuracy", "trees_bitwise_equal"),
     "linear_trainer": ("FitResult", "train_bbit_liblinear",

@@ -38,6 +38,24 @@ def leaves(tree: Any) -> List[Any]:
     return out
 
 
+def paths(tree: Any, prefix: str = "") -> List[str]:
+    """Each leaf's path ('layers/mlp/w_gate': dict keys, dataclass field
+    names and list or tuple indices joined by '/'), in ``leaves`` order."""
+    if isinstance(tree, dict):
+        named = [(str(key), tree[key]) for key in sorted(tree)]
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        named = [(f.name, getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)]
+    elif isinstance(tree, (tuple, list)):
+        named = [(str(i), child) for i, child in enumerate(tree)]
+    elif tree is None:
+        named = []
+    else:
+        return [prefix]
+    return [p for name, child in named
+            for p in paths(child, f"{prefix}/{name}" if prefix else name)]
+
+
 def unflatten(template: Any, new_leaves: List[Any]) -> Any:
     """``template``'s structure with its leaves replaced, in order, by
     ``new_leaves`` (as many as ``leaves(template)``)."""
@@ -64,3 +82,21 @@ def _rebuild(node: Any, it: Iterator[Any]) -> Any:
         return next(it)
     except StopIteration:
         raise ValueError("fewer leaves than the template holds") from None
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``tree``'s structure with each leaf ``fn(leaf, *the same leaf of
+    each of rest)`` (``jax.tree.map``)."""
+    others = [leaves(r) for r in rest]
+    return unflatten(tree, [fn(leaf, *(o[i] for o in others))
+                            for i, leaf in enumerate(leaves(tree))])
+
+
+def tree_stack(trees: List[Any], stack) -> Any:
+    """Trees of one structure as one tree of their leaves stacked along
+    a new leading axis by ``stack`` (``torch.stack``); None when
+    ``trees`` is empty or holds None (what ``jax.lax.scan`` stacks)."""
+    if not trees or trees[0] is None:
+        return None
+    return unflatten(trees[0], [stack(list(group)) for group in
+                                zip(*(leaves(t) for t in trees))])

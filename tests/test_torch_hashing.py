@@ -253,9 +253,9 @@ def test_encode_packed_numpy_matches_reference(scheme, b):
 def test_port_imports_no_jax_and_no_reference(repo_src):
     """A fresh interpreter imports the port (its HTTP tier, launchers
     and every package's exports too), scores, hashes and stream-trains
-    over a two-shard archive on the CPU, and runs a bfloat16 table's
-    gradient, without loading jax or any module of the reference
-    package."""
+    over a two-shard archive on the CPU, runs a bfloat16 table's
+    gradient and an LM zoo model's greedy decode, without loading jax or
+    any module of the reference package."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -294,6 +294,12 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
         import repro_torch.train.worker, repro_torch.ckpt.coordinated
         import repro_torch.ckpt.elastic, repro_torch.launch.mesh
         import repro_torch.optim.quantized_state
+        import repro_torch.models.layers, repro_torch.models.transformer
+        import repro_torch.models.moe, repro_torch.models.ssm
+        import repro_torch.models.xlstm, repro_torch.models.hybrid
+        import repro_torch.models.encdec, repro_torch.models.api
+        import repro_torch.data.lm_synth, repro_torch.configs.archs
+        import repro_torch.launch.smoke_configs
         from repro_torch.data.hashed_dataset import preprocess_and_save
         from repro_torch.train.streaming import fit_streaming
         rows, labels = generate_arrays(40, SynthRcv1Config(seed=2))
@@ -341,7 +347,7 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
         # bfloat16 table through the packed forward and its gradient
         import importlib
         for pkg in ("optim", "train", "data", "core", "ft", "configs",
-                    "kernels"):
+                    "kernels", "serving"):
             mod = importlib.import_module("repro_torch." + pkg)
             for name in mod.__all__:
                 getattr(mod, name)
@@ -356,6 +362,17 @@ def test_port_imports_no_jax_and_no_reference(repo_src):
         from repro_torch.models.linear import bbit_logits_packed
         bbit_logits_packed(p16, torch.from_numpy(packed), bf).sum().backward()
         assert p16["table"].grad.dtype == torch.bfloat16
+        # the LM zoo (ROADMAP A6a): a reduced model's greedy decode
+        from repro_torch.configs import get_config
+        from repro_torch.launch.smoke_configs import reduced_config
+        from repro_torch.models.api import get_model_api
+        from repro_torch.serving import greedy_generate
+        lm = get_model_api(reduced_config(get_config("zamba2-7b")))
+        lm_params = lm.init_params(torch.Generator().manual_seed(0),
+                                   device="cpu")
+        toks = greedy_generate(lm, lm_params, np.ones((1, 4), np.int32), 3,
+                               device="cpu")
+        assert toks.shape == (1, 7)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad

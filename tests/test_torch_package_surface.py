@@ -1,9 +1,8 @@
 """The port's package surface against the reference's (ROADMAP A8).
 
   * each package's ``__init__`` re-exports every name of the reference's
-    ``__all__`` that the port has, under the same name; what is missing
-    is the LM zoo's (ROADMAP A6), and the reference's jnp paths have
-    their torch twins;
+    ``__all__`` under the same name (the LM zoo's since ROADMAP A6a);
+    the reference's jnp paths have their torch twins;
   * ``optim.schedules.make`` and ``data.packing.batch_iterator``, copies
     of the reference's, against it;
   * ``kernels.ref``: the plain versions under the reference oracles'
@@ -33,12 +32,12 @@ from repro_torch.kernels import ref as tref
 from repro_torch.optim import schedules as tsched
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PACKAGES = ("optim", "train", "data", "core", "ft", "configs", "kernels")
+PACKAGES = ("optim", "train", "data", "core", "ft", "configs", "kernels",
+            "serving")
 # names of the reference's __all__s that belong to ROADMAP A6's modules:
-# train/steps.py's microbatched LM step, data/lm_synth.py, configs/base.py
-A6_NAMES = {"build_microbatched_train_step", "token_batch",
-            "lm_example_stream", "ArchConfig", "register", "get_config",
-            "list_configs"}
+# none since A6a brought train/steps.py's microbatched LM step,
+# data/lm_synth.py and configs/base.py
+A6_NAMES = set()
 # the reference's jnp paths and their torch twins
 RENAMED = {"minhash_jnp": "minhash_torch",
            "oph_bin_minima_jnp": "oph_bin_minima_torch"}
