@@ -11,7 +11,8 @@ B5-B8 (streaming, SGD and serving), of the training launcher's
 ``--mode linear`` at k=500, b=16, of the cost model's calibration and of
 banded-LSH search on one NVIDIA GPU, and of the LM zoo's models
 (internlm2-1.8b at full width and depth, dense and with b-bit hashed
-embeddings; the ten architectures reduced, against the CPU).
+embeddings; the ten architectures reduced, against the CPU) and of the
+same model through the step builders on a one-rank DeviceMesh.
 
     python3 chip_smoke.py [--out results.json]
 
@@ -267,9 +268,32 @@ Phases, one line of output each (or more), any failure exits non-zero:
            CPU's top-2 margin is within 2e-4); and
            build_microbatched_train_step, 3 AdamW steps (eps 1e-4) at
            n_micro=2 on reduced internlm2, card against CPU within 1e-5.
+  lm_mesh  the LM zoo through launch/steps.py's builders on a one-rank
+           NCCL DeviceMesh (data=1, model=1) on cuda:0 (ROADMAP A6b,
+           A6c): the lm phase's internlm2-1.8b params and prompt,
+           build_prefill_step (logits within the lm phase's bound of the
+           mesh-free prefill) and 32 greedy steps of build_decode_step
+           (tokens equal to greedy_generate's, or parted only at a tie
+           within that bound), each timed beside the mesh-free model
+           (wall ms; decode device ms under torch.profiler);
+           build_lm_train_step at full width on 4 x 512 with n_micro 2,
+           two AdamW steps, after each its params and first moments
+           against build_microbatched_train_step's on the mesh-free model
+           trained through the same vocab-parallel cross-entropy (1e-5),
+           its losses against the plain mesh-free step's (1e-5, then 1e-3
+           after a bfloat16 update), and the two cross-entropies'
+           gradients on the same logits beside the mean gradients they
+           give (where the plain step's gap comes from);
+           build_linear_train_step at
+           k=500, b=16 on 65,536 rows, three steps against the mesh-free
+           AdamW over B7/B8 (1e-5); the dry-run's argument bytes (from a
+           CPU subprocess on meta shards) equal to the bytes allocated,
+           its peak beside max_memory_allocated; launch/train.py and
+           launch/serve.py --mode lm as subprocesses (exit 0, the loss
+           falling).
 
 The phases run in the order engine, train, stream, dp, serve, paper,
-bf16, linear, calibrate, search, timing, lm.  The last three lines are the card's
+bf16, linear, calibrate, search, timing, lm, lm_mesh.  The last three lines are the card's
 name and power limit, one JSON
 object describing every kernel, and {"ok": true, "device": {...}}.  A
 kernel's max_abs_err there is its largest error at the main path's
@@ -404,6 +428,23 @@ LM_LOSS_RTOL, LM_LOGIT_ATOL, LM_MICRO_ATOL = 1e-5, 1e-4, 1e-5
 # by an ulp (2^-8 relative) and the gap grows through 24 layers; the
 # bound is 16 ulps of the largest |logit| (2^-4 of it)
 LM_BF16_SELF_TOL = 16 * 2.0 ** -8
+# the lm_mesh phase (ROADMAP A6b, A6c): the lm phase's model, params and
+# prompt through launch/steps.py's builders on a one-rank NCCL DeviceMesh
+# (data=1, model=1); the train step at full width on 4 x 512 with
+# n_micro 2 (2 AdamW steps; against the plain mesh-free step the
+# cross-entropies' float32 roundings flip bfloat16 roundings in the
+# backward, so the second loss is held to 1e-3); the
+# paper's linear step at k=500, b=16 on 65,536 rows (3 AdamW steps); the
+# launchers' --mode lm in subprocesses
+LM_MESH_TRAIN_BATCH, LM_MESH_MICRO, LM_MESH_TRAIN_STEPS = 4, 2, 2
+LM_MESH_STEP2_RTOL = 1e-3
+# the train step against the mesh-free model trained through the same
+# vocab-parallel cross-entropy (_train_state_gap): after each step every
+# param within LM_MESH_TRAIN_ATOL, every first moment within it of its
+# leaf's largest, the losses within LM_LOSS_RTOL (a one-rank mesh runs
+# the same local ops: bitwise equal on the H100)
+LM_MESH_TRAIN_ATOL = 1e-5
+LM_MESH_LINEAR_STEPS = 3
 KERNELS = {
     "minhash_pack": ("src/repro_torch/csrc/fused_encode.cu",
                      "src/repro/kernels/fused_encode.py:128"),
@@ -4352,6 +4393,496 @@ def phase_lm(torch, dev, card: str) -> dict:
             "microbatched": micro, "parts_s": parts_s}
 
 
+def _predictions(card: str) -> dict:
+    """The dry-run's predictions for the lm_mesh phase's one-rank cells,
+    from a CPU subprocess (a fake one-rank world, meta shards): argument
+    bytes and peak (arguments + the traced call's temporaries)."""
+    code = (
+        "import json, sys\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.mesh import fake_world, make_test_mesh\n"
+        "from repro_torch.launch.shapes import CellPlan\n"
+        "from repro_torch.models.api import get_model_api\n"
+        "fake_world(1)\n"
+        "mesh = make_test_mesh(1, 1)\n"
+        f"api = get_model_api(get_config({LM_ARCH!r}))\n"
+        "out = {}\n"
+        f"for kind, b, s, n in (('prefill', {LM_BATCH}, {LM_PROMPT}, 1), "
+        f"('decode', {LM_BATCH}, {LM_PROMPT + LM_NEW}, 1), "
+        f"('train', {LM_MESH_TRAIN_BATCH}, {LM_PROMPT}, "
+        f"{LM_MESH_MICRO})):\n"
+        "    plan = CellPlan(arch='x', shape=kind, kind=kind, seq=s, "
+        "global_batch=b, n_micro=n, b_local=b)\n"
+        "    args, tr = dryrun.trace_cell(api, mesh, plan)\n"
+        "    out[kind] = {'argument_bytes': args, 'temp_bytes': "
+        "tr.temp_bytes, 'peak_bytes': args + tr.temp_bytes, "
+        "'flops': tr.cost.flops, 'bytes': tr.cost.bytes, "
+        "'dtensor_ops': tr.n_dtensor_ops, 'local_ops': tr.n_ops}\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, env=env)
+    if proc.returncode != 0:
+        fail(f"lm_mesh: the dry-run's prediction failed: "
+             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _launcher(torch, module: str, args: list, card: str) -> dict:
+    """``python -m repro_torch.launch.<module> --mode lm`` on the card, in
+    a subprocess that must exit 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           f"repro_torch.launch.{module}", "--mode", "lm",
+                           *args], capture_output=True, text=True,
+                          timeout=600, env=env, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"lm_mesh: launch/{module}.py --mode lm exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return {"stdout": proc.stdout.strip().splitlines()[-2:],
+            "seconds": secs}
+
+
+def _vocab_parallel_loss(api, mesh):
+    """The mesh-free model's loss through the vocab-parallel
+    cross-entropy (``transformer._mesh_xent``, a one-rank group): its
+    plain logits wrapped as a DTensor on the one-rank ``mesh``, the loss
+    handed back as a plain tensor.  Everything else is the mesh-free
+    model's own arithmetic."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import shardings as sh
+    from repro_torch.models import transformer as T
+    lspec = sh.placements(mesh, sh.P("data", None, "model"))
+    tspec = sh.placements(mesh, sh.P("data", None))
+
+    def xent(lg, tg):
+        with sh.implicit_replication():
+            return T.xent_loss(
+                DTensor.from_local(lg, mesh, lspec, run_check=False),
+                DTensor.from_local(tg, mesh, tspec,
+                                   run_check=False)).to_local()
+
+    def loss(params, batch):
+        return xent(T.forward_train(params, batch["tokens"], api.cfg),
+                    batch["targets"])
+    return xent, loss
+
+
+def _xent_attribution(torch, api, params, batch, mesh, n_micro: int) -> dict:
+    """Where the one-rank mesh step parts from the mesh-free step, before
+    either moves the params: the gradient of the vocab-parallel
+    cross-entropy against the gather one's on the same bfloat16 logits
+    (the first microbatch's), and the mean gradient of the mesh-free
+    model over the batch's microbatches through each: each leaf's
+    largest gap over its largest element, and the elements that
+    differ."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+    xent, vp_loss = _vocab_parallel_loss(api, mesh)
+    half = batch["tokens"].shape[0] // n_micro
+    mb = [{k: v[i * half:(i + 1) * half] for k, v in batch.items()}
+          for i in range(n_micro)]
+    with torch.no_grad():
+        lg = T.forward_train(params, mb[0]["tokens"], api.cfg)
+    a = lg.detach().requires_grad_(True)
+    ga, = torch.autograd.grad(T.xent_loss(a, mb[0]["targets"]), a)
+    b = lg.detach().requires_grad_(True)
+    gb, = torch.autograd.grad(xent(b, mb[0]["targets"]), b)
+    rec = {"dlogits_differ": int((ga != gb).sum()),
+           "dlogits_n": ga.numel(),
+           "dlogits_err": float((ga.float() - gb.float()).abs().max()),
+           "dlogits_scale": float(ga.float().abs().max())}
+    del lg, a, ga, b, gb
+
+    def mean_grad(loss_fn):
+        gsum = [torch.zeros_like(p, dtype=torch.float32)
+                for p in tree.leaves(params)]
+        for m in mb:
+            live = [p.detach().requires_grad_(True)
+                    for p in tree.leaves(params)]
+            with torch.enable_grad():
+                g = torch.autograd.grad(
+                    loss_fn(tree.unflatten(params, live), m), live)
+            gsum = [s + x.to(torch.float32) for s, x in zip(gsum, g)]
+            del g, live
+        return [s / n_micro for s in gsum]
+
+    g_plain = mean_grad(lambda p, m: api.loss_fn(p, m))
+    g_vp = mean_grad(vp_loss)
+    rec["grad_rel"] = max(float((x - y).abs().max())
+                          / max(float(x.abs().max()), 1e-30)
+                          for x, y in zip(g_plain, g_vp))
+    rec["grad_differ"] = sum(int((x != y).sum())
+                             for x, y in zip(g_plain, g_vp))
+    rec["grad_n"] = sum(x.numel() for x in g_plain)
+    return rec
+
+
+def _train_state_gap(torch, state, state_h) -> dict:
+    """The mesh step's state against a mesh-free step's after the same
+    steps: the params' largest gap and the elements that differ; the
+    first moments' largest gap over each leaf's largest |m|, and the
+    elements that differ."""
+    from repro_torch import tree
+    gap = {"p_err": 0.0, "p_differ": 0, "m_rel": 0.0, "m_differ": 0,
+           "n": 0}
+    for n, p, p_h in zip(tree.paths(state_h.params),
+                         tree.leaves(state.params),
+                         tree.leaves(state_h.params)):
+        d = (p.to_local().float() - p_h.float()).abs()
+        gap["p_err"] = max(gap["p_err"], float(d.max()))
+        gap["p_differ"] += int((d > 0).sum())
+        gap["n"] += d.numel()
+        m = state.opt_state["m"][n].to_local()
+        m_h = state_h.opt_state["m"][n]
+        gap["m_rel"] = max(gap["m_rel"], float((m - m_h).abs().max())
+                           / max(float(m_h.abs().max()), 1e-30))
+        gap["m_differ"] += int((m != m_h).sum())
+    return gap
+
+
+def phase_lm_mesh(torch, dev, card: str) -> dict:
+    """The LM zoo through launch/steps.py on a one-rank NCCL DeviceMesh
+    (data=1, model=1) on cuda:0: internlm2-1.8b as registered (the lm
+    phase's params and prompt), build_prefill_step and 32 greedy steps of
+    build_decode_step against the mesh-free model (tokens equal; a token
+    that differs must sit at a tie of the two top logits within the
+    decode bound), build_lm_train_step at full width against
+    build_microbatched_train_step (params and first moments after each
+    step against the mesh-free model trained through the same
+    vocab-parallel cross-entropy; losses against the plain one's),
+    build_linear_train_step at the
+    paper's k=500, b=16 against the mesh-free AdamW step over B7/B8 (its
+    own loss is a gather on local shards: no kernel), the dry-run's
+    argument bytes (equal to those allocated) and peak (a ratio to
+    max_memory_allocated), and both launchers' --mode lm."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.rcv1_bbit import PaperConfig
+    from repro_torch.data.lm_synth import lm_example_stream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.shapes import CellPlan
+    from repro_torch.models.api import get_model_api
+    from repro_torch.models.linear import BBitLinearConfig, bbit_logits
+    from repro_torch.optim.optimizers import AdamWConfig, adamw
+    from repro_torch.serving import greedy_generate
+    from repro_torch.train.losses import mean_loss_fn
+    from repro_torch.train.steps import (build_microbatched_train_step,
+                                         build_train_step, init_state)
+
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    predicted = _predictions(card)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    rec = {"backend": str(dist.get_backend()),
+           "total_memory": total_memory,
+           "hbm_budget_equal": total_memory == dryrun.HBM_BUDGET_BYTES,
+           "predicted": predicted}
+    try:
+        mesh = make_test_mesh(1, 1)
+        if mesh.device_type != "cuda":
+            fail(f"lm_mesh: the mesh is on {mesh.device_type}, not cuda")
+        cfg = get_config(LM_ARCH)
+        api = get_model_api(cfg)
+        params = api.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 device=dev)
+        _, toks, tgts = next(lm_example_stream(LM_BATCH, LM_PROMPT,
+                                               cfg.vocab, seed=0))
+        prompt = torch.from_numpy(toks).to(dev)
+        # --- prefill and greedy decode ----------------------------------
+        plan = CellPlan(arch=LM_ARCH, shape="prefill", kind="prefill",
+                        seq=LM_PROMPT, global_batch=LM_BATCH, n_micro=1,
+                        b_local=LM_BATCH)
+        pstep, _, pp, _, bps = S.build_prefill_step(api, mesh, plan)
+        dparams = S.shard_tree(params, pp, mesh)
+        dprompt = S.shard_tree({"tokens": prompt}, bps, mesh)
+        arg_real = {"prefill": S.local_bytes((dparams, dprompt))}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            lg_m, cache_m = pstep(dparams, dprompt)
+            torch.cuda.synchronize()
+            peak = {"prefill": torch.cuda.max_memory_allocated() - base
+                    + arg_real["prefill"]}
+            lg0, _ = api.prefill(params, {"tokens": prompt})
+        lg_m = lg_m.full_tensor()
+        scale = float(lg0.float().abs().max())
+        tol = LM_BF16_SELF_TOL * max(scale, 1.0)
+        prefill_err = float((lg_m.float() - lg0.float()).abs().max())
+        prefill_ms = _wall_ms(torch, lambda: pstep(dparams, dprompt))
+        prefill0_ms = _wall_ms(torch, lambda: api.prefill(
+            params, {"tokens": prompt}))
+        dplan = dataclasses.replace(plan, kind="decode", shape="decode",
+                                    seq=LM_PROMPT + LM_NEW)
+        dstep, _, (_, cps, _, dbps) = S.build_decode_step(api, mesh, dplan)
+        grown = _grown(api, tree.tree_map(lambda t: t.full_tensor(),
+                                          cache_m),
+                       LM_BATCH, LM_PROMPT + LM_NEW, dev)
+        dcache = S.shard_tree(grown, cps, mesh)
+        want = greedy_generate(api, params, toks, LM_NEW, device=dev)
+        nxt = torch.argmax(lg_m, -1)[:, None].to(torch.int32)
+        got = [nxt]
+        parted, margins = None, []
+        arg_real["decode"] = S.local_bytes((dparams, dcache)) + 4 + \
+            S.local_bytes(S.shard_tree({"token": nxt}, dbps, mesh))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(1, LM_NEW):
+                dec, dcache = dstep(dparams, dcache, LM_PROMPT + t - 1,
+                                    S.shard_tree({"token": nxt}, dbps,
+                                                 mesh))
+                dec = dec.full_tensor()
+                nxt = torch.argmax(dec, -1)[:, None].to(torch.int32)
+                got.append(nxt)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (LM_NEW - 1)
+        peak["decode"] = torch.cuda.max_memory_allocated() - base + \
+            arg_real["decode"]
+        got = torch.cat(got, 1).cpu().numpy()
+        diff = np.argwhere(got != want[:, LM_PROMPT:])
+        if len(diff):
+            pos = int(diff[:, 1].min())
+            rows = sorted({int(r) for r, c in diff if c == pos})
+            ctx = torch.from_numpy(want[:, :LM_PROMPT + pos]).to(dev)
+            with torch.no_grad():
+                lg, _ = api.prefill(params, {"tokens": ctx})
+            margin = _top2_margin(torch, lg, rows)
+            parted = {"step": pos, "rows": rows, "top2_margin": margin}
+            if margin > tol:
+                fail(f"lm_mesh: greedy tokens part at step {pos} rows "
+                     f"{rows} with a top-2 margin {margin} > {tol}")
+        # the mesh-free decode step timed the same way
+        cache0 = _grown(api, api.prefill(params, {"tokens": prompt})[1],
+                        LM_BATCH, LM_PROMPT + LM_NEW, dev)
+        nxt0 = torch.from_numpy(want[:, LM_PROMPT:LM_PROMPT + 1]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for t in range(1, LM_NEW):
+                d0, cache0 = api.decode_step(params, {"token": nxt0},
+                                             cache0, LM_PROMPT + t - 1)
+                nxt0 = torch.argmax(d0, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        decode0_ms = (time.perf_counter() - t0) * 1e3 / (LM_NEW - 1)
+        with torch.no_grad():
+            tok = nxt.clone()
+
+            def mesh_steps():
+                for _ in range(LM_PROFILE_STEPS):
+                    dstep(dparams, dcache, LM_PROMPT + LM_NEW - 1,
+                          S.shard_tree({"token": tok}, dbps, mesh))
+
+            def plain_steps():
+                for _ in range(LM_PROFILE_STEPS):
+                    api.decode_step(params, {"token": tok}, cache0,
+                                    LM_PROMPT + LM_NEW - 1)
+
+            _, prof_m = profiled(torch, mesh_steps)
+            _, prof_0 = profiled(torch, plain_steps)
+        del dcache, cache0, cache_m, grown
+        # --- the train step at full width -------------------------------
+        tplan = CellPlan(arch=LM_ARCH, shape="train", kind="train",
+                         seq=LM_PROMPT, global_batch=LM_MESH_TRAIN_BATCH,
+                         n_micro=LM_MESH_MICRO,
+                         b_local=LM_MESH_TRAIN_BATCH)
+        tstep, _, sps, _, tbps = S.build_lm_train_step(api, mesh, tplan)
+        stream = lm_example_stream(LM_MESH_TRAIN_BATCH, LM_PROMPT,
+                                   cfg.vocab, seed=5)
+        batches = [{"tokens": torch.from_numpy(a).to(dev),
+                    "targets": torch.from_numpy(b).to(dev)}
+                   for _, a, b in (next(stream)
+                                   for _ in range(LM_MESH_TRAIN_STEPS))]
+        opt = S.make_optimizer_for(cfg)
+        xent = _xent_attribution(torch, api, params, batches[0], mesh,
+                                 LM_MESH_MICRO)
+        # the mesh step in lockstep with the mesh-free model trained
+        # through the same (vocab-parallel) cross-entropy; compared after
+        # every step
+        hstep = build_microbatched_train_step(
+            _vocab_parallel_loss(api, mesh)[1], opt, LM_MESH_MICRO)
+        losses_m, step_ms, losses_h, gaps = [], [], [], []
+        state = S.shard_tree(init_state(tree.tree_map(
+            lambda t: t.clone(), params), opt), sps, mesh)
+        state_h = init_state(tree.tree_map(lambda t: t.clone(), params),
+                             opt)
+        dbatches = [S.shard_tree(b, tbps, mesh) for b in batches]
+        arg_real["train"] = S.local_bytes((state, dbatches[0]))
+        peak["train"] = 0
+        for b, db in zip(batches, dbatches):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            state, loss = tstep(state, db)
+            losses_m.append(float(loss.full_tensor()))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            peak["train"] = max(peak["train"],
+                                torch.cuda.max_memory_allocated() - base
+                                + arg_real["train"])
+            state_h, loss_h = hstep(state_h, b)
+            losses_h.append(float(loss_h))
+            gaps.append(_train_state_gap(torch, state, state_h))
+        del state, state_h
+        torch.cuda.empty_cache()
+        # and the mesh-free step as the lm phase trains (the gather
+        # cross-entropy): its losses
+        mstep = build_microbatched_train_step(
+            lambda p, b: api.loss_fn(p, b), opt, LM_MESH_MICRO)
+        state0 = init_state(tree.tree_map(lambda t: t.clone(), params), opt)
+        losses_0 = []
+        for b in batches:
+            state0, loss0 = mstep(state0, b)
+            losses_0.append(float(loss0))
+        del state0
+        torch.cuda.empty_cache()
+        train_rel = [abs(a - b) / abs(b) for a, b in zip(losses_m,
+                                                          losses_0)]
+        print(f"lm_mesh: build_lm_train_step against the mesh-free step "
+              f"through the same vocab-parallel cross-entropy, per step: "
+              f"{json.dumps(gaps)}, losses {losses_m} vs {losses_h}; the "
+              f"gather cross-entropy's dlogits on the same logits differ in "
+              f"{xent['dlogits_differ']} of {xent['dlogits_n']} (max "
+              f"{xent['dlogits_err']:.3g}, largest "
+              f"{xent['dlogits_scale']:.3g}), the mesh-free mean gradients "
+              f"through the two in {xent['grad_differ']} of "
+              f"{xent['grad_n']} (largest gap {xent['grad_rel']:.3g} of its "
+              f"leaf's largest) card={card}")
+        bad = []
+        for i, g in enumerate(gaps):
+            if g["p_err"] > LM_MESH_TRAIN_ATOL or \
+                    g["m_rel"] > LM_MESH_TRAIN_ATOL:
+                bad.append(f"step {i + 1}: {g}")
+        if max(abs(a - b) for a, b in zip(losses_m, losses_h)) > \
+                LM_LOSS_RTOL * abs(losses_h[0]):
+            bad.append(f"losses {losses_m} vs {losses_h}")
+        if train_rel[0] > LM_LOSS_RTOL or \
+                max(train_rel[1:]) > LM_MESH_STEP2_RTOL:
+            bad.append(f"losses {losses_m} vs the gather cross-entropy's "
+                       f"{losses_0}")
+        if bad:
+            fail(f"lm_mesh: build_lm_train_step vs the mesh-free steps: "
+                 f"{bad}")
+        # --- the paper's linear step at k=500, b=16 -----------------------
+        paper = PaperConfig(k=PAPER_K, b=PAPER_B)
+        lstep, _, lsps, _ = S.build_linear_train_step(paper, mesh)
+        g = torch.Generator(device=dev).manual_seed(3)
+        n = paper.global_batch
+        codes = torch.randint(0, 1 << PAPER_B, (n, PAPER_K), generator=g,
+                              device=dev, dtype=torch.int32)
+        labels = torch.randint(0, 2, (n,), generator=g, device=dev,
+                               dtype=torch.int32)
+        table = 0.01 * torch.randn((PAPER_K, 1 << PAPER_B, 1),
+                                   generator=g, device=dev)
+        p_lin = {"table": table, "bias": torch.zeros(1, device=dev)}
+        lopt = adamw(1e-2, AdamWConfig())
+        lstate = S.shard_tree(init_state(tree.tree_map(
+            lambda t: t.clone(), p_lin), lopt), lsps, mesh)
+        lbps = S.batch_pspecs(mesh, {"c": codes, "l": labels})
+        dcodes = S.shard_tree(codes, lbps["c"], mesh)
+        dlabels = S.shard_tree(labels, lbps["l"], mesh)
+        lcfg = BBitLinearConfig(k=PAPER_K, b=PAPER_B)
+        plain = build_train_step(mean_loss_fn(
+            lambda p, c: bbit_logits(p, c, lcfg), paper.loss, l2=1e-7),
+            lopt)
+        lstate0 = init_state(tree.tree_map(lambda t: t.clone(), p_lin),
+                             lopt)
+        lin_m, lin_0, lin_ms = [], [], []
+        for _ in range(LM_MESH_LINEAR_STEPS):
+            t0 = time.perf_counter()
+            lstate, lm_loss = lstep(lstate, dcodes, dlabels)
+            lin_m.append(float(lm_loss.full_tensor()))
+            lin_ms.append((time.perf_counter() - t0) * 1e3)
+            lstate0, l0 = plain(lstate0, codes, labels)
+            lin_0.append(float(l0))
+        lin_rel = max(abs(a - b) / abs(b) for a, b in zip(lin_m, lin_0))
+        if lin_rel > LM_LOSS_RTOL:
+            fail(f"lm_mesh: linear losses {lin_m} vs mesh-free {lin_0}")
+        del lstate, lstate0, codes, table
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    arg_equal = {k: predicted[k]["argument_bytes"] == arg_real[k]
+                 for k in arg_real}
+    peak_ratio = {k: predicted[k]["peak_bytes"] / peak[k] for k in peak}
+    workdir = os.path.join(ROOT, "build", "chip_smoke_lm")
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        train_cli = _launcher(torch, "train", [
+            "--workdir", workdir, "--steps", "20", "--batch-size", "8",
+            "--seq-len", "64", "--ckpt-every", "10"], card)
+        serve_cli = _launcher(torch, "serve", [
+            "--max-batch", "4", "--tokens", "8"], card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    line = [ln for ln in train_cli["stdout"] if ": loss " in ln][-1]
+    first, last = (float(v) for v in line.split()[2:5:2])
+    if not last < first:
+        fail(f"lm_mesh: --mode lm's loss did not fall: {line}")
+    rec.update(
+        prefill_ms=prefill_ms, prefill_meshfree_ms=prefill0_ms,
+        prefill_err=prefill_err, prefill_tol=tol,
+        decode_ms=decode_ms, decode_meshfree_ms=decode0_ms,
+        decode_device_ms=prof_m["device_ms"] / LM_PROFILE_STEPS,
+        decode_meshfree_device_ms=prof_0["device_ms"] / LM_PROFILE_STEPS,
+        tokens_equal=parted is None, parted=parted,
+        train_step_ms=step_ms, train_losses=losses_m,
+        train_losses_microbatched=losses_0, train_rel=train_rel,
+        train_losses_vocab_parallel=losses_h, train_gaps=gaps,
+        train_xent=xent,
+        linear_losses=lin_m, linear_losses_meshfree=lin_0,
+        linear_rel=lin_rel, linear_step_ms=lin_ms,
+        argument_bytes=arg_real, argument_bytes_equal=arg_equal,
+        peak_bytes=peak, peak_ratio=peak_ratio,
+        train_cli=train_cli, serve_cli=serve_cli)
+    print(f"lm_mesh: one-rank {rec['backend']} DeviceMesh (data=1, model=1) "
+          f"on cuda:0, {LM_ARCH} as registered: prefill {LM_BATCH} x "
+          f"{LM_PROMPT} {prefill_ms:.3f} ms (mesh-free {prefill0_ms:.3f}), "
+          f"logits max|diff| {prefill_err:.4g} (bound {tol:.4g}); decode "
+          f"{decode_ms:.3f} ms a step (mesh-free {decode0_ms:.3f}; device "
+          f"{rec['decode_device_ms']:.3f} vs "
+          f"{rec['decode_meshfree_device_ms']:.3f} ms over "
+          f"{LM_PROFILE_STEPS} profiled steps; the dry-run's trace of a "
+          f"step: {predicted['decode']['dtensor_ops']} DTensor ops, "
+          f"{predicted['decode']['local_ops']} local ops); greedy tokens "
+          f"equal the "
+          f"lm phase's: {parted is None}"
+          + (f" (parted {json.dumps(parted)})" if parted else "")
+          + f" card={card}")
+    print(f"lm_mesh: build_lm_train_step {LM_MESH_TRAIN_BATCH} x "
+          f"{LM_PROMPT}, n_micro {LM_MESH_MICRO}: step ms "
+          f"{[round(x, 3) for x in step_ms]}, losses {losses_m} vs "
+          f"build_microbatched_train_step {losses_0} (rel "
+          f"{[float(f'{x:.3g}') for x in train_rel]}); linear k={PAPER_K} "
+          f"b={PAPER_B} on {paper.global_batch} rows: step ms "
+          f"{[round(x, 3) for x in lin_ms]}, losses {lin_m} vs mesh-free "
+          f"{lin_0} (rel {lin_rel:.3g}) card={card}")
+    print(f"lm_mesh: dry-run prediction vs the card: argument bytes "
+          f"{json.dumps({k: [predicted[k]['argument_bytes'], arg_real[k]] for k in arg_real})} "
+          f"equal {json.dumps(arg_equal)}; peak bytes predicted / "
+          f"allocated {json.dumps({k: round(v, 4) for k, v in peak_ratio.items()})} "
+          f"(allocated {json.dumps(peak)}); total_memory {total_memory} "
+          f"(dryrun.HBM_BUDGET_BYTES {dryrun.HBM_BUDGET_BYTES}) card={card}")
+    print(f"lm_mesh: launch/train.py --mode lm: {train_cli['stdout'][-1]} "
+          f"({train_cli['seconds']:.1f} s); launch/serve.py --mode lm: "
+          f"{serve_cli['stdout'][0]} ({serve_cli['seconds']:.1f} s)")
+    if not all(arg_equal.values()):
+        fail(f"lm_mesh: predicted argument bytes differ: {arg_equal}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -4407,6 +4938,7 @@ def main() -> int:
     timing_raw = run("timing_raw", phase_timing_raw, torch, dev,
                      train_data["rows"], search, card, int_rate)
     lm = run("lm", phase_lm, torch, dev, card)
+    lm_mesh = run("lm_mesh", phase_lm_mesh, torch, dev, card)
     print(f"phases (s): {json.dumps(phase_s)}")
 
     # each kernel's line: its launches summed over the main paths' runs
@@ -4458,6 +4990,7 @@ def main() -> int:
                        "paper": paper, "stream": stream, "dp": dp,
                        "serve": serve, "bf16": bf16,
                        "linear": linear, "calibrate": calib, "lm": lm,
+                       "lm_mesh": lm_mesh,
                        "search": {k: search[k] for k in ("counts", "recall",
                                                          "candidates")},
                        "docs_per_s": engine["docs_per_s"],

@@ -13,9 +13,13 @@ with ``group_size`` 1, so a single-process run still shows the bytes its
 step would put on the wire.  ``collective_bytes()`` sums the record in
 the dict shape of ``collective_bytes_from_hlo``.
 
-The reference's two HLO-text parsers read XLA's compiled programs,
-which torch does not have; they belong with ``launch/roofline.py`` to
-the LM zoo's launch tools (ROADMAP A6b).
+The reference's two HLO-text parsers (``collective_stats_from_hlo``,
+``collective_bytes_from_hlo``) read the collectives of an XLA program.
+Their counterparts here read the functional collectives that one traced
+call of a step dispatched (``launch/roofline.py::trace_step``):
+``collective_stats_from_trace`` gives the same ``{"op", "bytes",
+"group_size"}`` records (bytes: the result that lands on each
+participant) and ``collective_bytes_from_trace`` their sums.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from repro_torch import tree as _tree
 
 __all__ = ["COLLECTIVE_OPS", "psum", "psum_mean", "all_gather_stacked",
            "group_size", "collective_stats", "collective_bytes",
-           "reset_collective_stats"]
+           "reset_collective_stats", "collective_stats_from_trace",
+           "collective_bytes_from_trace"]
 
 COLLECTIVE_OPS = (
     "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -134,3 +139,56 @@ def all_gather_stacked(t: torch.Tensor, group=None) -> torch.Tensor:
     parts = [torch.empty_like(t) for _ in range(size)]
     dist.all_gather(parts, t.contiguous(), group=group)
     return torch.stack(parts)
+
+
+# the functional collectives a traced call dispatches, as the reference's
+# HLO op names
+_TRACE_OPS = {
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-permute",
+}
+
+
+def _trace_group_size(name: str, args) -> int:
+    """The group's size from a functional collective's arguments (the
+    group name is the last string argument)."""
+    group_name = [a for a in args if isinstance(a, str)][-1]
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return int(_resolve_process_group(group_name).size())
+
+
+def collective_stats_from_trace(calls) -> List[dict]:
+    """Per-call collective stats ``[{op, bytes, group_size}]`` from the
+    ``(op name, args, result)`` triples of the ``_c10d_functional`` ops
+    one traced call dispatched (``launch/roofline.py::trace_step``).
+    ``bytes`` is the result landing on each participant, as in the
+    reference's ``collective_stats_from_hlo``."""
+    stats = []
+    for name, args, out in calls:
+        op = _TRACE_OPS.get(name)
+        if op is None:
+            continue
+        outs = _tree.leaves(out)
+        nbytes = sum(t.numel() * t.element_size() for t in outs
+                     if isinstance(t, torch.Tensor))
+        stats.append({"op": op, "bytes": int(nbytes),
+                      "group_size": _trace_group_size(name, args)})
+    return stats
+
+
+def collective_bytes_from_trace(calls) -> Dict[str, int]:
+    """Bytes by op, ``count`` and ``total`` over a traced call's
+    collectives (the dict of ``collective_bytes_from_hlo``)."""
+    out = {k: 0 for k in COLLECTIVE_OPS}
+    out["count"] = 0
+    for st in collective_stats_from_trace(calls):
+        out[st["op"]] += st["bytes"]
+        out["count"] += 1
+    out["total"] = sum(out[k] for k in COLLECTIVE_OPS)
+    return out

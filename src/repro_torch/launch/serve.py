@@ -26,8 +26,9 @@ if it exists; ``python -m repro_torch.launch.calibrate`` writes one): with
 a usable one the engine sizes each lane's row buckets and drain cap from
 its measured ``serve_score`` curve; a missing, corrupt or other-box
 profile leaves the static pair of row buckets (1, ``--max-batch``).
-``--mode lm`` (serving the LM zoo, ROADMAP A6b) is not ported yet and
-exits 2 with a message; its models and ``greedy_generate`` are (A6a).
+``--mode lm`` (``serve_lm``) generates from the LM zoo: ``--arch``'s
+reduced config from a seeded init, ``--max-batch`` prompts of 8 tokens,
+``greedy_generate`` of ``--tokens`` new tokens on ``--device``.
 """
 from __future__ import annotations
 
@@ -36,12 +37,6 @@ import sys
 import time
 
 import numpy as np
-
-NOT_PORTED = {
-    "lm": "--mode lm serves the LM zoo (launch/serve.py::serve_lm), which "
-          "waits for ROADMAP A6b",
-}
-
 
 def _build_classifier_engine(args):
     from repro_torch.configs.rcv1_oph import CONFIG
@@ -122,12 +117,50 @@ def serve_classifier(args) -> None:
     eng.close()
 
 
+def serve_lm(args) -> np.ndarray:
+    """Greedy generation from the LM zoo (module docstring) → the tokens
+    (max_batch, 8 + tokens)."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.devices import resolve_device
+    from repro_torch.launch.smoke_configs import reduced_config
+    from repro_torch.models.api import get_model_api
+    from repro_torch.serving import greedy_generate
+
+    dev = resolve_device(args.device)
+    cfg = reduced_config(get_config(args.arch))
+    api = get_model_api(cfg)
+    params = api.init_params(torch.Generator().manual_seed(args.seed),
+                             device=dev)
+    rng = np.random.default_rng(args.seed)
+    prompt = rng.integers(1, cfg.vocab, size=(args.max_batch, 8)
+                          ).astype(np.int32)
+    shapes = api.batch_shapes(args.max_batch, 8)
+    extras = {key: torch.zeros(shapes[key].shape, dtype=shapes[key].dtype,
+                               device=dev)
+              for key in ("vision_embeds", "frames") if key in shapes}
+    t0 = time.perf_counter()
+    toks = greedy_generate(api, params, prompt, max_new=args.tokens,
+                           max_len=8 + args.tokens, extras=extras or None,
+                           device=dev)
+    dt = time.perf_counter() - t0
+    total_new = args.max_batch * args.tokens
+    print(f"{args.arch} (reduced): generated {total_new} tokens in "
+          f"{dt:.1f}s ({total_new/dt:.1f} tok/s)")
+    print("sample:", toks[0].tolist())
+    return toks
+
+
 def main(argv=None) -> int:
     from repro_torch.configs.rcv1_oph import CONFIG
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="classifier",
                     choices=["classifier", "lm"])
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    help="lm mode: the architecture (its reduced config)")
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="lm mode: new tokens a prompt")
     ap.add_argument("--n-docs", type=int, default=600)
     ap.add_argument("--k", type=int, default=64)
     ap.add_argument("--b", type=int, default=8)
@@ -159,10 +192,10 @@ def main(argv=None) -> int:
                          "profile_path if it exists; missing or "
                          "mismatched files leave the static rules)")
     args = ap.parse_args(argv)
-    if args.mode != "classifier":
-        print(NOT_PORTED[args.mode], file=sys.stderr)
-        return 2
-    serve_classifier(args)
+    if args.mode == "lm":
+        serve_lm(args)
+    else:
+        serve_classifier(args)
     return 0
 
 

@@ -37,10 +37,16 @@ under ``DIR/gang``), ``--data-parallel`` defaulting to P; there
 restarts.  ``--mode linear`` ignores ``--procs``, as the reference's
 does.
 
-Both run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+``--mode lm`` (``run_lm``) trains the LM zoo: ``--arch``'s reduced
+config (``launch/smoke_configs.py``) from a seeded init, AdamW
+(``launch/steps.py::make_optimizer_for``) over ``lm_example_stream``
+batches of ``--batch-size`` × ``--seq-len``, checkpoints every
+``--ckpt-every`` steps under ``DIR/ckpt_<arch>`` and a resume from the
+newest one; it prints the first and the last losses.
+
+All run on ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions).  ``--profile`` loads a cost-model profile (default:
-``configs/rcv1_oph.py``'s ``profile_path`` if it exists).  ``--mode lm``
-(``run_lm``, ROADMAP A6b) is not ported yet and exits with a message.
+``configs/rcv1_oph.py``'s ``profile_path`` if it exists).
 """
 from __future__ import annotations
 
@@ -49,12 +55,6 @@ import os
 import sys
 
 import numpy as np
-
-NOT_PORTED = {
-    "lm": "--mode lm trains the LM zoo (launch/train.py::run_lm), which "
-          "waits for ROADMAP A6b",
-}
-
 
 def _initial_params(lcfg, seed: int, device):
     """The linear model's start: a 0.01·N(0, 1) table from a CPU
@@ -244,22 +244,84 @@ def run_stream(args) -> dict:
                 crashes=[c.error for c in sup.crashes])
 
 
+def run_lm(args) -> dict:
+    """The LM zoo's training loop (module docstring) → first and last
+    losses (the mean of the last five), every loss and the final
+    state."""
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.lm_synth import lm_example_stream
+    from repro_torch.devices import resolve_device
+    from repro_torch.launch.smoke_configs import reduced_config
+    from repro_torch.launch.steps import make_optimizer_for
+    from repro_torch.models.api import get_model_api
+    from repro_torch.train.steps import build_train_step, init_state
+
+    dev = resolve_device(args.device)
+    cfg = reduced_config(get_config(args.arch))
+    api = get_model_api(cfg)
+    opt = make_optimizer_for(cfg)
+    params = api.init_params(torch.Generator().manual_seed(args.seed),
+                             device=dev)
+    state = init_state(params, opt)
+    step_fn = build_train_step(lambda p, b: api.loss_fn(p, b), opt)
+
+    ckpt_dir = os.path.join(args.workdir, f"ckpt_{args.arch}")
+    start_step = 0
+    restored = ckpt.restore_if_exists(ckpt_dir, state)
+    if restored is not None:
+        state, start_step = restored
+    shapes = api.batch_shapes(args.batch_size, args.seq_len)
+    losses = []
+    for step, toks, tgts in lm_example_stream(
+            args.batch_size, args.seq_len, cfg.vocab, seed=args.seed):
+        if step < start_step:
+            continue
+        if step >= args.steps:
+            break
+        batch = {"tokens": torch.from_numpy(toks).to(dev),
+                 "targets": torch.from_numpy(tgts).to(dev)}
+        for key in ("vision_embeds", "frames"):
+            if key in shapes:
+                batch[key] = torch.zeros(shapes[key].shape,
+                                         dtype=shapes[key].dtype, device=dev)
+        state, loss = step_fn(state, batch)
+        losses.append(float(loss))
+        if (step + 1) % args.ckpt_every == 0:
+            ckpt.save(ckpt_dir, step + 1, state)
+    if not losses:
+        print(f"{args.arch}: nothing to train (resumed at step "
+              f"{start_step} of {args.steps})")
+        return dict(first_loss=None, last_loss=None, steps=0,
+                    start_step=start_step, state=state)
+    first, last = losses[0], float(np.mean(losses[-5:]))
+    print(f"{args.arch}: loss {first:.3f} -> {last:.3f} "
+          f"over {len(losses)} steps")
+    return dict(first_loss=first, last_loss=last, steps=len(losses),
+                start_step=start_step, losses=losses, state=state)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="stream",
                     choices=["linear", "stream", "lm"])
     ap.add_argument("--workdir", default="artifacts/train")
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    help="lm mode: the architecture (its reduced config)")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="lm mode: tokens a row")
     ap.add_argument("--n-docs", type=int, default=2000)
     ap.add_argument("--k", type=int, default=200)
     ap.add_argument("--b", type=int, default=8)
     ap.add_argument("--steps", type=int, default=300,
-                    help="linear mode: train steps")
+                    help="linear and lm modes: train steps")
     ap.add_argument("--batch-size", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-every", type=int, default=50,
-                    help="linear mode: checkpoint every N steps")
+                    help="linear and lm modes: checkpoint every N steps")
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a crash at this step (fault tolerance)")
     ap.add_argument("--epochs", type=int, default=1,
@@ -279,9 +341,6 @@ def main(argv=None) -> int:
                          "profile_path if it exists; missing or "
                          "mismatched files leave the static rules)")
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        print(NOT_PORTED[args.mode], file=sys.stderr)
-        return 2
     os.makedirs(args.workdir, exist_ok=True)
     from repro_torch import perf
     from repro_torch.configs.rcv1_oph import CONFIG
@@ -295,8 +354,10 @@ def main(argv=None) -> int:
               "python -m repro_torch.launch.calibrate to measure this box)")
     if args.mode == "linear":
         run_linear(args)
-    else:
+    elif args.mode == "stream":
         run_stream(args)
+    else:
+        run_lm(args)
     return 0
 
 

@@ -14,6 +14,13 @@ xlstm: groups of [(slstm_every−1)×mLSTM, 1×sLSTM].
 Both keep models/transformer.py's train/prefill/decode contract.  Their
 caches are the reference's trees: the Mamba2 states are (h, conv)
 tuples stacked per group, the xLSTM ones (C, n, m) and (c, n, h, m).
+
+On a mesh the shared attention blocks, embeddings and head run as in
+``models/transformer.py``.  The Mamba2, mLSTM and sLSTM blocks run
+data-parallel on local shards (``_local_block``): the batch over the
+data axes, their weights (TP/FSDP-sharded at rest by the pspecs below)
+gathered whole just in time, the same work on every model rank.  Their
+heads are not split over 'model'.
 """
 from __future__ import annotations
 
@@ -22,14 +29,19 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import shardings as sh
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import ParamInit, rmsnorm
 from repro_torch.models.transformer import (_dtype, attn_apply,
-                                            build_positions, checkpointed,
+                                            attn_pspecs, build_positions,
+                                            checkpointed, dp_axes_of,
                                             embed_tokens, ffn_apply,
                                             init_attn_params,
-                                            init_embed_params, lm_head)
+                                            init_embed_params, lm_head,
+                                            maybe_shard)
+
+P = sh.P
 from repro_torch.tree import tree_map, tree_stack
 
 
@@ -80,13 +92,42 @@ def init_hybrid_params(cfg: ArchConfig, init: ParamInit) -> dict:
     return params
 
 
-def _mamba_block(lp, x, cfg, state=None, chunk=128):
+def _local_block(core, mesh, params: dict, h, state):
+    """``core(params, h, state) -> (y, new state tuple)`` with the
+    batch over the data axes and the weights whole on every rank (see
+    the module docstring); plain off a mesh."""
+    if mesh is None:
+        return core(params, h, state)
+    bspec = sh.divisible_spec((h.shape[0],), mesh, (dp_axes_of(mesh),))[0]
+    names = sorted(params)
+    st = list(state) if state is not None else []
+    n = len(names)
+
+    def body(h_l, *rest):
+        y, new = core(dict(zip(names, rest[:n])), h_l,
+                      tuple(rest[n:]) if st else None)
+        return (y,) + tuple(new)
+
+    specs = ((P(bspec),) + tuple(P() for _ in names)
+             + tuple(P(bspec) for _ in st))
+    out = sh.local_apply(body, mesh, specs, (P(bspec),) * 8, h,
+                         *(params[k] for k in names), *st,
+                         grad_partial=dp_axes_of(mesh) if bspec else ())
+    return out[0], tuple(out[1:])
+
+
+def _mamba_block(lp, x, cfg, mesh=None, state=None, chunk=128):
     h = rmsnorm(x, lp["ln"], cfg.norm_eps)
-    y, new_state = ssm_lib.mamba2_forward(
-        {k: v for k, v in lp.items() if k != "ln"}, h, cfg,
-        h0=None if state is None else state[0],
-        conv0=None if state is None else state[1], chunk=chunk)
-    return x + y, new_state
+    h = maybe_shard(h, mesh, dp_axes_of(mesh), None, None)
+
+    def core(p, h, st):
+        return ssm_lib.mamba2_forward(
+            p, h, cfg, h0=None if st is None else st[0],
+            conv0=None if st is None else st[1], chunk=chunk)
+
+    y, new_state = _local_block(
+        core, mesh, {k: v for k, v in lp.items() if k != "ln"}, h, state)
+    return x + y, tuple(new_state)
 
 
 def _select_attn(params, g_idx, n_shared):
@@ -94,31 +135,31 @@ def _select_attn(params, g_idx, n_shared):
 
 
 def _mamba_stack(cfg, x, layer_params, length, states=None, chunk=128,
-                 remat=True, keep=True):
+                 remat=True, keep=True, mesh=None):
     """Runs ``length`` stacked Mamba2 blocks → (x, their new states
     stacked, or None without ``keep``)."""
     if states is None:
         def body(xi, lp):
-            xi, st = _mamba_block(lp, xi, cfg, chunk=chunk)
+            xi, st = _mamba_block(lp, xi, cfg, mesh, chunk=chunk)
             return xi, st if keep else None
         xs = layer_params
     else:
         def body(xi, inp):
             lp, st = inp
-            return _mamba_block(lp, xi, cfg, state=st, chunk=chunk)
+            return _mamba_block(lp, xi, cfg, mesh, state=st, chunk=chunk)
         xs = (layer_params, states)
     return _loop(cfg, _remat(cfg, body) if remat else body, x, xs, length)
 
 
-def hybrid_forward_train(params, tokens, cfg: ArchConfig):
-    x, _ = _hybrid_run(params, tokens, cfg, "train")
-    return lm_head(params, x, cfg)
+def hybrid_forward_train(params, tokens, cfg: ArchConfig, mesh=None):
+    x, _ = _hybrid_run(params, tokens, cfg, "train", mesh)
+    return lm_head(params, x, cfg, mesh)
 
 
-def _hybrid_run(params, tokens, cfg: ArchConfig, mode: str):
+def _hybrid_run(params, tokens, cfg: ArchConfig, mode: str, mesh=None):
     """train | prefill over the whole stack → (x, cache or None)."""
     b, s = tokens.shape
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     positions = build_positions(cfg, b, s, device=tokens.device)
     groups, per, tail = _hybrid_layout(cfg)
     nsh = cfg.hybrid_shared_attn_blocks
@@ -126,11 +167,12 @@ def _hybrid_run(params, tokens, cfg: ArchConfig, mode: str):
     def group_body(xc, inp):
         g_idx, g_params = inp
         ap = _select_attn(params, g_idx, nsh)
-        xc, kv = attn_apply(ap, xc, cfg=cfg, positions=positions,
-                            mode=mode)
-        xc = ffn_apply(ap, xc, cfg)
+        xc, kv = attn_apply(ap, xc, cfg=cfg, mesh=mesh,
+                            positions=positions, mode=mode)
+        xc = ffn_apply(ap, xc, cfg, mesh)
         keep = mode == "prefill"
-        xc, states = _mamba_stack(cfg, xc, g_params, per, keep=keep)
+        xc, states = _mamba_stack(cfg, xc, g_params, per, keep=keep,
+                                  mesh=mesh)
         return xc, (states, kv) if keep else None
 
     cache = None
@@ -144,7 +186,7 @@ def _hybrid_run(params, tokens, cfg: ArchConfig, mode: str):
         cache = {"mamba": empty["mamba"], "attn": empty["attn"]}
     if tail:
         x, tail_states = _mamba_stack(cfg, x, params["mamba_tail"], tail,
-                                      keep=mode == "prefill")
+                                      keep=mode == "prefill", mesh=mesh)
         if mode == "prefill":
             cache["mamba_tail"] = tail_states
     return x, cache
@@ -174,11 +216,12 @@ def init_hybrid_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
-def hybrid_decode_step(params, token, cache, cache_len, cfg: ArchConfig):
+def hybrid_decode_step(params, token, cache, cache_len, cfg: ArchConfig,
+                       mesh=None):
     """One token: the attention caches are written in place, the Mamba2
     states replaced → (logits (B,V), the new cache)."""
     b = token.shape[0]
-    x = embed_tokens(params, token, cfg)
+    x = embed_tokens(params, token, cfg, mesh)
     positions = build_positions(cfg, b, 1, offset=cache_len,
                                 device=token.device)
     groups, per, tail = _hybrid_layout(cfg)
@@ -187,12 +230,12 @@ def hybrid_decode_step(params, token, cache, cache_len, cfg: ArchConfig):
     def group_body(xc, inp):
         g_idx, g_params, g_state, g_kv = inp
         ap = _select_attn(params, g_idx, nsh)
-        xc, new_kv = attn_apply(ap, xc, cfg=cfg, positions=positions,
-                                mode="decode", cache=g_kv,
-                                cache_len=cache_len)
-        xc = ffn_apply(ap, xc, cfg)
+        xc, new_kv = attn_apply(ap, xc, cfg=cfg, mesh=mesh,
+                                positions=positions, mode="decode",
+                                cache=g_kv, cache_len=cache_len)
+        xc = ffn_apply(ap, xc, cfg, mesh)
         xc, new_states = _mamba_stack(cfg, xc, g_params, per, g_state,
-                                      chunk=1, remat=False)
+                                      chunk=1, remat=False, mesh=mesh)
         return xc, new_states
 
     new_cache = {"mamba": cache["mamba"], "attn": cache["attn"]}
@@ -205,14 +248,42 @@ def hybrid_decode_step(params, token, cache, cache_len, cfg: ArchConfig):
     if tail:
         x, new_cache["mamba_tail"] = _mamba_stack(
             cfg, x, params["mamba_tail"], tail, cache["mamba_tail"],
-            chunk=1, remat=False)
-    return lm_head(params, x, cfg)[:, 0], new_cache
+            chunk=1, remat=False, mesh=mesh)
+    return lm_head(params, x, cfg, mesh)[:, 0], new_cache
 
 
-def hybrid_prefill(params, tokens, cfg: ArchConfig):
+def hybrid_prefill(params, tokens, cfg: ArchConfig, mesh=None):
     """→ (last logits (B,V), cache at len = tokens.shape[1])."""
-    x, cache = _hybrid_run(params, tokens, cfg, "prefill")
-    return lm_head(params, x[:, -1:], cfg)[:, 0], cache
+    x, cache = _hybrid_run(params, tokens, cfg, "prefill", mesh)
+    return lm_head(params, x[:, -1:], cfg, mesh)[:, 0], cache
+
+
+def hybrid_param_pspecs(cfg: ArchConfig, mesh) -> dict:
+    dp = dp_axes_of(mesh) or None
+    mamba_spec = {
+        "ln": P(None, None, None),
+        "in_proj": P(None, None, dp, "model"),
+        "conv_w": P(None, None, None, "model"),
+        "conv_b": P(None, None, "model"),
+        "a_log": P(None, None, None),
+        "dt_bias": P(None, None, None),
+        "d_skip": P(None, None, None),
+        "norm_scale": P(None, None, "model"),
+        "out_proj": P(None, None, "model", dp),
+    }
+    out = {
+        "embed": ({"hash_tables": P(None, None, "model")}
+                  if cfg.embedding == "bbit_hash"
+                  else {"table": P(None, "model")}),
+        "final_norm": P(None),
+        "lm_head": P(dp, "model"),
+        "mamba": mamba_spec,
+        "attn": attn_pspecs(cfg, dp, stacked=True),
+    }
+    groups, per, tail = _hybrid_layout(cfg)
+    if tail:
+        out["mamba_tail"] = sh.spec_map(lambda s: P(*s[1:]), mamba_spec)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -236,39 +307,41 @@ def init_xlstm_stack_params(cfg: ArchConfig, init: ParamInit) -> dict:
     return params
 
 
-def _mlstm_block(lp, x, cfg, state=None, chunk=128):
+def _mlstm_block(lp, x, cfg, mesh=None, state=None, chunk=128):
     h = rmsnorm(x, lp["ln"], cfg.norm_eps)
-    y, st = xlstm_lib.mlstm_forward(
-        {k: v for k, v in lp.items() if k != "ln"}, h, cfg, state=state,
-        chunk=chunk)
-    return x + y, st
+    y, st = _local_block(
+        lambda p, h, s: xlstm_lib.mlstm_forward(p, h, cfg, state=s,
+                                                chunk=chunk),
+        mesh, {k: v for k, v in lp.items() if k != "ln"}, h, state)
+    return x + y, tuple(st)
 
 
-def _slstm_block(lp, x, cfg, state=None):
+def _slstm_block(lp, x, cfg, mesh=None, state=None):
     h = rmsnorm(x, lp["ln"], cfg.norm_eps)
-    y, st = xlstm_lib.slstm_forward(
-        {k: v for k, v in lp.items() if k != "ln"}, h, cfg, state=state)
-    return x + y, st
+    y, st = _local_block(
+        lambda p, h, s: xlstm_lib.slstm_forward(p, h, cfg, state=s),
+        mesh, {k: v for k, v in lp.items() if k != "ln"}, h, state)
+    return x + y, tuple(st)
 
 
-def xlstm_forward_train(params, tokens, cfg: ArchConfig):
-    x = embed_tokens(params, tokens, cfg)
+def xlstm_forward_train(params, tokens, cfg: ArchConfig, mesh=None):
+    x = embed_tokens(params, tokens, cfg, mesh)
     groups, per = _xlstm_layout(cfg)
 
     def group_body(xc, inp):
         g_m, g_s = inp
 
         def m_body(xi, lp):
-            xi, _ = _mlstm_block(lp, xi, cfg)
+            xi, _ = _mlstm_block(lp, xi, cfg, mesh)
             return xi, None
 
         xc, _ = _loop(cfg, _remat(cfg, m_body), xc, g_m, per)
-        xc, _ = _slstm_block(g_s, xc, cfg)
+        xc, _ = _slstm_block(g_s, xc, cfg, mesh)
         return xc, None
 
     x, _ = _loop(cfg, _remat(cfg, group_body), x,
                  (params["mlstm"], params["slstm"]), groups)
-    return lm_head(params, x, cfg)
+    return lm_head(params, x, cfg, mesh)
 
 
 def init_xlstm_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -294,9 +367,9 @@ def init_xlstm_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def xlstm_apply_with_state(params, tokens, cache, cfg: ArchConfig,
-                           chunk=128):
+                           mesh=None, chunk=128):
     """Shared prefill/decode: runs tokens through, carrying states."""
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     groups, per = _xlstm_layout(cfg)
 
     def group_body(xc, inp):
@@ -304,10 +377,10 @@ def xlstm_apply_with_state(params, tokens, cache, cfg: ArchConfig,
 
         def m_body(xi, inp2):
             lp, st = inp2
-            return _mlstm_block(lp, xi, cfg, state=st, chunk=chunk)
+            return _mlstm_block(lp, xi, cfg, mesh, state=st, chunk=chunk)
 
         xc, new_m = _loop(cfg, m_body, xc, (g_m, st_m), per)
-        xc, new_s = _slstm_block(g_s, xc, cfg, state=st_s)
+        xc, new_s = _slstm_block(g_s, xc, cfg, mesh, state=st_s)
         return xc, (new_m, new_s)
 
     x, (new_m, new_s) = _loop(
@@ -317,14 +390,48 @@ def xlstm_apply_with_state(params, tokens, cache, cfg: ArchConfig,
     return x, {"mlstm": new_m, "slstm": new_s}
 
 
-def xlstm_prefill(params, tokens, cfg: ArchConfig):
+def xlstm_prefill(params, tokens, cfg: ArchConfig, mesh=None):
     cache = init_xlstm_cache(cfg, tokens.shape[0], 0, device=tokens.device)
-    x, new_cache = xlstm_apply_with_state(params, tokens, cache, cfg)
-    return lm_head(params, x[:, -1:], cfg)[:, 0], new_cache
+    x, new_cache = xlstm_apply_with_state(params, tokens, cache, cfg, mesh)
+    return lm_head(params, x[:, -1:], cfg, mesh)[:, 0], new_cache
 
 
-def xlstm_decode_step(params, token, cache, cache_len, cfg: ArchConfig):
+def xlstm_decode_step(params, token, cache, cache_len, cfg: ArchConfig,
+                      mesh=None):
     del cache_len                    # the recurrent state carries position
-    x, new_cache = xlstm_apply_with_state(params, token, cache, cfg,
+    x, new_cache = xlstm_apply_with_state(params, token, cache, cfg, mesh,
                                           chunk=1)
-    return lm_head(params, x, cfg)[:, 0], new_cache
+    return lm_head(params, x, cfg, mesh)[:, 0], new_cache
+
+
+def xlstm_param_pspecs(cfg: ArchConfig, mesh) -> dict:
+    dp = dp_axes_of(mesh) or None
+    lead2 = (None, None)
+    m_spec = {
+        "ln": P(*lead2, None),
+        "up_proj": P(*lead2, dp, "model"),
+        "wq": P(*lead2, None, None, None),
+        "wk": P(*lead2, None, None, None),
+        "wv": P(*lead2, None, None, None),
+        "w_gates": P(*lead2, "model", None),
+        "gate_bias": P(*lead2, None),
+        "out_norm": P(*lead2, "model"),
+        "down_proj": P(*lead2, "model", dp),
+    }
+    s_spec = {
+        "ln": P(None, None),
+        "w_in": P(None, dp, "model"),
+        "r": P(None, None, None, None),
+        "bias": P(None, "model"),
+        "out_norm": P(None, None),
+        "out_proj": P(None, dp, "model"),
+    }
+    return {
+        "embed": ({"hash_tables": P(None, None, "model")}
+                  if cfg.embedding == "bbit_hash"
+                  else {"table": P(None, "model")}),
+        "final_norm": P(None),
+        "lm_head": P(dp, "model"),
+        "mlstm": m_spec,
+        "slstm": s_spec,
+    }

@@ -74,7 +74,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _rope_angles(positions: torch.Tensor, dim: int,
                  theta: float) -> torch.Tensor:
-    """positions (..., S) → angles (..., S, dim/2) float32."""
+    """positions (..., S) → angles (..., S, dim/2) float32.  Rows that
+    a broadcast repeats (stride 0, as ``build_positions`` gives) are
+    computed once and broadcast again."""
+    while positions.dim() > 1 and positions.shape[0] > 1 and \
+            positions.stride(0) == 0:
+        positions = positions[:1]
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
     inv = 1.0 / theta ** exps

@@ -1,11 +1,25 @@
-"""Mixture-of-Experts layer: token-choice top-k (counterpart of
-``repro/models/moe.py``), its one-device path.
+"""Mixture-of-Experts layer: token-choice top-k with capacity (GShard)
+(counterpart of ``repro/models/moe.py``).
 
-Without a mesh the reference runs a dense fallback: every expert on
-every token, combined with the (T, E) gate matrix.  The port has that
-path only.  The reference's expert-parallel dispatch over a mesh
-(``_pack_by_expert``'s capacity packing, ``_weight_stationary_ffn`` and
-the ``shard_map`` branch of ``moe_ffn``) waits for ROADMAP A6c.
+Execution paths:
+
+  * ``mesh=None``: the dense fallback — every expert runs on every
+    token, combined with the (T, E) gate matrix (no capacity drops).
+  * ``mesh`` given: expert parallelism over 'model', on local shards
+    (``distributed/shardings.py::local_apply``, the reference's
+    ``shard_map``).  Activations enter replicated across 'model' (they
+    are only batch-sharded), so every model shard packs the full
+    (E·C, d) buffer (sort-based, ``_pack_by_expert``; tokens past an
+    expert's capacity are dropped), runs the expert slice it owns,
+    gathers its partial per-token outputs, and one all-reduce over
+    'model' at the input dtype combines them (a DTensor partial sum,
+    redistributed).  The expert weights are FSDP-sharded over the data
+    axes (the d dim) and all-gathered just in time (ZeRO-3).
+  * ``serving`` with ``moe_serving_dispatch="weight_stationary"`` on a
+    mesh with one data axis: experts 2D-sharded over (data, model),
+    fully resident; tokens travel to their experts' owners with two
+    all-to-alls over 'data' and the columns combine with one all-reduce
+    over 'model' (``_weight_stationary_ffn``).
 
 Expert storage is padded to a multiple of ``max(moe_pad_to, 16)`` (the
 model axis of the reference's production mesh); the router keeps exactly
@@ -17,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import shardings as sh
+
+P = sh.P
 
 EXPERT_PAD_TO = 16   # the model-axis size of the reference's mesh
 
@@ -46,6 +63,41 @@ def init_moe_params(cfg: ArchConfig, init, dtype, lead: tuple = ()) -> dict:
     return p
 
 
+def moe_param_pspecs(cfg: ArchConfig, dp_axes=("data",)) -> dict:
+    """Experts over 'model' (EP); the d dim over the data axes (FSDP).
+
+    The weight_stationary serving mode 2D-shards the expert dim over
+    (data…, model) instead — experts fully resident per device, tokens
+    travel."""
+    dshard = tuple(dp_axes) if dp_axes else None
+    if cfg.moe_serving_dispatch == "weight_stationary":
+        all_axes = tuple(dp_axes) + ("model",)
+        p = {
+            "router": P(None, None),
+            "w_gate": P(all_axes, None, None),
+            "w_up": P(all_axes, None, None),
+            "w_down": P(all_axes, None, None),
+        }
+        if cfg.n_shared_experts:
+            p["shared"] = {"w_gate": P(None, "model"),
+                           "w_up": P(None, "model"),
+                           "w_down": P("model", None)}
+        return p
+    p = {
+        "router": P(None, None),
+        "w_gate": P("model", dshard, None),
+        "w_up": P("model", dshard, None),
+        "w_down": P("model", None, dshard),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = {
+            "w_gate": P(None, "model"),
+            "w_up": P(None, "model"),
+            "w_down": P("model", None),
+        }
+    return p
+
+
 def _routing(x2d: torch.Tensor, router: torch.Tensor, top_k: int):
     """x2d (T, d) → gates (T, k) float32, expert ids (T, k) int64."""
     logits = x2d.to(torch.float32) @ router            # (T, E)
@@ -72,14 +124,186 @@ def _dense_fallback(x2d, params, cfg: ArchConfig):
                         dense_gates).to(x2d.dtype)
 
 
-def moe_ffn(x: torch.Tensor, params: dict, cfg: ArchConfig,
-            serving: bool = False) -> torch.Tensor:
-    """Top-k MoE FFN, x (B, S, d), with the shared experts added."""
-    del serving      # picks a mesh dispatch in the reference (A6c)
+def _pack_by_expert(x2d, gates, idx, n_slots: int, capacity: int):
+    """Sort-based capacity packing into an (n_slots·C, d) buffer.
+
+    Assignments (token t, choice j) are ranked within their expert in
+    the order t·k + j (a stable sort by expert); those at rank ≥ C are
+    dropped.  Returns (buf, slot (T, k) — n_slots·C where dropped —,
+    gates with the drops zeroed)."""
+    t, k = idx.shape
+    dev = x2d.device
+    flat_e = idx.reshape(-1).to(torch.int64)
+    sort_ix = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[sort_ix]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(n_slots, device=dev), right=False)
+    pos_in_e = torch.arange(t * k, device=dev) - seg_start[sorted_e]
+    keep = pos_in_e < capacity
+    dropped = n_slots * capacity
+    slot_sorted = torch.where(keep, sorted_e * capacity + pos_in_e,
+                              torch.full_like(pos_in_e, dropped))
+    slot_flat = torch.empty_like(slot_sorted)
+    slot_flat[sort_ix] = slot_sorted
+    slot = slot_flat.reshape(t, k)
+    token_of_sorted = sort_ix // k
+    buf = torch.zeros((dropped + 1, x2d.shape[1]), dtype=x2d.dtype,
+                      device=dev)
+    # T rows a scatter: the gathered rows never exist as one (T·k, d)
+    # buffer (XLA fuses the reference's gather into its scatter)
+    for lo in range(0, t * k, t):
+        buf[slot_sorted[lo:lo + t]] = x2d[token_of_sorted[lo:lo + t]]
+    gates = torch.where(slot == dropped, torch.zeros_like(gates), gates)
+    return buf[:-1], slot, gates
+
+
+def _expert_ffn(xe, w_gate, w_up, w_down):
+    """xe (E_l, C', d) through each expert's SwiGLU."""
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, w_gate)) * \
+        torch.einsum("ecd,edf->ecf", xe, w_up)
+    return torch.einsum("ecf,efd->ecd", h, w_down)
+
+
+def _capacity(cfg: ArchConfig, t_local: int) -> int:
+    return int(cfg.moe_capacity * cfg.moe_top_k * t_local
+               // cfg.moe_experts) + 1
+
+
+def _combine(per_assign, gates, dtype):
+    """Σ_k per_assign (T,k,d) · gates (T,k): operands at the input
+    dtype, a batched matmul that accumulates in float32 and rounds once
+    (the reference's ``preferred_element_type``); the (T,k,d) buffer
+    stays at the input dtype."""
+    return torch.bmm(per_assign.transpose(1, 2),
+                     gates.to(dtype)[..., None])[..., 0]
+
+
+def _weight_stationary_ffn(x, params, cfg: ArchConfig, mesh):
+    """Serving dispatch: experts 2D-sharded over (data, model), fully
+    resident; tokens all_to_all over 'data' within each model column;
+    one all-reduce over 'model' combines the columns."""
+    import torch.distributed._functional_collectives as funcol
     b, s, d = x.shape
-    out = _dense_fallback(x.reshape(-1, d), params, cfg).reshape(b, s, d)
+    dp_axes = sh.data_axes(mesh)
+    mdl = sh.axis_size(mesh, "model")
+    dpn = sh.dp_size(mesh)
+    n_dev = dpn * mdl
+    e_store = padded_experts(cfg)
+    if e_store % n_dev:
+        raise ValueError(f"weight_stationary needs the {e_store} stored "
+                         f"experts to divide over {n_dev} devices")
+    e_per_dev = e_store // n_dev
+    all_axes = dp_axes + ("model",)
+    dgroup = sh.group_of(mesh, dp_axes[0])
+
+    def a2a(t):
+        flat = t.reshape(t.shape[0], -1).contiguous()
+        out = funcol.all_to_all_single(flat, None, None, dgroup)
+        return funcol.wait_tensor(out).reshape(t.shape)
+
+    def ws(x_l, router, w_gate, w_up, w_down):
+        bl, sl, _ = x_l.shape
+        t_l = bl * sl
+        m_idx = sh.axis_index(mesh, "model")
+        x2d = x_l.reshape(t_l, d)
+        gates, idx = _routing(x2d, router, cfg.moe_top_k)
+        cap = _capacity(cfg, t_l)
+        buf, slot, gates = _pack_by_expert(x2d, gates, idx, e_store, cap)
+        buf = buf.reshape(e_store, cap, d)
+        # experts of model column m: e = (q·mdl + m)·e_per_dev + r
+        dev = x_l.device
+        col_experts = ((torch.arange(dpn, device=dev)[:, None] * mdl
+                        + m_idx) * e_per_dev
+                       + torch.arange(e_per_dev, device=dev)[None, :]
+                       ).reshape(-1)
+        sub = buf[col_experts].reshape(dpn, e_per_dev, cap, d)
+        sub = a2a(sub)                       # tokens → owners
+        xe = sub.transpose(0, 1).reshape(e_per_dev, dpn * cap, d)
+        ye = _expert_ffn(xe, w_gate, w_up, w_down)
+        ye = ye.reshape(e_per_dev, dpn, cap, d).transpose(0, 1)
+        ye = a2a(ye)                         # results → sources
+        ye = ye.reshape(dpn * e_per_dev, cap, d)
+        ye_col = torch.zeros((e_store * cap + 1, d), dtype=x_l.dtype,
+                             device=dev)
+        rowsel = (col_experts[:, None] * cap
+                  + torch.arange(cap, device=dev)[None, :]).reshape(-1)
+        ye_col[rowsel] = ye.reshape(-1, d).to(x_l.dtype)
+        per_assign = ye_col[slot.reshape(-1)].reshape(
+            t_l, cfg.moe_top_k, d)
+        return _combine(per_assign, gates, x_l.dtype).reshape(bl, sl, d)
+
+    w = P(all_axes, None, None)
+    y = sh.local_apply(ws, mesh, (P(dp_axes, None, None), P(None, None),
+                                  w, w, w),
+                       P(dp_axes, None, None), x, params["router"],
+                       params["w_gate"], params["w_up"], params["w_down"],
+                       out_partial=("model",))
+    return sh.constrain(y, mesh, dp_axes, None, None)
+
+
+def _expert_parallel_ffn(x, params, cfg: ArchConfig, mesh):
+    """The 'model'-axis expert-parallel dispatch (module docstring)."""
+    b, s, d = x.shape
+    dp_axes = sh.data_axes(mesh)
+    ep = sh.axis_size(mesh, "model")
+    e_store = padded_experts(cfg)
+    if e_store % ep:
+        raise ValueError(f"expert parallelism needs the {e_store} stored "
+                         f"experts to divide over model={ep}")
+    e_local = e_store // ep
+    bspec = dp_axes if dp_axes and b % sh.dp_size(mesh) == 0 else None
+
+    def ep_body(x_l, router, w_gate, w_up, w_down):
+        bl, sl, _ = x_l.shape
+        t_l = bl * sl
+        m_idx = sh.axis_index(mesh, "model")
+        x2d = x_l.reshape(t_l, d)
+        gates, idx = _routing(x2d, router, cfg.moe_top_k)
+        cap = _capacity(cfg, t_l)
+        buf, slot, gates = _pack_by_expert(x2d, gates, idx, e_store, cap)
+        lo = m_idx * (e_local * cap)
+        xe = buf[lo:lo + e_local * cap].reshape(e_local, cap, d)
+        ye = _expert_ffn(xe, w_gate, w_up, w_down)
+        ye_flat = ye.reshape(e_local * cap, d).to(x_l.dtype)
+        local_slot = slot - lo
+        in_range = (local_slot >= 0) & (local_slot < e_local * cap)
+        safe = torch.where(in_range, local_slot,
+                           torch.zeros_like(local_slot))
+        per_assign = ye_flat[safe.reshape(-1)].reshape(
+            t_l, cfg.moe_top_k, d)
+        # another shard's slots: a zero gate (the expert outputs are
+        # finite), not a masked (T, k, d) copy
+        gates = torch.where(in_range, gates, torch.zeros_like(gates))
+        return _combine(per_assign, gates, x_l.dtype).reshape(bl, sl, d)
+
+    # the expert weights arrive with their d dim whole: their FSDP
+    # shards are all-gathered here, just in time
+    w = P("model", None, None)
+    y = sh.local_apply(ep_body, mesh, (P(bspec, None, None), P(None, None),
+                                       w, w, w),
+                       P(bspec, None, None), x, params["router"],
+                       params["w_gate"], params["w_up"], params["w_down"],
+                       out_partial=("model",),
+                       grad_partial=("model",) + (dp_axes if bspec else ()))
+    # the partial sums over 'model' meet in one all-reduce at x's dtype
+    return sh.constrain(y, mesh, bspec, None, None)
+
+
+def moe_ffn(x: torch.Tensor, params: dict, cfg: ArchConfig, mesh=None,
+            serving: bool = False) -> torch.Tensor:
+    """Top-k MoE FFN, x (B, S, d), with the shared experts added; expert
+    parallelism over 'model' when a mesh is given."""
+    b, s, d = x.shape
+    if mesh is None or "model" not in sh.axis_names(mesh):
+        out = _dense_fallback(x.reshape(-1, d), params, cfg).reshape(
+            b, s, d)
+    elif (serving and cfg.moe_serving_dispatch == "weight_stationary"
+          and len(sh.data_axes(mesh)) == 1):
+        out = _weight_stationary_ffn(x, params, cfg, mesh)
+    else:
+        out = _expert_parallel_ffn(x, params, cfg, mesh)
     if cfg.n_shared_experts:
-        sh = params["shared"]
-        h = F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])
-        out = out + (h @ sh["w_down"]).to(out.dtype)
+        sh_p = params["shared"]
+        h = F.silu(x @ sh_p["w_gate"]) * (x @ sh_p["w_up"])
+        out = out + (h @ sh_p["w_down"]).to(out.dtype)
     return out

@@ -12,9 +12,27 @@ are stacked on a leading (n_layers, ...) axis, as ``jax.vmap`` init
 stacks them, and ``_scan_layers`` runs them one slice at a time (the
 ``scan_layers`` setting only changes how the reference loops them).
 
-One device.  The reference's mesh paths (``maybe_shard``, the pspecs,
-``_pad_heads_for_tp``) wait for ROADMAP A6c: these functions take no
-``mesh``, and ``models/api.py`` refuses one.
+On a mesh (a ``DeviceMesh`` with the reference's axis names, see
+``distributed/shardings.py``) the params, caches and batches are
+DTensors laid out by ``decoder_param_pspecs`` / the cache and batch
+specs: TP over 'model', FSDP over the data axes.  The dense parts
+(projections, norms, MLP, head) run as DTensor ops: each weight's data
+shards are gathered just before its matmul (``gather_fsdp``, ZeRO-3)
+and ``maybe_shard`` redistributes activations where the reference
+constrains them (pjit's auto-sharding becomes DTensor's propagation).
+Attention runs on local shards (``_attention``): batch over the data
+axes and heads over
+'model' when they divide (KV heads a rank needs are picked from the
+replicated K/V when only the query heads divide), otherwise the heads
+stay whole on every model rank.  A decode cache whose heads do not
+divide 'model' is sharded over its sequence instead, as in the
+reference; each rank then attends over its slice and the partial
+softmax stats merge exactly (``merge_partial_attention``).  MoE layers
+dispatch with expert parallelism (``models/moe.py``).  Callers, and a
+backward pass through a mesh loss, run under
+``shardings.implicit_replication`` (the API functions and the step
+builders do), so plain tensors the model builds (positions, masks) count
+as replicated.
 
 Matmuls are ``torch.matmul`` (the reference leaves them to XLA) and the
 port sets no backend flag: on the card a bfloat16 GEMM may reduce in
@@ -31,14 +49,35 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import shardings as sh
+from repro_torch.distributed.sequence_parallel import merge_partial_attention
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (ParamInit, apply_rope,
+from repro_torch.models.layers import (ParamInit, _attend_block,
+                                       _init_block, apply_rope,
                                        blockwise_attention,
                                        hashed_embed_lookup,
                                        hashed_embed_params, rmsnorm)
 from repro_torch.tree import leaves, tree_map, tree_stack
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+P = sh.P
+
+
+# ---------------------------------------------------------------------------
+# sharding helpers
+# ---------------------------------------------------------------------------
+def dp_axes_of(mesh) -> tuple:
+    if mesh is None:
+        return ()
+    return sh.data_axes(mesh)
+
+
+def maybe_shard(x: torch.Tensor, mesh, *spec) -> torch.Tensor:
+    """with_sharding_constraint, skipping non-divisible dims: a DTensor
+    redistributed to ``spec`` (a plain tensor taken as replicated)."""
+    if mesh is None:
+        return x
+    return sh.constrain(x, mesh, *sh.divisible_spec(x.shape, mesh, spec))
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -61,6 +100,13 @@ def checkpointed(fn: Callable, policy: str = "full") -> Callable:
     autograd records: 'full' keeps only its inputs for backward, 'dots'
     keeps the matmul outputs too (the reference's
     ``dots_with_no_batch_dims_saveable``)."""
+    def on_mesh(*args):
+        # the recomputation runs inside backward, outside the caller's
+        # implicit replication (models/api.py), so DTensor bodies enter
+        # it themselves
+        with sh.implicit_replication():
+            return fn(*args)
+
     def wrapped(*args):
         if not (torch.is_grad_enabled() and any(
                 isinstance(t, torch.Tensor) and t.requires_grad
@@ -71,7 +117,9 @@ def checkpointed(fn: Callable, policy: str = "full") -> Callable:
             kw["context_fn"] = lambda: (
                 torch_checkpoint.create_selective_checkpoint_contexts(
                     _save_matmuls))
-        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+        body = on_mesh if any(sh.is_dtensor(t) for t in leaves(args)) \
+            else fn
+        return torch_checkpoint.checkpoint(body, *args, use_reentrant=False,
                                            **kw)
     return wrapped
 
@@ -121,16 +169,215 @@ def init_attn_params(cfg: ArchConfig, init: ParamInit, dtype,
     return p
 
 
-def _project_qkv(lp, h, cfg: ArchConfig, prefix=""):
+def _split_heads(y, n_heads: int, hd: int, mesh):
+    """(B, S, n_heads·hd) → (B, S, n_heads, hd).  On a mesh whose
+    'model' axis does not divide the heads, the features are gathered
+    over 'model' first: a shard boundary would fall inside a head."""
+    b, s, _ = y.shape
+    if mesh is not None and n_heads % sh.mp_size(mesh):
+        y = maybe_shard(y, mesh, dp_axes_of(mesh), None, None)
+    return y.reshape(b, s, n_heads, hd)
+
+
+def _merge_heads(out, mesh):
+    """(B, S, H, hd) → (B, S, H·hd).  On a mesh whose 'model' axis does
+    not divide the heads the merged features are pinned whole over
+    'model', so that the gradient coming back from the next matmul is
+    gathered before it is split into heads again."""
+    b, s, h, hd = out.shape
+    y = out.reshape(b, s, h * hd)
+    if mesh is not None and h % sh.mp_size(mesh):
+        y = maybe_shard(y, mesh, dp_axes_of(mesh), None, None)
+    return y
+
+
+def _project_qkv(lp, h, cfg: ArchConfig, mesh=None, prefix=""):
     b, s, _ = h.shape
     hd = cfg.head_dim
-    wq = lp[prefix + ("q" if prefix else "wq")]
-    wk = lp[prefix + ("k" if prefix else "wk")]
-    wv = lp[prefix + ("v" if prefix else "wv")]
-    q = (h @ wq).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ wv).reshape(b, s, cfg.n_kv_heads, hd)
+    wq = sh.gather_fsdp(lp[prefix + ("q" if prefix else "wq")], mesh)
+    wk = sh.gather_fsdp(lp[prefix + ("k" if prefix else "wk")], mesh)
+    wv = sh.gather_fsdp(lp[prefix + ("v" if prefix else "wv")], mesh)
+    q = _split_heads(h @ wq, cfg.n_heads, hd, mesh)
+    k = _split_heads(h @ wk, cfg.n_kv_heads, hd, mesh)
+    v = _split_heads(h @ wv, cfg.n_kv_heads, hd, mesh)
+    dp = dp_axes_of(mesh)
+    q = maybe_shard(q, mesh, dp, None, "model", None)
+    k = maybe_shard(k, mesh, dp, None, "model", None)
+    v = maybe_shard(v, mesh, dp, None, "model", None)
     return q, k, v
+
+
+def _pad_heads_for_tp(q, k, v, cfg: ArchConfig, mesh):
+    """Group-aware head padding so attention shards over 'model'.
+
+    When n_heads doesn't divide the model axis, each kv head is
+    replicated r = model/kv times and each q-group padded from g to
+    ceil(g/r) per kv-replica (zero rows, sliced off after).  Returns
+    (q', k', v', (g, g_new, r) or None)."""
+    mdl = sh.mp_size(mesh)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h % mdl == 0 or mdl % kv != 0:
+        return q, k, v, None
+    r = mdl // kv
+    g = h // kv
+    g_new = -(-g // r)
+    dp = dp_axes_of(mesh)
+    b = q.shape[0]
+    bspec = sh.divisible_spec((b,), mesh, (dp,))[0]
+    spec = P(bspec, None, None, None)
+
+    def pad(q, k, v):
+        bl, s, _, hd = q.shape
+        qg = q.reshape(bl, s, kv, g, hd)
+        qg = F.pad(qg, (0, 0, 0, r * g_new - g))
+        return (qg.reshape(bl, s, kv * r * g_new, hd),
+                torch.repeat_interleave(k, r, dim=2),
+                torch.repeat_interleave(v, r, dim=2))
+
+    q, k, v = sh.local_apply(pad, mesh, (spec, spec, spec),
+                             (spec, spec, spec), q, k, v)
+    q = maybe_shard(q, mesh, dp, None, "model", None)
+    k = maybe_shard(k, mesh, dp, None, "model", None)
+    v = maybe_shard(v, mesh, dp, None, "model", None)
+    return q, k, v, (g, g_new, r)
+
+
+def _unpad_heads(out, pad_info, cfg: ArchConfig, mesh=None):
+    if pad_info is None:
+        return out
+    g, g_new, r = pad_info
+    kv, h = cfg.n_kv_heads, cfg.n_heads
+
+    def unpad(o):
+        b, s, _, hd = o.shape
+        og = o.reshape(b, s, kv, r * g_new, hd)[:, :, :, :g]
+        return og.reshape(b, s, h, hd)
+
+    if mesh is None:
+        return unpad(out)
+    bspec = sh.divisible_spec((out.shape[0],), mesh, (dp_axes_of(mesh),))[0]
+    spec = P(bspec, None, None, None)
+    return sh.local_apply(unpad, mesh, (spec,), spec, out)
+
+
+def _head_layout(mesh, b: int, h: int, kv: int):
+    """(batch entry, q heads over 'model'?, kv heads over 'model'?) for
+    attention on local shards."""
+    bspec = sh.divisible_spec((b,), mesh, (dp_axes_of(mesh),))[0]
+    mdl = sh.mp_size(mesh)
+    q_split = h % mdl == 0
+    return bspec, q_split, q_split and kv % mdl == 0
+
+
+def _local_kv_heads(k, h: int, kv: int, mdl: int, m: int):
+    """The K/V heads that this model rank's h/mdl query heads read, from
+    all ``kv`` heads: an exact GQA regrouping (each query head gets its
+    own copy of its group's KV head)."""
+    hl = h // mdl
+    idx = (m * hl + torch.arange(hl, device=k.device)) // (h // kv)
+    return k[:, :, idx]
+
+
+def _attention(q, k, v, cfg: ArchConfig, mesh, *, causal: bool):
+    """Blockwise attention, on local shards over a mesh (see the module
+    docstring)."""
+    kw = dict(causal=causal, q_chunk=cfg.attn_q_chunk,
+              kv_chunk=cfg.attn_kv_chunk, impl=cfg.attn_impl)
+    if mesh is None:
+        return blockwise_attention(q, k, v, **kw)
+    b, _, h, _ = q.shape
+    kv = k.shape[2]
+    bspec, q_split, kv_split = _head_layout(mesh, b, h, kv)
+    hspec = "model" if q_split else None
+    qs = P(bspec, None, hspec, None)
+    ks = P(bspec, None, "model" if kv_split else None, None)
+    mdl = sh.mp_size(mesh)
+
+    def local(q, k, v):
+        if q_split and not kv_split:
+            m = sh.axis_index(mesh, "model")
+            k = _local_kv_heads(k, h, kv, mdl, m)
+            v = _local_kv_heads(v, h, kv, mdl, m)
+        return blockwise_attention(q, k, v, **kw)
+
+    return sh.local_apply(local, mesh, (qs, ks, ks), qs, q, k, v,
+                          grad_partial=("model",) if q_split and not
+                          kv_split else ())
+
+
+def _partial_attention(q, k, v, valid, kv_offset: int, kv_chunk: int):
+    """Online-softmax stats of q (B,1,H,D) over the keys k/v (B,S_l,KV,D)
+    whose global positions start at ``kv_offset``, keys at or past
+    ``valid`` masked → (max (B,H,1), denom (B,H,1), num (B,1,H,D))."""
+    b, sq, h, d = q.shape
+    s_l = k.shape[1]
+    m, l, acc = _init_block(b, h, sq, d, q.device)
+    q_pos = torch.zeros(sq, dtype=torch.int64, device=q.device)
+    for lo in range(0, s_l, kv_chunk):
+        hi = min(lo + kv_chunk, s_l)
+        kv_pos = kv_offset + lo + torch.arange(hi - lo, device=q.device)
+        m, l, acc = _attend_block(q, k[:, lo:hi], v[:, lo:hi], m, l, acc,
+                                  q_pos, kv_pos, False, valid)
+    return m, l, acc
+
+
+def _mesh_decode_attention(q, k, v, cache, cache_len, cfg: ArchConfig,
+                           mesh):
+    """The decode step's cache write and attention on a mesh, on local
+    shards: the new K/V (repeated to ``kv_repeat_to`` heads if asked)
+    are written into the rank's slice of the cache in place.  A cache
+    sharded over its heads attends locally; one sharded over its
+    sequence (heads that do not divide 'model') attends over its slice
+    and merges the partial stats over 'model'."""
+    b, s, h, hd = q.shape
+    ck, cv = cache["k"], cache["v"]
+    max_len, kv_eff = ck.shape[1], ck.shape[2]
+    mdl = sh.mp_size(mesh)
+    bspec = sh.divisible_spec((b,), mesh, (dp_axes_of(mesh),))[0]
+    heads = kv_eff % mdl == 0
+    seq_split = not heads and max_len % mdl == 0 and mdl > 1
+    cspec = P(bspec, None, "model" if heads else None, None) if not \
+        seq_split else P(bspec, "model", None, None)
+    rep = P(bspec, None, None, None)
+    at = cache_write_start(cache_len, max_len, s)
+    valid = cache_len + s
+    r = kv_eff // k.shape[2]
+
+    def local(q, k, v, ck, cv):
+        if r > 1:
+            k = torch.repeat_interleave(k, r, dim=2)
+            v = torch.repeat_interleave(v, r, dim=2)
+        m = sh.axis_index(mesh, "model") if "model" in \
+            sh.axis_names(mesh) else 0
+        if heads:
+            kl, hl = kv_eff // mdl, h // mdl
+            k, v = k[:, :, m * kl:(m + 1) * kl], v[:, :, m * kl:(m + 1) * kl]
+            q = q[:, :, m * hl:(m + 1) * hl]
+            ck[:, at:at + s] = k.to(ck.dtype)
+            cv[:, at:at + s] = v.to(cv.dtype)
+            return blockwise_attention(
+                q, ck, cv, causal=False, kv_valid_len=valid,
+                q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+                impl=cfg.attn_impl)
+        s_l = ck.shape[1]
+        lo = m * s_l if seq_split else 0
+        for j in range(s):         # the positions this rank holds
+            pos = at + j
+            if lo <= pos < lo + s_l:
+                ck[:, pos - lo] = k[:, j].to(ck.dtype)
+                cv[:, pos - lo] = v[:, j].to(cv.dtype)
+        mx, den, num = _partial_attention(q, ck, cv, valid, lo,
+                                          cfg.attn_kv_chunk)
+        if seq_split:
+            out = merge_partial_attention(
+                mx, den, num.transpose(1, 2), sh.group_of(mesh, "model"))
+        else:
+            out = num.transpose(1, 2) / torch.clamp_min(den, 1e-20)[..., None]
+        return out.transpose(1, 2).to(q.dtype)
+
+    out_spec = P(bspec, None, "model" if heads else None, None)
+    return sh.local_apply(local, mesh, (rep, rep, rep, cspec, cspec),
+                          out_spec, q, k, v, ck, cv)
 
 
 def cache_write_start(cache_len, max_len: int, s: int) -> int:
@@ -146,7 +393,7 @@ def cache_write_start(cache_len, max_len: int, s: int) -> int:
 
 
 def attn_apply(lp: dict, x: torch.Tensor, *, cfg: ArchConfig,
-               positions: torch.Tensor, mode: str = "train",
+               mesh=None, positions: torch.Tensor, mode: str = "train",
                cache: Optional[dict] = None, cache_len=None,
                causal: bool = True):
     """Self-attention block → (x', new_cache_or_None).  ``mode`` train |
@@ -154,74 +401,96 @@ def attn_apply(lp: dict, x: torch.Tensor, *, cfg: ArchConfig,
     (k, v (B, Smax, KV, hd)) in place, and that cache is returned."""
     b, s, _ = x.shape
     h_in = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(lp, h_in, cfg)
+    q, k, v = _project_qkv(lp, h_in, cfg, mesh)
     q, k = apply_rope(q, k, positions, variant=cfg.rope_variant,
                       theta=cfg.rope_theta,
                       mrope_sections=cfg.mrope_sections)
-    if mode != "train" and cfg.kv_repeat_to > cfg.n_kv_heads:
-        # the exact GQA transform: each KV head r times
-        r = cfg.kv_repeat_to // cfg.n_kv_heads
-        k = torch.repeat_interleave(k, r, dim=2)
-        v = torch.repeat_interleave(v, r, dim=2)
+    pad_info = None
+    if cfg.attn_pad_heads and mesh is not None and mode == "train":
+        q, k, v, pad_info = _pad_heads_for_tp(q, k, v, cfg, mesh)
     new_cache = None
-    if mode == "decode":
-        ck, cv = cache["k"], cache["v"]
-        at = cache_write_start(cache_len, ck.shape[1], s)
-        ck[:, at:at + s] = k.to(ck.dtype)
-        cv[:, at:at + s] = v.to(cv.dtype)
-        out = blockwise_attention(
-            q, ck, cv, causal=False, kv_valid_len=cache_len + s,
-            q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-            impl=cfg.attn_impl)
+    if mode == "decode" and mesh is not None:
+        # the repeat to kv_repeat_to heads happens on the local shards
+        out = _mesh_decode_attention(q, k, v, cache, cache_len, cfg, mesh)
         new_cache = cache
     else:
-        out = blockwise_attention(
-            q, k, v, causal=causal, q_chunk=cfg.attn_q_chunk,
-            kv_chunk=cfg.attn_kv_chunk, impl=cfg.attn_impl)
-        if mode == "prefill":
-            new_cache = {"k": k, "v": v}
-    y = out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+        if mode != "train" and cfg.kv_repeat_to > cfg.n_kv_heads:
+            # the exact GQA transform: each KV head r times
+            r = cfg.kv_repeat_to // cfg.n_kv_heads
+            if mesh is None:
+                k = torch.repeat_interleave(k, r, dim=2)
+                v = torch.repeat_interleave(v, r, dim=2)
+            else:
+                bspec = sh.divisible_spec((b,), mesh, (dp_axes_of(mesh),))[0]
+                rs = P(bspec, None, None, None)
+                k, v = sh.local_apply(
+                    lambda k, v: (torch.repeat_interleave(k, r, dim=2),
+                                  torch.repeat_interleave(v, r, dim=2)),
+                    mesh, (rs, rs), (rs, rs), k, v)
+                dp = dp_axes_of(mesh)
+                k = maybe_shard(k, mesh, dp, None, "model", None)
+                v = maybe_shard(v, mesh, dp, None, "model", None)
+        if mode == "decode":
+            ck, cv = cache["k"], cache["v"]
+            at = cache_write_start(cache_len, ck.shape[1], s)
+            ck[:, at:at + s] = k.to(ck.dtype)
+            cv[:, at:at + s] = v.to(cv.dtype)
+            out = blockwise_attention(
+                q, ck, cv, causal=False, kv_valid_len=cache_len + s,
+                q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
+                impl=cfg.attn_impl)
+            new_cache = cache
+        else:
+            out = _attention(q, k, v, cfg, mesh, causal=causal)
+            if mode == "prefill":
+                new_cache = {"k": k, "v": v}
+    out = _unpad_heads(out, pad_info, cfg, mesh)
+    y = _merge_heads(out, mesh) @ sh.gather_fsdp(lp["wo"], mesh)
+    y = maybe_shard(y, mesh, dp_axes_of(mesh), None, None)
     return x + y, new_cache
 
 
-def cross_attn_apply(lp, x, enc_kv, cfg: ArchConfig):
+def cross_attn_apply(lp, x, enc_kv, cfg: ArchConfig, mesh=None):
     """Cross-attention with precomputed encoder K/V {k, v}."""
     b, s, _ = x.shape
     h_in = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
     hd = cfg.head_dim
-    q = (h_in @ lp["xq"]).reshape(b, s, cfg.n_heads, hd)
-    out = blockwise_attention(
-        q, enc_kv["k"], enc_kv["v"], causal=False,
-        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
-        impl=cfg.attn_impl)
-    return x + out.reshape(b, s, cfg.n_heads * hd) @ lp["xo"]
+    q = _split_heads(h_in @ sh.gather_fsdp(lp["xq"], mesh), cfg.n_heads,
+                     hd, mesh)
+    out = _attention(q, enc_kv["k"], enc_kv["v"], cfg, mesh, causal=False)
+    return x + _merge_heads(out, mesh) @ sh.gather_fsdp(lp["xo"], mesh)
 
 
-def encode_cross_kv(lp, enc_out, cfg: ArchConfig):
+def encode_cross_kv(lp, enc_out, cfg: ArchConfig, mesh=None):
     b, f, _ = enc_out.shape
     hd = cfg.head_dim
-    k = (enc_out @ lp["xk"]).reshape(b, f, cfg.n_kv_heads, hd)
-    v = (enc_out @ lp["xv"]).reshape(b, f, cfg.n_kv_heads, hd)
+    k = _split_heads(enc_out @ sh.gather_fsdp(lp["xk"], mesh),
+                     cfg.n_kv_heads, hd, mesh)
+    v = _split_heads(enc_out @ sh.gather_fsdp(lp["xv"], mesh),
+                     cfg.n_kv_heads, hd, mesh)
     return {"k": k, "v": v}
 
 
-def ffn_apply(lp, x, cfg: ArchConfig, serving: bool = False):
+def ffn_apply(lp, x, cfg: ArchConfig, mesh=None, serving: bool = False):
     h_in = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        y = moe_lib.moe_ffn(h_in, lp["moe"], cfg, serving=serving)
+        y = moe_lib.moe_ffn(h_in, lp["moe"], cfg, mesh, serving=serving)
     else:
         m = lp["mlp"]
-        hidden = F.silu(h_in @ m["w_gate"]) * (h_in @ m["w_up"])
-        y = hidden @ m["w_down"]
+        hidden = F.silu(h_in @ sh.gather_fsdp(m["w_gate"], mesh)) * \
+            (h_in @ sh.gather_fsdp(m["w_up"], mesh))
+        hidden = maybe_shard(hidden, mesh, dp_axes_of(mesh), None, "model")
+        y = hidden @ sh.gather_fsdp(m["w_down"], mesh)
+    y = maybe_shard(y, mesh, dp_axes_of(mesh), None, None)
     return x + y
 
 
-def dense_layer_apply(lp, x, *, cfg, positions, mode="train", cache=None,
-                      cache_len=None, causal=True):
-    x, new_cache = attn_apply(lp, x, cfg=cfg, positions=positions,
-                              mode=mode, cache=cache, cache_len=cache_len,
-                              causal=causal)
-    x = ffn_apply(lp, x, cfg, serving=(mode != "train"))
+def dense_layer_apply(lp, x, *, cfg, mesh=None, positions, mode="train",
+                      cache=None, cache_len=None, causal=True):
+    x, new_cache = attn_apply(lp, x, cfg=cfg, mesh=mesh,
+                              positions=positions, mode=mode, cache=cache,
+                              cache_len=cache_len, causal=causal)
+    x = ffn_apply(lp, x, cfg, mesh, serving=(mode != "train"))
     return x, new_cache
 
 
@@ -242,26 +511,103 @@ def init_embed_params(cfg: ArchConfig, init: ParamInit, dtype) -> dict:
     }
 
 
-def embed_tokens(params, tokens, cfg: ArchConfig):
+def embed_tokens(params, tokens, cfg: ArchConfig, mesh=None):
+    if mesh is not None:
+        # the reference replicates the (tiny) token ids for the gather;
+        # the output constraint re-shards the embeddings right after
+        tokens = maybe_shard(tokens, mesh, *([None] * tokens.dim()))
     if cfg.embedding == "bbit_hash":
-        return hashed_embed_lookup(params["embed"], tokens, cfg.hash_k,
-                                   cfg.hash_b)
-    return params["embed"]["table"][tokens]
+        if mesh is None:
+            return hashed_embed_lookup(params["embed"], tokens, cfg.hash_k,
+                                       cfg.hash_b)
+        tables = params["embed"]["hash_tables"]
+        ts = P(None, None, *sh.divisible_spec(tables.shape[2:], mesh,
+                                           ("model",)))
+        tok = P(*([None] * tokens.dim()))
+        x = sh.local_apply(
+            lambda t, tab: hashed_embed_lookup({"hash_tables": tab}, t,
+                                               cfg.hash_k, cfg.hash_b),
+            mesh, (tok, ts), P(None, None, ts[2]), tokens, tables)
+    else:
+        x = params["embed"]["table"][tokens]
+    return maybe_shard(x, mesh, dp_axes_of(mesh), None, None)
 
 
-def lm_head(params, x, cfg: ArchConfig):
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+def lm_head(params, x, cfg: ArchConfig, mesh=None):
+    logits = rmsnorm(x, params["final_norm"], cfg.norm_eps) @ \
+        sh.gather_fsdp(params["lm_head"], mesh)
+    return maybe_shard(logits, mesh, dp_axes_of(mesh), None, "model")
 
 
 def xent_loss(logits, targets):
     """Mean cross-entropy; logits (B,S,V) any dtype, targets (B,S).  The
     reference takes the gold logit by a one-hot contraction (to keep a
     vocab-sharded gather off its mesh); for finite logits a gather gives
-    the same float32 value."""
+    the same float32 value.  On a mesh (DTensor logits) the vocab stays
+    sharded: ``_mesh_xent``."""
+    if sh.is_dtensor(logits):
+        return _mesh_xent(logits, targets)
     lf = logits.to(torch.float32)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets.to(torch.int64)[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-token cross-entropy of float32 logits whose vocab dim is split
+    over a process group (``lo`` this rank's first id): the max, the
+    sum of exps and the gold logit each reduce over the group in the
+    forward; the backward is local (softmax − one-hot on the rank's
+    slice)."""
+
+    @staticmethod
+    def forward(ctx, lf, tg, group, lo):
+        import torch.distributed._functional_collectives as funcol
+
+        def reduce(x, op):
+            return x if group is None else funcol.wait_tensor(
+                funcol.all_reduce(x, op, group))
+
+        v_l = lf.shape[-1]
+        rel = tg.to(torch.int64) - lo
+        ok = (rel >= 0) & (rel < v_l)
+        safe = torch.where(ok, rel, torch.zeros_like(rel))
+        mx = reduce(torch.amax(lf, dim=-1), "max")
+        ex = torch.exp(lf - mx[..., None])
+        se = reduce(torch.sum(ex, dim=-1), "sum")
+        g = torch.gather(lf, -1, safe[..., None])[..., 0]
+        gold = reduce(torch.where(ok, g, torch.zeros_like(g)), "sum")
+        ctx.save_for_backward(ex, se, safe, ok)
+        return torch.log(se) + mx - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        ex, se, safe, ok = ctx.saved_tensors
+        d = ex / se[..., None]
+        d = d.scatter_add(-1, safe[..., None],
+                          -ok.to(d.dtype)[..., None])
+        return d * grad[..., None], None, None, None
+
+
+def _mesh_xent(logits, targets):
+    """Vocab-parallel cross-entropy: no rank holds the whole (B,S,V);
+    the per-token losses come back replicated over 'model' and their
+    mean reduces over the data axes."""
+    mesh = logits.device_mesh
+    dp = dp_axes_of(mesh)
+    bspec, _, vspec = sh.divisible_spec(logits.shape, mesh,
+                                        (dp, None, "model"))
+    split = vspec is not None and "model" in sh.axis_names(mesh)
+
+    def local(lf, tg):
+        lo = sh.axis_index(mesh, "model") * lf.shape[-1] if split else 0
+        group = sh.group_of(mesh, "model") if split else None
+        return _VocabParallelXent.apply(lf, tg, group, lo)
+
+    per = sh.local_apply(local, mesh,
+                         (P(bspec, None, vspec), P(bspec, None)),
+                         P(bspec, None), logits.to(torch.float32), targets)
+    return torch.mean(per)
 
 
 # ---------------------------------------------------------------------------
@@ -313,62 +659,63 @@ def _scan_layers(params, x, body, cfg: ArchConfig, ys_in=None):
     return x, tree_stack(ys, torch.stack)
 
 
-def _embed_with_vision(params, tokens, cfg, vision_embeds):
-    x = embed_tokens(params, tokens, cfg)
+def _embed_with_vision(params, tokens, cfg, vision_embeds, mesh=None):
+    x = embed_tokens(params, tokens, cfg, mesh)
     if vision_embeds is not None and cfg.frontend == "vision_stub":
         n_vis = vision_embeds.shape[1]
         x = torch.cat([vision_embeds.to(x.dtype), x[:, n_vis:]], dim=1)
     return x
 
 
-def forward_train(params, tokens, cfg: ArchConfig,
+def forward_train(params, tokens, cfg: ArchConfig, mesh=None,
                   vision_embeds: Optional[torch.Tensor] = None):
     """tokens (B,S) → logits (B,S,V)."""
     b, s = tokens.shape
-    x = _embed_with_vision(params, tokens, cfg, vision_embeds)
+    x = _embed_with_vision(params, tokens, cfg, vision_embeds, mesh)
     positions = build_positions(cfg, b, s, device=tokens.device)
 
     def body(xc, lp):
-        xc, _ = dense_layer_apply(lp, xc, cfg=cfg, positions=positions,
-                                  mode="train")
+        xc, _ = dense_layer_apply(lp, xc, cfg=cfg, mesh=mesh,
+                                  positions=positions, mode="train")
         return xc, None
 
     x, _ = _scan_layers(params, x, body, cfg)
-    return lm_head(params, x, cfg)
+    return lm_head(params, x, cfg, mesh)
 
 
-def prefill(params, tokens, cfg: ArchConfig,
+def prefill(params, tokens, cfg: ArchConfig, mesh=None,
             vision_embeds: Optional[torch.Tensor] = None):
     """→ (last-position logits (B,V), cache {k, v} (L,B,S,KV,hd))."""
     b, s = tokens.shape
-    x = _embed_with_vision(params, tokens, cfg, vision_embeds)
+    x = _embed_with_vision(params, tokens, cfg, vision_embeds, mesh)
     positions = build_positions(cfg, b, s, device=tokens.device)
 
     def body(xc, lp):
-        return dense_layer_apply(lp, xc, cfg=cfg, positions=positions,
-                                 mode="prefill")
+        return dense_layer_apply(lp, xc, cfg=cfg, mesh=mesh,
+                                 positions=positions, mode="prefill")
 
     x, cache = _scan_layers(params, x, body, cfg)
-    return lm_head(params, x[:, -1:], cfg)[:, 0], cache
+    return lm_head(params, x[:, -1:], cfg, mesh)[:, 0], cache
 
 
-def decode_step(params, token, cache, cache_len, cfg: ArchConfig):
+def decode_step(params, token, cache, cache_len, cfg: ArchConfig,
+                mesh=None):
     """token (B,1) against cache {k, v} (L,B,Smax,KV,hd), written in
     place at ``cache_len`` → (logits (B,V), the cache)."""
     b = token.shape[0]
-    x = embed_tokens(params, token, cfg)
+    x = embed_tokens(params, token, cfg, mesh)
     positions = build_positions(cfg, b, 1, offset=cache_len,
                                 device=token.device)
 
     def body(xc, lp_cache):
         lp, cache_l = lp_cache
-        xc, _ = dense_layer_apply(lp, xc, cfg=cfg, positions=positions,
-                                  mode="decode", cache=cache_l,
-                                  cache_len=cache_len)
+        xc, _ = dense_layer_apply(lp, xc, cfg=cfg, mesh=mesh,
+                                  positions=positions, mode="decode",
+                                  cache=cache_l, cache_len=cache_len)
         return xc, None
 
     x, _ = _scan_layers(params, x, body, cfg, ys_in=cache)
-    return lm_head(params, x, cfg)[:, 0], cache
+    return lm_head(params, x, cfg, mesh)[:, 0], cache
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
@@ -378,3 +725,47 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     shape = (cfg.n_layers, batch, max_len, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# parameter partition specs (TP over 'model', FSDP over data axes)
+# ---------------------------------------------------------------------------
+def attn_pspecs(cfg: ArchConfig, dp, stacked: bool = True,
+                cross: bool = False) -> dict:
+    lead = (None,) if stacked else ()
+
+    def mk(*spec):
+        return P(*(lead + spec))
+
+    p = {
+        "ln1": mk(None),
+        "wq": mk(dp, "model"),
+        "wk": mk(dp, "model"),
+        "wv": mk(dp, "model"),
+        "wo": mk("model", dp),
+    }
+    if cross:
+        p.update({"ln_x": mk(None), "xq": mk(dp, "model"),
+                  "xk": mk(dp, "model"), "xv": mk(dp, "model"),
+                  "xo": mk("model", dp)})
+    p["ln2"] = mk(None)
+    if cfg.is_moe and not cross:
+        mp = moe_lib.moe_param_pspecs(cfg, dp_axes=dp if dp else ())
+        p["moe"] = sh.spec_map(lambda s: P(*(lead + tuple(s))), mp)
+    else:
+        p["mlp"] = {"w_gate": mk(dp, "model"), "w_up": mk(dp, "model"),
+                    "w_down": mk("model", dp)}
+    return p
+
+
+def decoder_param_pspecs(cfg: ArchConfig, mesh) -> dict:
+    dp = dp_axes_of(mesh) or None
+    emb = ({"hash_tables": P(None, None, "model")}
+           if cfg.embedding == "bbit_hash"
+           else {"table": P(None, "model")})
+    return {
+        "embed": emb,
+        "final_norm": P(None),
+        "lm_head": P(dp, "model"),
+        "layers": attn_pspecs(cfg, dp, stacked=cfg.scan_layers or True),
+    }

@@ -111,6 +111,14 @@ class AdamWConfig:
     chunked_update_threshold: int = 1 << 28
 
 
+def _local_numel(p: torch.Tensor) -> int:
+    """The elements an update of ``p`` touches on this rank: a DTensor's
+    local shard (the chunked update bounds the temporaries a rank
+    holds)."""
+    local = getattr(p, "to_local", None)
+    return local().numel() if callable(local) else p.numel()
+
+
 def adamw(lr: LR, cfg: AdamWConfig = AdamWConfig()) -> Optimizer:
     in_place = cfg.moment_dtype == "float32"
 
@@ -165,7 +173,8 @@ def adamw(lr: LR, cfg: AdamWConfig = AdamWConfig()) -> Optimizer:
         c2 = 1.0 - cfg.b2 ** t
         for name, p in params.items():
             g, m_q, v_q = grads[name], state["m"][name], state["v"][name]
-            if p.numel() <= cfg.chunked_update_threshold or p.dim() < 2:
+            if _local_numel(p) <= cfg.chunked_update_threshold or \
+                    p.dim() < 2:
                 m, v = upd_core(p, g, m_q, v_q, lr_t, c1, c2)
             else:
                 # the leading (layer) axis one slice at a time

@@ -13,8 +13,9 @@ float32 inputs give the same bytes.
 flattens it in that order, as the reference's pytree node does, so a
 checkpoint of int8 moments reads in either package.
 
-The reference's ``moment_pspec`` (a ``PartitionSpec`` helper) belongs
-with the sharding rules of the LM zoo (ROADMAP A6c).
+``moment_pspec`` gives a moment's partition spec on a mesh: payload and
+scales shard under the parameter's spec (the scale's last entry
+dropped), so no quantization row straddles a shard boundary.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Union
 import torch
 
 __all__ = ["QuantizedArray", "quantize", "dequantize", "maybe_quantize",
-           "maybe_dequantize"]
+           "maybe_dequantize", "moment_pspec"]
 
 
 @dataclasses.dataclass
@@ -82,3 +83,16 @@ def maybe_dequantize(x) -> torch.Tensor:
     if isinstance(x, QuantizedArray):
         return dequantize(x)
     return x.to(torch.float32)
+
+
+def moment_pspec(param_spec, moment_dtype: str):
+    """Partition spec tree entry for one moment of one parameter: the
+    parameter's spec, or for int8 moments a ``QuantizedArray`` of the
+    payload's spec (the parameter's) and the scale's (its last entry
+    None)."""
+    from repro_torch.distributed.shardings import P
+    if moment_dtype != "int8":
+        return param_spec
+    entries = tuple(param_spec)
+    scale_spec = P(*(entries[:-1] + (None,))) if entries else P()
+    return QuantizedArray(q=param_spec, scale=scale_spec)

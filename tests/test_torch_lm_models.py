@@ -4,7 +4,7 @@ reference's weights carried by ``params_from_jax``: the init tree (and
 the full configs' param shapes), the loss and every gradient, prefill's
 logits and cache, and one decode step; then internlm2 at bfloat16 and
 with the b-bit hashed embedding, ``kv_repeat_to``, ``remat`` and
-``scan_layers``, and the refusals of the mesh paths (ROADMAP A6c).
+``scan_layers``, and the mesh paths on a one-rank mesh.
 
 Tolerances.  float32 with the reductions in another order: the loss
 within 1e-5 relative, logits and caches within 1e-4 absolute (|logit|
@@ -180,16 +180,42 @@ def test_remat_and_scan_layers_leave_the_gradients(arch, setting):
     assert all(torch.equal(g1[n], g2[n]) for n in g1)
 
 
-def test_mesh_paths_wait_for_a6c():
+def test_mesh_paths_wait_for_a6c(tmp_path):
+    """The mesh paths on a one-rank gloo world's 1 × 1 mesh (ROADMAP
+    A6c): granite-moe's loss (expert
+    parallelism at ample capacity), prefill and a decode step equal the
+    mesh-free ones, and the pspec trees come back."""
+    import torch.distributed as dist
+    from repro_torch.distributed import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
     p = pair("granite-moe-3b-a800m")
-    tb = t_batch(batch_np(p.tcfg, 2, 8, 0), p.tcfg)
-    for call in (lambda: p.tapi.loss_fn(p.tparams, tb, mesh=object()),
-                 lambda: p.tapi.prefill(p.tparams, tb, object()),
-                 lambda: p.tapi.decode_step(p.tparams, {}, {}, 0, object()),
-                 lambda: p.tapi.param_pspecs(object()),
-                 lambda: p.tapi.cache_pspecs(object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
-            call()
+    cfg = dataclasses.replace(p.tcfg, moe_capacity=8.0)
+    api = get_model_api(cfg)
+    tb = t_batch(batch_np(cfg, 2, 8, 0), cfg)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1)
+        steps.set_mesh_for_alignment(mesh)
+        specs = steps.align_pspecs(p.tparams, api.param_pspecs(mesh))
+        dparams = steps.shard_tree(p.tparams, specs, mesh)
+        db = steps.shard_tree(tb, steps.batch_pspecs(mesh, tb), mesh)
+        assert sh.spec_leaves(api.cache_pspecs(mesh))
+        loss = api.loss_fn(dparams, db, mesh).full_tensor()
+        assert torch.allclose(loss, api.loss_fn(p.tparams, tb), atol=1e-5)
+        with torch.no_grad():
+            lg, cache = api.prefill(dparams, {"tokens": db["tokens"]}, mesh)
+            lg0, cache0 = api.prefill(p.tparams, {"tokens": tb["tokens"]})
+            assert torch.allclose(lg.full_tensor(), lg0, atol=1e-5)
+            tok = {"token": tb["tokens"][:, :1]}
+            d1, _ = api.decode_step(dparams, steps.shard_tree(
+                tok, steps.batch_pspecs(mesh, tok), mesh), cache, 7, mesh)
+            d0, _ = api.decode_step(p.tparams, tok, cache0, 7)
+            assert torch.allclose(d1.full_tensor(), d0, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_params_from_jax_checks_the_tree():

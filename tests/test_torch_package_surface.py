@@ -8,8 +8,13 @@
   * ``kernels.ref``: the plain versions under the reference oracles'
     names and signatures, against those oracles;
   * the four examples with a torch twin, each in a fresh interpreter on
-    the CPU at its smallest size.
+    the CPU at its smallest size;
+  * ``distributed``'s ``__all__`` and the public names of every
+    ``launch`` module (read from the reference's source: importing its
+    dry-run sets XLA flags), the HLO readers mapped to the port's trace
+    readers (ROADMAP A6b, A6c).
 """
+import ast
 import importlib
 import os
 import subprocess
@@ -189,3 +194,54 @@ def test_example_runs_on_the_cpu(name, tmp_path):
     with open(os.path.join(ROOT, "examples", name)) as f:
         source = f.read()
     assert "from repro." not in source and "import jax" not in source
+
+
+# the reference's readers of XLA's compiled programs, and the port's
+# readers of a traced call (launch/roofline.py::trace_step)
+TRACE_NAMES = {"collective_stats_from_hlo": "collective_stats_from_trace",
+               "collective_bytes_from_hlo": "collective_bytes_from_trace",
+               "cost_of_compiled": "cost_of_trace"}
+
+
+def test_distributed_exports_follow_the_reference():
+    import repro.distributed as ref
+    import repro_torch.distributed as port
+    missing = {n for n in ref.__all__ if not hasattr(port, n)}
+    assert missing == {"collective_stats_from_hlo",
+                       "collective_bytes_from_hlo"}
+    for name in missing:
+        assert TRACE_NAMES[name] in port.__all__
+    assert all(hasattr(port, n) for n in port.__all__)
+
+
+def _public_names(path: str) -> set:
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+REF_LAUNCH = os.path.join(ROOT, "src", "repro", "launch")
+
+
+@pytest.mark.parametrize("module", sorted(
+    f[:-3] for f in os.listdir(REF_LAUNCH)
+    if f.endswith(".py") and f != "__init__.py"))
+def test_launch_module_names_follow_the_reference(module):
+    port = importlib.import_module(f"repro_torch.launch.{module}")
+    for name in _public_names(os.path.join(REF_LAUNCH, module + ".py")):
+        assert hasattr(port, TRACE_NAMES.get(name, name)), name
+
+
+def test_every_reference_module_has_a_counterpart():
+    ref_root = os.path.join(ROOT, "src", "repro")
+    port_root = os.path.join(ROOT, "src", "repro_torch")
+    for dirpath, _, files in os.walk(ref_root):
+        rel = os.path.relpath(dirpath, ref_root)
+        for f in files:
+            if f.endswith(".py"):
+                assert os.path.exists(os.path.join(port_root, rel, f)), \
+                    os.path.join(rel, f)

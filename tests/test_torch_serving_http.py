@@ -593,8 +593,13 @@ def test_config_serving_kwargs_match_reference():
 
 
 def test_launch_serve_refuses_unported_modes(capsys):
-    assert launch_serve.main(["--mode", "lm"]) == 2
-    assert "ROADMAP A6b" in capsys.readouterr().err
+    """``--mode lm`` generates greedy tokens from a reduced LM on the
+    CPU (ROADMAP A6b)."""
+    assert launch_serve.main(["--mode", "lm", "--device", "cpu",
+                              "--max-batch", "2", "--tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "(reduced): generated 8 tokens" in out
+    assert len(out.split("sample:")[1].split(",")) == 12
 
 
 def test_launch_serve_http_binds_answers_and_drains(repo_src):
