@@ -24,7 +24,8 @@ otherwise.  Both device encodes pick their arm through the cost model
 ``{scheme, k, b, rows, nnz}``); ``use_kernel=False`` pins the plain arm,
 which a CUDA tensor refuses where the kernel applies.
 ``encode_packed_numpy`` is the reference's host encode, copied; it gives
-the same bytes.
+the same bytes.  A device ``encode_packed`` call is the span
+``scheme.encode_packed`` (``obs``).
 """
 from __future__ import annotations
 
@@ -41,11 +42,12 @@ from repro_torch.core.oph import (OPH_EMPTY_CODE, OPHHash, densify_rotation,
                                   oph_bin_minima_torch, split_zero_codes)
 from repro_torch.core.universal_hash import (MASK32, MultiplyShiftHash,
                                              _fmix32_numpy, int32_to_words)
-from repro_torch import perf
+from repro_torch import obs, perf
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
 SCHEMES: Dict[str, Type["HashingScheme"]] = {}
+obs.declare("scheme.encode_packed")
 
 
 def register_scheme(name: str):
@@ -177,11 +179,12 @@ class MinwiseScheme(HashingScheme):
         return z & ((1 << b) - 1), None
 
     def encode_packed(self, indices, nnz, b, *, use_kernel=True):
-        shape, impl = self._dispatch("encode_packed", indices, b,
-                                     use_kernel)
-        a, bv = self.hash_params(indices.device)
-        return ops.minhash_packed(indices, nnz, a, bv, b, shape=shape,
-                                  impl=impl), None
+        with obs.span("scheme.encode_packed"):
+            shape, impl = self._dispatch("encode_packed", indices, b,
+                                         use_kernel)
+            a, bv = self.hash_params(indices.device)
+            return ops.minhash_packed(indices, nnz, a, bv, b, shape=shape,
+                                      impl=impl), None
 
     # k-chunking bounds the (n, m, chunk) intermediate
     _NUMPY_K_CHUNK = 64
@@ -247,14 +250,15 @@ class OPHScheme(HashingScheme):
         return self._finish(vals, vals == MASK32, b)
 
     def encode_packed(self, indices, nnz, b, *, use_kernel=True):
-        self._check_b(b)
-        shape, impl = self._dispatch("encode_packed", indices, b,
-                                     use_kernel)
-        a, bv = self.hash_params(indices.device)
-        packed, empty = ops.oph_packed(indices, nnz, a, bv, self.k, b,
-                                       densify=self.densify, shape=shape,
-                                       impl=impl)
-        return packed, (None if self.densify else empty)
+        with obs.span("scheme.encode_packed"):
+            self._check_b(b)
+            shape, impl = self._dispatch("encode_packed", indices, b,
+                                         use_kernel)
+            a, bv = self.hash_params(indices.device)
+            packed, empty = ops.oph_packed(indices, nnz, a, bv, self.k, b,
+                                           densify=self.densify,
+                                           shape=shape, impl=impl)
+            return packed, (None if self.densify else empty)
 
     def encode_packed_numpy(self, indices, nnz, b):
         indices = np.asarray(indices)

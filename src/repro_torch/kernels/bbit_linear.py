@@ -47,7 +47,7 @@ import torch
 from repro_torch.core.bbit import (packed_mask_width, packed_width,
                                    unpack_codes_torch, unpack_mask_torch)
 from repro_torch.kernels import _build
-from repro_torch.kernels.counters import LaunchCount
+from repro_torch.obs import LaunchCount
 from repro_torch.kernels.fused_encode import check_bits
 
 # B7: bins a thread gathers at once (csrc kFwdChunk), and the bytes of
@@ -225,11 +225,12 @@ class _DwPlanCache:
     tensor object, at the same ``_version`` (no in-place write since),
     data pointer, shape and device, and the same V.  ``get`` builds a
     missing plan with ``build(codes, vsize)`` and counts it in
-    ``builds``."""
+    ``builds``, and counts a kept plan it serves in ``hits``."""
 
     def __init__(self, entries: int, builds: Optional[LaunchCount] = None):
         self.entries = entries
         self.builds = LaunchCount() if builds is None else builds
+        self.hits = LaunchCount()
         self._plans: "OrderedDict[int, tuple]" = OrderedDict()
         self._lock = threading.RLock()   # a weakref callback may re-enter
 
@@ -245,6 +246,7 @@ class _DwPlanCache:
             hit = self._plans.get(key)
             if hit is not None and hit[0]() is codes and hit[1] == stamp:
                 self._plans.move_to_end(key)
+                self.hits.add()
                 return hit[2]
         plan = build(codes, vsize)
         self.builds.add()
@@ -492,6 +494,7 @@ def bbit_linear_bwd_dw(codes: torch.Tensor, dout: torch.Tensor,
 bbit_linear_bwd_dw.launches = LaunchCount()
 bbit_linear_bwd_dw.launches_bf16 = LaunchCount()
 bbit_linear_bwd_dw.plan_builds = _DW_PLANS.builds
+bbit_linear_bwd_dw.plan_hits = _DW_PLANS.hits
 bbit_linear_bwd_dw.clear_plans = _DW_PLANS.clear
 
 

@@ -10,7 +10,8 @@ any b from 1 to 16 (a code may straddle bytes); B2 needs b in
 {1, 2, 4, 8}, so no code straddles a byte.
 
 Hash parameters arrive as int32 tensors holding the uint32 words'
-bits (``core.universal_hash.words_to_int32``).
+bits (``core.universal_hash.words_to_int32``).  A launch's output
+allocation is the span ``kernel.alloc`` (``obs``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.bbit import (pack_codes_torch, pack_mask_torch,
                                    packed_mask_width, packed_width)
 from repro_torch.core.minhash import minhash_torch
@@ -26,10 +28,12 @@ from repro_torch.core.oph import (_check_k, densify_rotation,
                                   oph_bin_minima_torch)
 from repro_torch.core.universal_hash import int32_to_words
 from repro_torch.kernels import _build
-from repro_torch.kernels.counters import LaunchCount
+from repro_torch.obs import LaunchCount
 # b where codes never straddle byte bounds (B2, B5, B6), and the b that
 # B1 packs: their home is the cost model's eligibility
 from repro_torch.perf.cost_model import MINHASH_PACK_BITS, PACK_BITS
+
+obs.declare("kernel.alloc")
 
 # B1 (csrc/fused_encode.cu): hash lanes a thread at most, the blocks an SM
 # is given before a block takes more lanes, the warps the grid aims at, the
@@ -141,8 +145,9 @@ def _minhash_pack_launch(indices: torch.Tensor, nnz: torch.Tensor,
     (``oph_pack_vec``)."""
     n, m = indices.shape
     k = a.shape[0]
-    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
-                      device=indices.device)
+    with obs.span("kernel.alloc"):
+        out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
+                          device=indices.device)
     lib = _build.load("fused_encode")
     with torch.cuda.device(indices.device):
         code = lib.repro_minhash_pack(
@@ -222,10 +227,11 @@ def _oph_pack_launch(indices: torch.Tensor, nnz: torch.Tensor,
     """One launch of B2 with ``threads`` a block on checked CUDA inputs;
     ``vec``: int4 loads (``oph_pack_vec``)."""
     n, m = indices.shape
-    out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
-                      device=indices.device)
-    eout = torch.empty((n, packed_mask_width(k)), dtype=torch.uint8,
-                       device=indices.device)
+    with obs.span("kernel.alloc"):
+        out = torch.empty((n, packed_width(k, bits)), dtype=torch.uint8,
+                          device=indices.device)
+        eout = torch.empty((n, packed_mask_width(k)), dtype=torch.uint8,
+                           device=indices.device)
     lib = _build.load("fused_encode")
     with torch.cuda.device(indices.device):
         code = lib.repro_oph_pack(

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.counters import LaunchCount
+from repro_torch.obs import LaunchCount
 
 WARPS_PER_BLOCK = 8
 # warps an SM keeps resident (2,048 threads); a scan larger than one wave

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.minhash import minhash_torch
 from repro_torch.core.universal_hash import int32_to_words, words_as_int32
 from repro_torch.kernels import _build
-from repro_torch.kernels.counters import LaunchCount
+from repro_torch.obs import LaunchCount
 from repro_torch.kernels.fused_encode import _check_cuda_args, prefix_mask
 
 

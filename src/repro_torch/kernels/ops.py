@@ -41,7 +41,13 @@ an explicit arm, ignored where it is not eligible.
 the gradient in the table, the dW kernel (B8, B6).  Integer inputs carry
 no gradient.  B8 keeps a plan of each codes tensor it sees (see
 ``kernels/bbit_linear.py``); ``counts()`` shows the plans built as
-``bbit_linear_bwd_dw_plans``.
+``bbit_linear_bwd_dw_plans`` and the kept plans served as
+``bbit_linear_bwd_dw_plan_hits``.
+
+``counts()`` is ``obs.counts()``: these counters, registered in ``obs``
+under the names below, every other counter of the program (a fit's
+copies, TRON's host reads) and the spans' totals.  ``perf.choose``'s
+call in ``_launches`` is the span ``dispatch.choose``.
 
 The table may be float32 or bfloat16 (``BBitLinearConfig.param_dtype``).
 The forwards give float32 logits either way, and the backwards give dW
@@ -58,7 +64,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch import perf
+from repro_torch import obs, perf
 from repro_torch.kernels import _build
 from repro_torch.kernels import bbit_linear as _bl
 from repro_torch.kernels import fused_encode as _fe
@@ -66,7 +72,7 @@ from repro_torch.kernels import hamming as _hd
 from repro_torch.kernels import minhash as _mh
 from repro_torch.kernels import oph as _oph
 from repro_torch.kernels import vw_sketch as _vw
-from repro_torch.kernels.counters import LaunchCount
+from repro_torch.obs import LaunchCount
 
 PACK_BITS = _fe.PACK_BITS
 Shape = Optional[Mapping[str, object]]
@@ -91,20 +97,27 @@ LAUNCHES.update({f"{w.__name__}_bf16": w.launches_bf16 for w in (
     _bl.bbit_linear_packed_fwd, _bl.bbit_linear_packed_bwd_dw,
     _bl.bbit_linear_fwd, _bl.bbit_linear_bwd_dw)})
 PLAN_BUILDS = _bl.bbit_linear_bwd_dw.plan_builds
+PLAN_HITS = _bl.bbit_linear_bwd_dw.plan_hits
+for _name, _count in LAUNCHES.items():
+    obs.counter(_name, _count)
+for _name, _count in PLAIN.items():
+    obs.counter(f"{_name}_plain", _count)
+obs.counter("bbit_linear_bwd_dw_plans", PLAN_BUILDS)
+obs.counter("bbit_linear_bwd_dw_plan_hits", PLAN_HITS)
+obs.declare("dispatch.choose")
 
 
 def counts() -> Dict[str, int]:
     """{kernel: launches, kernel + "_plain": plain calls,
-    "bbit_linear_bwd_dw_plans": B8's plans built}."""
-    out = {name: c.value for name, c in LAUNCHES.items()}
-    out.update({f"{name}_plain": c.value for name, c in PLAIN.items()})
-    out["bbit_linear_bwd_dw_plans"] = PLAN_BUILDS.value
-    return out
+    "bbit_linear_bwd_dw_plans": B8's plans built,
+    "bbit_linear_bwd_dw_plan_hits": kept plans served, and every other
+    counter and span total of ``obs``}."""
+    return obs.counts()
 
 
 def reset_counts() -> None:
-    for c in (*LAUNCHES.values(), *PLAIN.values(), PLAN_BUILDS):
-        c.reset()
+    """Every counter and span total of ``obs`` to zero."""
+    obs.reset()
 
 
 def _is_pow2(n: int) -> bool:
@@ -120,7 +133,9 @@ def _launches(t: torch.Tensor, name: str, op: str, shape: Shape,
               impl: Optional[str] = None) -> bool:
     """Whether the call goes to kernel ``name``: ``perf.choose``'s arm
     of ``op`` at ``shape`` on ``t``'s device; a plain call is counted."""
-    if perf.choose(op, shape, device=t.device, impl=impl) == "kernel":
+    with obs.span("dispatch.choose"):
+        arm = perf.choose(op, shape, device=t.device, impl=impl)
+    if arm == "kernel":
         return True
     PLAIN[name].add()
     return False

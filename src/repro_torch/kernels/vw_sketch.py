@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.universal_hash import MASK32, fmix32, mul32
 from repro_torch.kernels import _build
-from repro_torch.kernels.counters import LaunchCount
+from repro_torch.obs import LaunchCount
 
 BUCKET_MUL = 0x9E3779B1
 SIGN_XOR = 0x7FEB352D

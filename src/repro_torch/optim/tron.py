@@ -10,9 +10,17 @@ gradient and the first CG direction are bfloat16, and the arithmetic
 that meets a float32 Hessian product or scalar widens to float32 as jnp
 promotes (``_wide``), so the iterate is float32 after the first accepted
 step, as the reference's is.  The scalar tests of the outer and
-inner loops run on the host, as in the reference.  Hessian-vector
-products come from the caller (``hvp``, the analytic Hv = v +
-C·Xᵀ(ℓ″(m)⊙Xv) of a linear model) or else from double backward.
+inner loops run on the host, as in the reference: each is one read of a
+0-d tensor (``_read``, a sync on a card), counted in ``tron.host_reads``
+and timed as the span ``tron.read`` (``obs``): one before the first
+iteration, one at each test of the CG residual, one or two in a CG step,
+five in an outer iteration besides its CG solve (one in the last, which
+stops), and two at the end.  Unlike the reference's, the result keeps no
+objective a step (no ``trace``), so an accepted step costs no read.  Hessian-vector products come from the caller (``hvp``,
+the analytic Hv = v + C·Xᵀ(ℓ″(m)⊙Xv) of a linear model) or else from
+double backward.  A CG step (one Hessian product) counts in
+``tron.cg_steps``; the spans ``tron.minimize``, ``tron.iter`` and
+``tron.cg_step`` time the call, an outer iteration and a CG step.
 
 Hyper-parameters follow LIBLINEAR's tron.cpp: eta0/1/2 = 1e-4/0.25/0.75,
 sigma1/2/3 = 0.25/0.5/4.
@@ -24,7 +32,13 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import obs
+
 Params = Union[torch.Tensor, dict]
+
+_HOST_READS = obs.counter("tron.host_reads")
+_CG_STEPS = obs.counter("tron.cg_steps")
+obs.declare("tron.minimize", "tron.iter", "tron.cg_step", "tron.read")
 
 
 @dataclasses.dataclass
@@ -34,7 +48,6 @@ class TronResult:
     grad_norm: float
     n_iter: int
     converged: bool
-    trace: list
 
 
 def ravel_params(params: Params) -> Tuple[torch.Tensor, Callable]:
@@ -84,6 +97,14 @@ def _axpy(x, alpha, y):
     return x + alpha * y
 
 
+def _read(x: torch.Tensor):
+    """A 0-d tensor on the host (a float, or a bool for a comparison): one
+    read of the device, counted and timed."""
+    _HOST_READS.add()
+    with obs.span("tron.read"):
+        return x.item()
+
+
 def _cg_steihaug(hvp, g, delta, cg_tol, cg_max):
     """Solves H s = -g within ||s|| ≤ delta.  Returns (s, hit_boundary)."""
     s = torch.zeros_like(g)
@@ -92,21 +113,23 @@ def _cg_steihaug(hvp, g, delta, cg_tol, cg_max):
     rTr = r @ r
     g_norm = torch.sqrt(g @ g)
     for _ in range(cg_max):
-        if torch.sqrt(rTr) <= cg_tol * g_norm:
+        if _read(torch.sqrt(rTr) <= cg_tol * g_norm):
             return s, False
-        Hd = hvp(d)
-        dHd = _dot(d, Hd)
-        if dHd <= 0:
-            return _axpy(s, _boundary_tau(s, d, delta), d), True
-        alpha = rTr / dHd
-        s_next = _axpy(s, alpha, d)
-        if torch.sqrt(s_next @ s_next) >= delta:
-            return _axpy(s, _boundary_tau(s, d, delta), d), True
-        s = s_next
-        r = _axpy(r, -alpha, Hd)
-        rTr_new = r @ r
-        d = _axpy(r, rTr_new / rTr, d)
-        rTr = rTr_new
+        with obs.span("tron.cg_step"):
+            _CG_STEPS.add()
+            Hd = hvp(d)
+            dHd = _dot(d, Hd)
+            if _read(dHd <= 0):
+                return _axpy(s, _boundary_tau(s, d, delta), d), True
+            alpha = rTr / dHd
+            s_next = _axpy(s, alpha, d)
+            if _read(torch.sqrt(s_next @ s_next) >= delta):
+                return _axpy(s, _boundary_tau(s, d, delta), d), True
+            s = s_next
+            r = _axpy(r, -alpha, Hd)
+            rTr_new = r @ r
+            d = _axpy(r, rTr_new / rTr, d)
+            rTr = rTr_new
     return s, False
 
 
@@ -135,67 +158,68 @@ def tron_minimize(
     Hessian-vector product; without it Hv comes from double backward
     through ``fun``.
     """
-    flat0, unravel = ravel_params(w0)
+    with obs.span("tron.minimize"):
+        flat0, unravel = ravel_params(w0)
 
-    def val_and_grad(w):
-        w = w.detach().requires_grad_(True)
-        with torch.enable_grad():
-            f = fun(unravel(w))
-            (g,) = torch.autograd.grad(f, w)
-        return f.detach(), g
-
-    def val_only(w):
-        with torch.no_grad():
-            return fun(unravel(w))
-
-    if hvp is None:
-        def hvp_at(w, v):
+        def val_and_grad(w):
             w = w.detach().requires_grad_(True)
             with torch.enable_grad():
-                (g,) = torch.autograd.grad(fun(unravel(w)), w,
-                                           create_graph=True)
-                (hv,) = torch.autograd.grad(g, w, grad_outputs=v)
-            return hv
-    else:
-        def hvp_at(w, v):
-            return ravel_params(hvp(unravel(w), unravel(v)))[0]
+                f = fun(unravel(w))
+                (g,) = torch.autograd.grad(f, w)
+            return f.detach(), g
 
-    w = flat0.detach()
-    f, g = val_and_grad(w)
-    g0_norm = float(torch.linalg.norm(g))
-    delta = g0_norm
-    trace = [float(f)]
-    eta0, eta1, eta2 = 1e-4, 0.25, 0.75
-    sigma1, sigma2, sigma3 = 0.25, 0.5, 4.0
+        def val_only(w):
+            with torch.no_grad():
+                return fun(unravel(w))
 
-    converged = False
-    it = 0
-    for it in range(1, max_iter + 1):
-        gnorm = float(torch.linalg.norm(g))
-        if gnorm <= grad_tol * max(g0_norm, 1e-12):
-            converged = True
-            break
-        s, _ = _cg_steihaug(lambda v: hvp_at(w, v), g, delta, cg_tol, cg_max)
-        f_new = val_only(w + s)
-        gs = float(_dot(g, s))
-        sHs = float(_dot(s, hvp_at(w, s)))
-        pred = -(gs + 0.5 * sHs)                 # predicted decrease
-        actual = float(f - f_new)
-        rho = actual / pred if pred > 0 else -1.0
-        snorm = float(torch.linalg.norm(s))
-        # LIBLINEAR-style delta update
-        if rho < eta0:
-            delta = sigma1 * min(delta, snorm)
-        elif rho < eta1:
-            delta = max(sigma1 * delta, min(snorm, sigma2 * delta))
-        elif rho < eta2:
-            delta = max(sigma1 * delta, min(snorm * sigma3, delta))
+        if hvp is None:
+            def hvp_at(w, v):
+                w = w.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    (g,) = torch.autograd.grad(fun(unravel(w)), w,
+                                               create_graph=True)
+                    (hv,) = torch.autograd.grad(g, w, grad_outputs=v)
+                return hv
         else:
-            delta = max(delta, min(snorm * sigma3, 1e10))
-        if rho > eta0:
-            w = w + s
-            f, g = val_and_grad(w)
-            trace.append(float(f))
-    return TronResult(params=unravel(w), fun=float(f),
-                      grad_norm=float(torch.linalg.norm(g)), n_iter=it,
-                      converged=converged, trace=trace)
+            def hvp_at(w, v):
+                return ravel_params(hvp(unravel(w), unravel(v)))[0]
+
+        w = flat0.detach()
+        f, g = val_and_grad(w)
+        g0_norm = _read(torch.linalg.norm(g))
+        delta = g0_norm
+        eta0, eta1, eta2 = 1e-4, 0.25, 0.75
+        sigma1, sigma2, sigma3 = 0.25, 0.5, 4.0
+
+        converged = False
+        it = 0
+        for it in range(1, max_iter + 1):
+            with obs.span("tron.iter"):
+                gnorm = _read(torch.linalg.norm(g))
+                if gnorm <= grad_tol * max(g0_norm, 1e-12):
+                    converged = True
+                    break
+                s, _ = _cg_steihaug(lambda v: hvp_at(w, v), g, delta,
+                                    cg_tol, cg_max)
+                f_new = val_only(w + s)
+                gs = _read(_dot(g, s))
+                sHs = _read(_dot(s, hvp_at(w, s)))
+                pred = -(gs + 0.5 * sHs)             # predicted decrease
+                actual = _read(f - f_new)
+                rho = actual / pred if pred > 0 else -1.0
+                snorm = _read(torch.linalg.norm(s))
+                # LIBLINEAR-style delta update
+                if rho < eta0:
+                    delta = sigma1 * min(delta, snorm)
+                elif rho < eta1:
+                    delta = max(sigma1 * delta, min(snorm, sigma2 * delta))
+                elif rho < eta2:
+                    delta = max(sigma1 * delta, min(snorm * sigma3, delta))
+                else:
+                    delta = max(delta, min(snorm * sigma3, 1e10))
+                if rho > eta0:
+                    w = w + s
+                    f, g = val_and_grad(w)
+        return TronResult(params=unravel(w), fun=_read(f),
+                          grad_norm=_read(torch.linalg.norm(g)), n_iter=it,
+                          converged=converged)

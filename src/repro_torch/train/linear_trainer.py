@@ -13,6 +13,13 @@ gradient B8, through ``kernels.ops.bbit_linear``.  B8 keeps a plan per
 codes tensor: TRON reuses one for a whole fit, while every minibatch of
 ``train_bbit_sgd`` is a new tensor and builds its own plan
 (``ops.counts()["bbit_linear_bwd_dw_plans"]``).
+
+A TRON fit is traced (``obs``) by the spans ``trainer.fit`` (the whole
+call: the table's start, the inputs, TRON, the sync, the accuracy pass)
+and ``trainer.accuracy`` (the predictions and their accuracies); every
+trainer here counts ``trainer.h2d_bytes`` (host inputs moved to a card)
+and ``trainer.d2h_bytes`` (a card's predictions and labels copied to the
+host for their accuracy).
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models.linear import (BBitLinearConfig, VWLinearConfig,
                                        bbit_logits, full_float32_matmul,
@@ -34,6 +42,14 @@ from repro_torch.train.losses import (LOSS_D2, liblinear_objective,
                                       mean_loss_fn)
 from repro_torch.train.metrics import accuracy
 from repro_torch.train.steps import build_train_step, init_state
+
+_H2D_BYTES = obs.counter("trainer.h2d_bytes")
+_D2H_BYTES = obs.counter("trainer.d2h_bytes")
+obs.declare("trainer.fit", "trainer.accuracy")
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def make_liblinear_hvp(forward, loss: str, C: float, codes: torch.Tensor,
@@ -80,10 +96,27 @@ _NUMPY_TYPE = {torch.int32: np.int32, torch.float32: np.float32}
 
 
 def _on(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """A numpy array or tensor as a contiguous ``dtype`` tensor on dev."""
+    """A numpy array or tensor as a contiguous ``dtype`` tensor on dev; a
+    host input's bytes on a card count in ``trainer.h2d_bytes``."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=dtype).contiguous()
-    return torch.tensor(np.asarray(x, dtype=_NUMPY_TYPE[dtype]), device=dev)
+        out = x.to(device=dev, dtype=dtype).contiguous()
+        host = x.device.type == "cpu"
+    else:
+        out = torch.tensor(np.asarray(x, dtype=_NUMPY_TYPE[dtype]),
+                           device=dev)
+        host = True
+    if host and dev.type != "cpu":
+        _H2D_BYTES.add(_nbytes(out))
+    return out
+
+
+def _accuracy(pred, labels) -> float:
+    """``accuracy``, which copies its tensors to the host: the bytes of
+    those on a card count in ``trainer.d2h_bytes``."""
+    _D2H_BYTES.add(sum(_nbytes(x) for x in (pred, labels)
+                       if isinstance(x, torch.Tensor)
+                       and x.device.type != "cpu"))
+    return accuracy(pred, labels)
 
 
 def _fit(forward, predict, w0, x_tr, y_tr, x_te, y_te, *, loss, C,
@@ -97,9 +130,9 @@ def _fit(forward, predict, w0, x_tr, y_tr, x_te, y_te, *, loss, C,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    with torch.no_grad():
-        tr_acc = accuracy(predict(res.params, x_tr), y_tr)
-        te_acc = accuracy(predict(res.params, x_te), y_te)
+    with torch.no_grad(), obs.span("trainer.accuracy"):
+        tr_acc = _accuracy(predict(res.params, x_tr), y_tr)
+        te_acc = _accuracy(predict(res.params, x_te), y_te)
     return FitResult(res.params, dt, tr_acc, te_acc, res.n_iter, res.fun)
 
 
@@ -109,13 +142,14 @@ def train_bbit_liblinear(codes_tr, y_tr, codes_te, y_te,
                          device: DeviceLike = None) -> FitResult:
     """TRON over integer codes (n, k) (numpy or tensors), labels in
     {0, 1}; ``loss`` 'logistic' (Eq. 9) or 'squared_hinge' (Eq. 8)."""
-    dev = resolve_device(device)
-    return _fit(lambda p, c: bbit_logits(p, c, cfg),
-                lambda p, c: predict_classes(p, c, cfg),
-                init_bbit_linear(cfg, device=dev),
-                _on(codes_tr, dev, torch.int32), y_tr,
-                _on(codes_te, dev, torch.int32), y_te,
-                loss=loss, C=C, max_iter=max_iter, dev=dev)
+    with obs.span("trainer.fit"):
+        dev = resolve_device(device)
+        return _fit(lambda p, c: bbit_logits(p, c, cfg),
+                    lambda p, c: predict_classes(p, c, cfg),
+                    init_bbit_linear(cfg, device=dev),
+                    _on(codes_tr, dev, torch.int32), y_tr,
+                    _on(codes_te, dev, torch.int32), y_te,
+                    loss=loss, C=C, max_iter=max_iter, dev=dev)
 
 
 def train_vw_liblinear(sk_tr, y_tr, sk_te, y_te, cfg: VWLinearConfig, *,
@@ -125,8 +159,8 @@ def train_vw_liblinear(sk_tr, y_tr, sk_te, y_te, cfg: VWLinearConfig, *,
     """TRON over dense VW sketches (n, m) (numpy or tensors), with TF32
     off (``full_float32_matmul``) for the whole fit, so the gradient's
     and the Hessian products' matmuls run in full float32 too."""
-    dev = resolve_device(device)
-    with full_float32_matmul():
+    with obs.span("trainer.fit"), full_float32_matmul():
+        dev = resolve_device(device)
         return _fit(lambda p, x: vw_logits(p, x, cfg),
                     lambda p, x: vw_predict(p, x, cfg),
                     init_vw_linear(cfg, device=dev),
@@ -181,7 +215,7 @@ def train_bbit_sgd(codes_tr, y_tr, codes_te, y_te, cfg: BBitLinearConfig,
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     with torch.no_grad():
-        tr_acc = accuracy(predict_classes(state.params, x_tr, cfg), y_tr)
-        te_acc = accuracy(predict_classes(
+        tr_acc = _accuracy(predict_classes(state.params, x_tr, cfg), y_tr)
+        te_acc = _accuracy(predict_classes(
             state.params, _on(codes_te, dev, torch.int32), cfg), y_te)
     return FitResult(state.params, dt, tr_acc, te_acc, steps, float("nan"))
