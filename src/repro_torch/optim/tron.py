@@ -16,9 +16,15 @@ and timed as the span ``tron.read`` (``obs``): one before the first
 iteration, one at each test of the CG residual, one or two in a CG step,
 five in an outer iteration besides its CG solve (one in the last, which
 stops), and two at the end.  Unlike the reference's, the result keeps no
-objective a step (no ``trace``), so an accepted step costs no read.  Hessian-vector products come from the caller (``hvp``,
-the analytic Hv = v + C·Xᵀ(ℓ″(m)⊙Xv) of a linear model) or else from
-double backward.  A CG step (one Hessian product) counts in
+objective a step (no ``trace``), so an accepted step costs no read.
+Hessian-vector products come from the caller (``hvp``, the analytic
+Hv = v + C·Xᵀ(ℓ″(m)⊙Xv) of a linear model) or else from double backward.
+Each iterate is unravelled once, and every ``hvp`` call at it (each CG
+step of its solve and the sHs product) gets that one params object, so
+an ``hvp`` may keep what depends on the iterate alone: the linear
+trainers' keeps ℓ″(m), and a Hessian product there is one forward
+product (X·v) and one transposed (Xᵀ·), plus one forward (X·w) an
+iterate.  A CG step (one Hessian product) counts in
 ``tron.cg_steps``; the spans ``tron.minimize``, ``tron.iter`` and
 ``tron.cg_step`` time the call, an outer iteration and a CG step.
 
@@ -155,8 +161,8 @@ def tron_minimize(
     """Minimizes ``fun(params)`` (full-batch, deterministic closure).
 
     ``hvp(params, v) -> params`` optionally supplies an analytic
-    Hessian-vector product; without it Hv comes from double backward
-    through ``fun``.
+    Hessian-vector product, called with one params object an iterate;
+    without it Hv comes from double backward through ``fun``.
     """
     with obs.span("tron.minimize"):
         flat0, unravel = ravel_params(w0)
@@ -173,19 +179,23 @@ def tron_minimize(
                 return fun(unravel(w))
 
         if hvp is None:
-            def hvp_at(w, v):
-                w = w.detach().requires_grad_(True)
-                with torch.enable_grad():
-                    (g,) = torch.autograd.grad(fun(unravel(w)), w,
-                                               create_graph=True)
-                    (hv,) = torch.autograd.grad(g, w, grad_outputs=v)
+            def hessian(w):
+                def hv(v):
+                    wg = w.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        (g,) = torch.autograd.grad(fun(unravel(wg)), wg,
+                                                   create_graph=True)
+                        (out,) = torch.autograd.grad(g, wg, grad_outputs=v)
+                    return out
                 return hv
         else:
-            def hvp_at(w, v):
-                return ravel_params(hvp(unravel(w), unravel(v)))[0]
+            def hessian(w):
+                at = unravel(w)
+                return lambda v: ravel_params(hvp(at, unravel(v)))[0]
 
         w = flat0.detach()
         f, g = val_and_grad(w)
+        H = hessian(w)                     # v -> Hv at the iterate w
         g0_norm = _read(torch.linalg.norm(g))
         delta = g0_norm
         eta0, eta1, eta2 = 1e-4, 0.25, 0.75
@@ -199,11 +209,10 @@ def tron_minimize(
                 if gnorm <= grad_tol * max(g0_norm, 1e-12):
                     converged = True
                     break
-                s, _ = _cg_steihaug(lambda v: hvp_at(w, v), g, delta,
-                                    cg_tol, cg_max)
+                s, _ = _cg_steihaug(H, g, delta, cg_tol, cg_max)
                 f_new = val_only(w + s)
                 gs = _read(_dot(g, s))
-                sHs = _read(_dot(s, hvp_at(w, s)))
+                sHs = _read(_dot(s, H(s)))
                 pred = -(gs + 0.5 * sHs)             # predicted decrease
                 actual = _read(f - f_new)
                 rho = actual / pred if pred > 0 else -1.0
@@ -220,6 +229,7 @@ def tron_minimize(
                 if rho > eta0:
                     w = w + s
                     f, g = val_and_grad(w)
+                    H = hessian(w)
         return TronResult(params=unravel(w), fun=_read(f),
                           grad_norm=_read(torch.linalg.norm(g)), n_iter=it,
                           converged=converged)

@@ -19,7 +19,9 @@ call: the table's start, the inputs, TRON, the sync, the accuracy pass)
 and ``trainer.accuracy`` (the predictions and their accuracies); every
 trainer here counts ``trainer.h2d_bytes`` (host inputs moved to a card)
 and ``trainer.d2h_bytes`` (a card's predictions and labels copied to the
-host for their accuracy).
+host for their accuracy), and TRON's Hessian products count
+``trainer.curvature_builds`` (ℓ″ computed at an iterate) and
+``trainer.curvature_hits`` (a product reusing it).
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ from repro_torch.train.steps import build_train_step, init_state
 
 _H2D_BYTES = obs.counter("trainer.h2d_bytes")
 _D2H_BYTES = obs.counter("trainer.d2h_bytes")
+_CURVATURE_BUILDS = obs.counter("trainer.curvature_builds")
+_CURVATURE_HITS = obs.counter("trainer.curvature_hits")
 obs.declare("trainer.fit", "trainer.accuracy")
 
 
@@ -54,29 +58,53 @@ def _nbytes(x: torch.Tensor) -> int:
 
 def make_liblinear_hvp(forward, loss: str, C: float, codes: torch.Tensor,
                        labels: torch.Tensor):
-    """Analytic Hv = v + C·Xᵀ(ℓ″(m)⊙Xv) for models linear in the params.
+    """Analytic Hv = v + C·Xᵀ(ℓ″(m)⊙Xv), m = y·Xw, for models linear in
+    the params.
 
-    Uses only forward passes and one backward (Xᵀ·), no forward-mode
-    AD, so it runs through the kernels' autograd Functions, and matches
-    LIBLINEAR's TRON Hessian exactly.  The forward includes the bias, a
-    feature of constant 1, as in the reference.
+    ℓ″(m) depends on w alone, so it is computed at the first product at a
+    params object and kept, with that object's tensors and their
+    versions (``_version``): a product at the same tensors, unwritten,
+    reuses it (``trainer.curvature_hits``); any other params, or the same
+    tensors written in place, get it anew (``trainer.curvature_builds``).
+    TRON hands every product at one iterate the same params object, so,
+    as in LIBLINEAR (whose ``fun(w)`` keeps D = ℓ″ for ``Hv``), a product
+    costs one forward (X·v) and one backward (Xᵀ·, through the graph of
+    that forward), and an iterate one forward (X·w) more.  Both run
+    through the kernels' autograd Functions (B7 and B8 on a card), with
+    no forward-mode AD, and match LIBLINEAR's TRON Hessian exactly.  Xᵀ·
+    is rounded to the params' dtype before it widens to float32, the
+    bits of the backward through the params themselves.  The forward
+    includes the bias, a feature of constant 1, as in the reference.
     """
     d2_fn = LOSS_D2[loss]
     y = 2.0 * labels.to(torch.float32) - 1.0
+    kept_tensors, kept_versions, kept_d2 = (), (), None
+
+    def curvature(params):
+        """ℓ″(m) at ``params``, kept from the last call if it was there."""
+        nonlocal kept_tensors, kept_versions, kept_d2
+        tensors = tuple(params[name] for name in sorted(params))
+        versions = tuple(t._version for t in tensors)
+        if versions == kept_versions and all(
+                a is b for a, b in zip(tensors, kept_tensors)):
+            _CURVATURE_HITS.add()
+            return kept_d2
+        with torch.no_grad():
+            d2 = d2_fn(y * forward(params, codes)[:, 0])
+        _CURVATURE_BUILDS.add()
+        kept_tensors, kept_versions, kept_d2 = tensors, versions, d2
+        return d2
 
     def hvp(params, v):
-        names = sorted(params)
-        p = {name: params[name].detach().requires_grad_(True)
-             for name in names}
+        d2 = curvature(params)
+        names = sorted(v)
+        vs = {name: v[name].detach().requires_grad_(True) for name in names}
         with torch.enable_grad():
-            logits = forward(p, codes)
-        with torch.no_grad():
-            d2 = d2_fn(y * logits[:, 0])
-            jv = forward(v, codes)[:, 0]        # J·v: the forward is linear
-            hv_logits = (C * d2 * jv)[:, None]
-        hv = torch.autograd.grad(logits, [p[name] for name in names],
-                                 hv_logits)
-        return {name: v[name].to(torch.float32) + h.to(torch.float32)
+            jv = forward(vs, codes)             # J·v: the forward is linear
+        hv_logits = (C * d2 * jv.detach()[:, 0])[:, None]
+        hv = torch.autograd.grad(jv, [vs[name] for name in names], hv_logits)
+        return {name: v[name].to(torch.float32)
+                + h.to(params[name].dtype).to(torch.float32)
                 for name, h in zip(names, hv)}
 
     return hvp
