@@ -1,6 +1,12 @@
 """Architecture config schema and registry (counterpart of
 ``repro/configs/base.py``, copied as data: the same fields, defaults and
-parameter counts)."""
+parameter counts).
+
+``MLAConfig`` extends the schema with what DeepSeek-V3-style models need
+(latent attention, YaRN, leading dense layers, sigmoid routing and the
+share of experts a card holds).  Such configurations are the port's own:
+``register_port_only`` keeps them in a table apart from the mirrored
+registry, and ``get_config`` resolves both."""
 from __future__ import annotations
 
 import dataclasses
@@ -138,7 +144,74 @@ class ArchConfig:
                    * self.moe_top_k * 3 * d * self.moe_d_ff)
 
 
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ArchConfig):
+    """A DeepSeek-V3-style decoder (arXiv:2412.19437 §2.1): multi-head
+    latent attention, YaRN rope, ``first_k_dense`` dense SwiGLU layers of
+    width ``d_ff``, then MoE layers routed by sigmoid scores over
+    ``moe_experts`` experts, of which this card holds ``experts_held``
+    (ids ``experts_first`` on).  ``d_head`` is q·k's width (nope + rope)."""
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    first_k_dense: int = 0
+    # routing: sigmoid scores, a score-correction bias used for the choice
+    # only, the chosen scores normalised to sum 1, times routed_scale
+    moe_routed_scale: float = 1.0
+    # YaRN (rope_variant "yarn"): the context-extension factor, the
+    # trained context, the correction range's rotations and the mscales
+    rope_factor: float = 1.0
+    rope_original_max_pos: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
+    # the experts this card holds of each MoE layer
+    experts_held: int = 0
+    experts_first: int = 0
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.first_k_dense
+
+    def mla_params(self) -> int:
+        d, h = self.d_model, self.n_heads
+        qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+        return (d * self.q_lora_rank + self.q_lora_rank
+                + self.q_lora_rank * h * qk
+                + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank
+                + self.kv_lora_rank * h * (self.qk_nope_head_dim
+                                           + self.v_head_dim)
+                + h * self.v_head_dim * d + 2 * d)
+
+    def n_params(self) -> int:
+        """The parameters this card holds."""
+        d = self.d_model
+        expert = 3 * d * self.moe_d_ff
+        moe = (self.experts_held * expert + self.n_shared_experts * expert
+               + d * self.moe_experts + self.moe_experts)
+        return int(self.n_layers * self.mla_params()
+                   + self.first_k_dense * 3 * d * self.d_ff
+                   + self.n_moe_layers * moe
+                   + 2 * self.vocab * d + d)
+
+    def n_active_params(self) -> int:
+        """A token's parameters on this card, counting the top-k routed
+        experts at their share here (k · held / experts)."""
+        d = self.d_model
+        expert = 3 * d * self.moe_d_ff
+        routed = self.moe_top_k * self.experts_held / self.moe_experts
+        return int(self.n_params() - self.n_moe_layers
+                   * (self.experts_held - routed) * expert)
+
+
 _REGISTRY: Dict[str, ArchConfig] = {}
+# the port's own configurations, outside the registry mirrored from the
+# reference (``list_configs`` and ``configs.archs.ALL_ARCHS`` leave them out)
+_PORT_ONLY: Dict[str, ArchConfig] = {}
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -146,9 +219,17 @@ def register(cfg: ArchConfig) -> ArchConfig:
     return cfg
 
 
+def register_port_only(cfg: ArchConfig) -> ArchConfig:
+    _PORT_ONLY[cfg.name] = cfg
+    return cfg
+
+
 def get_config(name: str) -> ArchConfig:
     # populate the registry lazily
     import repro_torch.configs.archs  # noqa: F401
+    import repro_torch.configs.kimi_k2_instruct  # noqa: F401
+    if name in _PORT_ONLY and name not in _REGISTRY:
+        return _PORT_ONLY[name]
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(_REGISTRY)}")

@@ -5,6 +5,11 @@ MoE 384 experts top-8 (+1 shared expert).  Assignment table values are
 authoritative (the real Kimi K2 uses MLA; the assignment specifies GQA
 kv=8, which we follow).  int8 AdamW moments are required to fit 1.04T
 params in 512×16 GB (DESIGN.md §6).
+
+The published model (https://huggingface.co/moonshotai/Kimi-K2-Instruct/
+blob/main/config.json: latent attention, YaRN, a leading dense layer,
+sigmoid routing) is ``kimi_k2_instruct.py``'s ``kimi-k2-instruct-ep32``,
+one card's share of it.
 """
 from repro_torch.configs.base import ArchConfig, register
 

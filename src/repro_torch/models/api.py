@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import bfloat16
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.distributed import shardings as sh
 from repro_torch.models import encdec as encdec_lib
@@ -112,6 +112,9 @@ def _xlstm_cache_pspecs(cfg: ArchConfig, mesh):
 def _pspec_fns(cfg: ArchConfig):
     """(param_pspecs(mesh), cache_pspecs(mesh)) of the family."""
     fam = cfg.family
+    if isinstance(cfg, MLAConfig):
+        return (lambda mesh: tf_lib._refuse_mesh(cfg, mesh),
+                lambda mesh: tf_lib._refuse_mesh(cfg, mesh))
     if fam in ("dense", "moe", "vlm"):
         return (lambda mesh: tf_lib.decoder_param_pspecs(cfg, mesh),
                 lambda mesh: _kv_cache_pspec(cfg, mesh, lead=1))
@@ -160,6 +163,15 @@ def _family_fns(cfg: ArchConfig):
     batch, mesh), decode(params, batch, cache, cache_len, mesh),
     init_cache(b, s, device))."""
     fam = cfg.family
+    if isinstance(cfg, MLAConfig):
+        decoder = tf_lib.MLADecoder(cfg)      # keeps its decode graphs
+        return (
+            lambda init: tf_lib.init_mla_params(cfg, init),
+            lambda p, b, m: tf_lib.mla_forward_train(p, b["tokens"], cfg, m),
+            lambda p, b, m: tf_lib.mla_prefill(p, b["tokens"], cfg, m),
+            lambda p, b, c, cl, m: decoder(p, b["token"], c, cl, m),
+            lambda b, s, device: tf_lib.init_mla_cache(cfg, b, s,
+                                                       device=device))
     if fam in ("dense", "moe", "vlm"):
         return (
             lambda init: tf_lib.init_decoder_params(cfg, init),

@@ -73,24 +73,90 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 # RoPE family: standard / partial (chatglm) / M-RoPE (qwen2-vl)
 # ---------------------------------------------------------------------------
 def _rope_angles(positions: torch.Tensor, dim: int,
-                 theta: float) -> torch.Tensor:
-    """positions (..., S) → angles (..., S, dim/2) float32.  Rows that
-    a broadcast repeats (stride 0, as ``build_positions`` gives) are
-    computed once and broadcast again."""
+                 theta: float, inv: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """positions (..., S) → angles (..., S, dim/2) float32, at the
+    frequencies ``inv`` (default θ^(−2i/dim)).  Rows that a broadcast
+    repeats (stride 0, as ``build_positions`` gives) are computed once
+    and broadcast again."""
     while positions.dim() > 1 and positions.shape[0] > 1 and \
             positions.stride(0) == 0:
         positions = positions[:1]
-    exps = torch.arange(0, dim, 2, dtype=torch.float32,
-                        device=positions.device) / dim
-    inv = 1.0 / theta ** exps
+    if inv is None:
+        exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                            device=positions.device) / dim
+        inv = 1.0 / theta ** exps
     return positions.to(torch.float32)[..., None] * inv
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's temperature 0.1·mscale·ln(factor) + 1 (1 at factor ≤ 1)."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_correction_dim(rotations: float, dim: int, theta: float,
+                         orig: int) -> float:
+    """The rotary dim whose pair turns ``rotations`` times over ``orig``
+    positions."""
+    return dim * math.log(orig / (rotations * 2 * math.pi)) / (
+        2 * math.log(theta))
+
+
+def yarn_inv_freq(dim: int, theta: float, factor: float, orig: int,
+                  beta_fast: float, beta_slow: float,
+                  device=None) -> torch.Tensor:
+    """YaRN's frequencies, float32 (dim/2,): pairs below the dim that
+    turns ``beta_fast`` times over the trained ``orig`` positions keep
+    θ^(−2i/dim), pairs past the one that turns ``beta_slow`` times are
+    divided by ``factor``, with a linear ramp between (DeepSeek-V3's
+    ``DeepseekV3YarnRotaryEmbedding``)."""
+    low = max(math.floor(_yarn_correction_dim(beta_fast, dim, theta, orig)),
+              0)
+    high = min(math.ceil(_yarn_correction_dim(beta_slow, dim, theta, orig)),
+               dim - 1)
+    if low == high:
+        high += 0.001
+    base = theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=device) / dim)
+    extra, inter = 1.0 / base, 1.0 / (factor * base)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return inter * (1.0 - keep) + extra * keep
 
 
 def _apply_rotary(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """x (B, S, H, D) rotated pairwise by angles (B, S, D/2)."""
+    return apply_rotation(x, (torch.cos(angles)[..., None, :],
+                              torch.sin(angles)[..., None, :]))
+
+
+def yarn_rotation(positions: torch.Tensor, dim: int, theta: float,
+                  yarn: Tuple[float, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """YaRN's rotation at ``positions`` (B,S): (cos, sin) (B,S,1,dim/2)
+    float32 of the angles at ``yarn_inv_freq``'s frequencies, each times
+    m = yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim),
+    the factor the rotated vectors take, for ``yarn`` = (factor, original
+    positions, beta_fast, beta_slow, mscale, mscale_all_dim).  Computed
+    once a pass and given to every layer's ``apply_rotation``."""
+    factor, orig, fast, slow, mscale, mscale_all = yarn
+    inv = yarn_inv_freq(dim, theta, factor, int(orig), fast, slow,
+                        device=positions.device)
+    ang = _rope_angles(positions, dim, theta, inv)[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    m = yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all)
+    return (cos, sin) if m == 1.0 else (cos * m, sin * m)
+
+
+def apply_rotation(x: torch.Tensor,
+                   rotation: Tuple[torch.Tensor, torch.Tensor]
+                   ) -> torch.Tensor:
+    """x (B,S,H,D) rotated pairwise, (i, i + D/2), by ``yarn_rotation``'s
+    (cos, sin), in float32."""
+    cos, sin = rotation
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
 

@@ -24,16 +24,31 @@ Execution paths:
 Expert storage is padded to a multiple of ``max(moe_pad_to, 16)`` (the
 model axis of the reference's production mesh); the router keeps exactly
 ``moe_experts`` outputs, so padded slots are never routed to.
+
+``held_moe_ffn`` is the layer of an ``MLAConfig`` (DeepSeek-V3's routing):
+it holds ``experts_held`` experts of the ``moe_experts`` its router scores
+(ids ``experts_first`` on, one card's share under expert parallelism),
+routes every token over all of them, and computes only the (token, held
+expert) pairs, grouped by expert, with no capacity and no drop (a decode
+step runs them all, weighted, instead: ``_held_all_tokens``); the shared
+expert runs on every token.  What the
+experts held elsewhere add is not computed here (on one card, no
+exchange stands in for them).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import shardings as sh
 
 P = sh.P
+# (token, held expert) pairs computed, and tokens routed, by held_moe_ffn
+# (a decode step's by transformer.mla_decode_step)
+MOE_ROWS = obs.counter("lm.moe_rows")
+MOE_TOKENS = obs.counter("lm.moe_tokens")
 
 EXPERT_PAD_TO = 16   # the model-axis size of the reference's mesh
 
@@ -307,3 +322,118 @@ def moe_ffn(x: torch.Tensor, params: dict, cfg: ArchConfig, mesh=None,
         h = F.silu(x @ sh_p["w_gate"]) * (x @ sh_p["w_up"])
         out = out + (h @ sh_p["w_down"]).to(out.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the held-expert layer of an MLAConfig (DeepSeek-V3 routing)
+# ---------------------------------------------------------------------------
+def init_held_moe_params(cfg, init, dtype, lead: tuple = ()) -> dict:
+    """The router over all ``moe_experts`` (float32, with its
+    score-correction bias), the ``experts_held`` experts and the shared
+    expert, stacked on ``lead``."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.experts_held
+    fs = cfg.moe_d_ff * cfg.n_shared_experts
+    n = init.normal
+    return {
+        "router": n(lead + (d, cfg.moe_experts), d ** -0.5, torch.float32),
+        "router_bias": n(lead + (cfg.moe_experts,), 0.01, torch.float32),
+        "w_gate": n(lead + (e, d, f), d ** -0.5, dtype),
+        "w_up": n(lead + (e, d, f), d ** -0.5, dtype),
+        "w_down": n(lead + (e, f, d), f ** -0.5, dtype),
+        "shared": {"w_gate": n(lead + (d, fs), d ** -0.5, dtype),
+                   "w_up": n(lead + (d, fs), d ** -0.5, dtype),
+                   "w_down": n(lead + (fs, d), fs ** -0.5, dtype)},
+    }
+
+
+def route(x2d: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+          top_k: int, scale: float):
+    """x2d (T, d) → weights (T, k) float32, expert ids (T, k) int64:
+    sigmoid scores over every expert, the top k of scores + ``bias`` (the
+    bias picks, it does not weigh), their scores normalised to sum 1 and
+    times ``scale``."""
+    scores = torch.sigmoid(x2d.to(torch.float32) @ router)
+    idx = torch.topk(scores + bias, top_k, dim=-1).indices
+    w = torch.gather(scores, 1, idx)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * scale, idx
+
+
+def _shared_expert(x2d: torch.Tensor, params: dict) -> torch.Tensor:
+    sh_p = params["shared"]
+    h = F.silu(x2d @ sh_p["w_gate"]) * (x2d @ sh_p["w_up"])
+    return (h @ sh_p["w_down"]).to(torch.float32)
+
+
+def _held_all_tokens(x2d, w, idx, params, cfg) -> torch.Tensor:
+    """A decode step: every held expert runs on all its tokens in one
+    batched product, weighted by its routing weight (zero where the token
+    did not choose it), so nothing is read back to the host and the step
+    can be one CUDA graph, at any batch.  It reads every held expert's
+    weights where grouping reads only the chosen ones' (at Kimi-K2's
+    sizes 1.06 GB a layer, about a third of a millisecond on an H100,
+    against a read-back and ~60 host launches a layer).  Its t × held
+    pairs are counted by the decode step, which a replay skips."""
+    t, d = x2d.shape
+    n_held = cfg.experts_held
+    local = idx - cfg.experts_first
+    held = (local >= 0) & (local < n_held)
+    gate = torch.zeros((t, n_held), dtype=torch.float32,
+                       device=x2d.device).scatter_add_(
+        1, local.clamp(0, n_held - 1), torch.where(held, w, 0.0))
+    xe = x2d.expand(n_held, t, d)
+    h = F.silu(torch.bmm(xe, params["w_gate"])) * \
+        torch.bmm(xe, params["w_up"])
+    ye = torch.bmm(h, params["w_down"])
+    out = _shared_expert(x2d, params) + torch.einsum(
+        "etd,te->td", ye.to(torch.float32), gate)
+    return out.to(x2d.dtype)
+
+
+def held_moe_ffn(x: torch.Tensor, params: dict, cfg,
+                 decode: bool = False) -> torch.Tensor:
+    """x (B, S, d) → this card's part of the MoE layer: the routed pairs
+    on the held experts, weighted, plus the shared expert.  The pairs are
+    sorted by expert and each held expert runs once on its rows; their
+    weighted outputs are summed in float32 one choice slot at a time (a
+    token has one pair a slot, so the sums are in a fixed order).  A
+    ``decode`` step reads nothing back: ``_held_all_tokens``."""
+    b, s, d = x.shape
+    x2d = x.reshape(-1, d)
+    t, k = x2d.shape[0], cfg.moe_top_k
+    n_held = cfg.experts_held
+    with obs.span("lm.moe"):
+        w, idx = route(x2d, params["router"], params["router_bias"], k,
+                       cfg.moe_routed_scale)
+        if decode:
+            return _held_all_tokens(x2d, w, idx, params, cfg).reshape(b, s, d)
+        # pairs (t, j) as t·k + j; those on an expert held elsewhere sort
+        # last, under the key n_held, and one read brings the counts back
+        local = (idx - cfg.experts_first).reshape(-1)
+        held = (local >= 0) & (local < n_held)
+        key = torch.where(held, local, n_held)
+        counts = torch.cat([torch.bincount(key, minlength=n_held + 1)[:-1],
+                            held.view(t, k).sum(0)]).tolist()
+        per_expert, per_slot = counts[:n_held], counts[n_held:]
+        pair = torch.argsort(key, stable=True)[:sum(per_expert)]
+        tok, slot = pair // k, pair % k
+        xs = x2d[tok]
+        ys = torch.empty_like(xs)
+        lo = 0
+        for e, rows in enumerate(per_expert):
+            if rows:
+                h = F.silu(xs[lo:lo + rows] @ params["w_gate"][e]) * \
+                    (xs[lo:lo + rows] @ params["w_up"][e])
+                ys[lo:lo + rows] = h @ params["w_down"][e]
+            lo += rows
+        contrib = ys.to(torch.float32) * w.reshape(-1)[pair][:, None]
+        out = _shared_expert(x2d, params)
+        by_slot = torch.argsort(slot, stable=True)
+        lo = 0
+        for rows in per_slot:
+            if rows:
+                sel = by_slot[lo:lo + rows]
+                out.index_add_(0, tok[sel], contrib[sel])
+            lo += rows
+        MOE_ROWS.add(len(tok))
+        MOE_TOKENS.add(t)
+        return out.to(x.dtype).reshape(b, s, d)

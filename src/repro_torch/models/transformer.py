@@ -7,6 +7,15 @@ prefill and decode entry points (counterpart of
                         the KV cache;
   * ``decode_step``   — one token against a cache.
 
+An ``MLAConfig`` (DeepSeek-V3, Kimi K2) runs ``mla_forward_train`` /
+``mla_prefill`` / ``mla_decode_step`` instead: multi-head latent
+attention with YaRN rope, its dense layers then its MoE layers (two
+stacks, ``dense_layers`` and ``layers``), the held-expert MoE layer
+(``moe.held_moe_ffn``).  Prefill decompresses K and V from the latent and
+runs one fused causal attention (SDPA's cuDNN kernel on the card);
+decode attends over the latent cache {c_kv, k_rope} with the
+up-projections absorbed.  One card only: on a mesh it raises.
+
 Params are a nested dict of tensors in the reference's tree; the layers
 are stacked on a leading (n_layers, ...) axis, as ``jax.vmap`` init
 stacks them, and ``_scan_layers`` runs them one slice at a time (the
@@ -42,22 +51,26 @@ it (``models/linear.py::full_float32_matmul`` pins that for a block).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch import obs
+from repro_torch.configs.base import ArchConfig, MLAConfig
 from repro_torch.distributed import shardings as sh
 from repro_torch.distributed.sequence_parallel import merge_partial_attention
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (ParamInit, _attend_block,
                                        _init_block, apply_rope,
+                                       apply_rotation,
                                        blockwise_attention,
                                        hashed_embed_lookup,
-                                       hashed_embed_params, rmsnorm)
-from repro_torch.tree import leaves, tree_map, tree_stack
+                                       hashed_embed_params, rmsnorm,
+                                       swiglu, yarn_mscale, yarn_rotation)
+from repro_torch.tree import leaves, tree_map, tree_stack, unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 P = sh.P
@@ -725,6 +738,383 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     shape = (cfg.n_layers, batch, max_len, kv, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention: an MLAConfig (DeepSeek-V3, Kimi K2)
+# ---------------------------------------------------------------------------
+# bytes of the latent caches init_mla_cache allocates
+CACHE_BYTES = obs.counter("lm.cache_bytes")
+
+
+def _refuse_mesh(cfg: ArchConfig, mesh) -> None:
+    if mesh is not None:
+        raise ValueError(f"{cfg.name}: latent attention runs on one card; "
+                         "the port has no mesh path for it")
+
+
+def mla_softmax_scale(cfg: MLAConfig) -> float:
+    """(nope + rope)^−½, times YaRN's mscale(factor, mscale_all_dim)²."""
+    m = (yarn_mscale(cfg.rope_factor, cfg.rope_mscale_all_dim)
+         if cfg.rope_mscale_all_dim else 1.0)
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5 * m * m
+
+
+def _mla_norm(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """RMSNorm as ``layers.rmsnorm`` computes it (float32 inside), in one
+    call (four a layer, and a decode step's host time is its calls)."""
+    return F.rms_norm(x, (x.shape[-1],), scale, eps)
+
+
+def _mla_rotation(cfg: MLAConfig, positions: torch.Tensor):
+    """YaRN's rotation of the rope dims at ``positions``, for every layer."""
+    return yarn_rotation(positions, cfg.qk_rope_head_dim, cfg.rope_theta,
+                         (cfg.rope_factor, cfg.rope_original_max_pos,
+                          cfg.rope_beta_fast, cfg.rope_beta_slow,
+                          cfg.rope_mscale, cfg.rope_mscale_all_dim))
+
+
+def init_mla_layer_params(cfg: MLAConfig, init: ParamInit, dtype,
+                          lead: tuple, dense: bool) -> dict:
+    """One MLA block's params, stacked on ``lead``: the query's and the
+    latent's down- and up-projections with their norms, the output
+    projection, then a dense SwiGLU (``dense``) or the held-expert MoE."""
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    n, one = init.normal, lambda w: init.full(lead + (w,), 1.0, dtype)
+    p = {
+        "ln1": one(d),
+        "wq_a": n(lead + (d, ql), d ** -0.5, dtype),
+        "q_ln": one(ql),
+        "wq_b": n(lead + (ql, h * (nope + rope)), ql ** -0.5, dtype),
+        "wkv_a": n(lead + (d, kl + rope), d ** -0.5, dtype),
+        "kv_ln": one(kl),
+        "wkv_b": n(lead + (kl, h * (nope + vd)), kl ** -0.5, dtype),
+        "wo": n(lead + (h * vd, d), (h * vd) ** -0.5, dtype),
+        "ln2": one(d),
+    }
+    if dense:
+        f = cfg.d_ff
+        p["mlp"] = {"w_gate": n(lead + (d, f), d ** -0.5, dtype),
+                    "w_up": n(lead + (d, f), d ** -0.5, dtype),
+                    "w_down": n(lead + (f, d), f ** -0.5, dtype)}
+    else:
+        p["moe"] = moe_lib.init_held_moe_params(cfg, init, dtype, lead)
+    return p
+
+
+def init_mla_params(cfg: MLAConfig, init: ParamInit) -> dict:
+    dtype = _dtype(cfg)
+    params = init_embed_params(cfg, init, dtype)
+    params["dense_layers"] = init_mla_layer_params(
+        cfg, init, dtype, (cfg.first_k_dense,), dense=True)
+    params["layers"] = init_mla_layer_params(
+        cfg, init, dtype, (cfg.n_moe_layers,), dense=False)
+    return params
+
+
+def _mla_latents(lp, h, cfg: MLAConfig, rotation):
+    """h (B,S,d), normed → q_nope (B,S,H,nope), q_rope (B,S,H,rope)
+    rotated, c_kv (B,S,kv_lora) normed, k_rope (B,S,rope) rotated: what
+    the cache keeps is c_kv and k_rope."""
+    b, s, _ = h.shape
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = _mla_norm(h @ lp["wq_a"], lp["q_ln"], cfg.norm_eps)
+    q = (cq @ lp["wq_b"]).view(b, s, cfg.n_heads, nope + rope)
+    q_nope, q_rope = q.split([nope, rope], dim=-1)
+    c_kv, k_rope = (h @ lp["wkv_a"]).split([cfg.kv_lora_rank, rope], dim=-1)
+    c_kv = _mla_norm(c_kv, lp["kv_ln"], cfg.norm_eps)
+    return (q_nope, apply_rotation(q_rope, rotation), c_kv,
+            apply_rotation(k_rope[:, :, None], rotation)[:, :, 0])
+
+
+def _causal_attention(q, k, v, scale: float):
+    """q, k (B,S,H,Dqk), v (B,S,H,Dv) → (B,S,H,Dv): one fused causal
+    attention.  On the card only cuDNN's fused kernel may take it (no
+    S×S buffer, q·k wider than v; at MLA's 192/128 it ran 2.3 times the
+    rate of the flash backend with v padded to 192, on an H100)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    args = [t.transpose(1, 2) for t in (q, k, v)]
+    if q.device.type == "cuda":
+        with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+            out = F.scaled_dot_product_attention(*args, is_causal=True,
+                                                 scale=scale)
+    else:
+        out = F.scaled_dot_product_attention(*args, is_causal=True,
+                                             scale=scale)
+    return out.transpose(1, 2)
+
+
+def _mla_prefill_attention(lp, q_nope, q_rope, c_kv, k_rope,
+                           cfg: MLAConfig):
+    """K and V decompressed from the latent, then fused causal
+    attention → (B,S,H,v)."""
+    b, s, h, nope = q_nope.shape
+    rope, vd = cfg.qk_rope_head_dim, cfg.v_head_dim
+    k_nope, v = (c_kv @ lp["wkv_b"]).view(b, s, h, nope + vd).split(
+        [nope, vd], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, rope)], dim=-1)
+    return _causal_attention(q, k, v.contiguous(), mla_softmax_scale(cfg))
+
+
+def _mla_decode_attention(lp, q_nope, q_rope, c_kv, k_rope, cache, pos,
+                          cfg: MLAConfig):
+    """The new latent written into ``cache`` {c_kv, k_rope} (B,Smax,·) in
+    place at position ``pos`` (a (1,) int64 tensor on the device), then
+    attention over the latent cache up to it with the up-projections
+    absorbed: q_nope·W_UK scores against c_kv, the weights average c_kv,
+    W_UV lifts that to v → (B,1,H,v).  Shapes and control flow do not
+    depend on ``pos``, so a CUDA graph can replay the step."""
+    b, s, h, nope = q_nope.shape
+    kl, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    ck, cr = cache["c_kv"], cache["k_rope"]
+    ck.index_copy_(1, pos, c_kv)
+    cr.index_copy_(1, pos, k_rope)
+    w = lp["wkv_b"].view(kl, h, nope + vd)
+    # q·W_UK and P·c_kv·W_UV take bf16 operands and sum in float32, as the
+    # prefill's fused kernel takes q·k and P·V; the scores and the softmax
+    # are float32
+    q_lat = torch.einsum("bshn,chn->bshc", q_nope, w[..., :nope])
+    scores = torch.einsum(
+        "bshc,btc->bsht", q_lat.to(torch.float32),
+        ck.to(torch.float32)) + torch.einsum(
+        "bshr,btr->bsht", q_rope.to(torch.float32), cr.to(torch.float32))
+    later = torch.arange(ck.shape[1], device=ck.device) > pos
+    p = torch.softmax((scores * mla_softmax_scale(cfg)).masked_fill(
+        later, float("-inf")), dim=-1)
+    o_lat = torch.einsum("bsht,btc->bshc", p.to(ck.dtype), ck)
+    return torch.einsum("bshc,chv->bshv", o_lat, w[..., nope:])
+
+
+def mla_layer_apply(lp, x, *, cfg: MLAConfig, rotation, mode: str,
+                    cache: Optional[dict] = None, pos=None):
+    """One block → (x', the layer's latents {c_kv, k_rope} in prefill,
+    else None).  ``mode`` train | prefill | decode; ``rotation`` the
+    pass's ``_mla_rotation``; in decode ``pos`` the new token's position
+    (a (1,) int64 tensor)."""
+    b, s, _ = x.shape
+    h_in = _mla_norm(x, lp["ln1"], cfg.norm_eps)
+    with obs.span("lm.mla"):
+        q_nope, q_rope, c_kv, k_rope = _mla_latents(lp, h_in, cfg, rotation)
+        if mode == "decode":
+            out = _mla_decode_attention(lp, q_nope, q_rope, c_kv, k_rope,
+                                        cache, pos, cfg)
+        else:
+            out = _mla_prefill_attention(lp, q_nope, q_rope, c_kv, k_rope,
+                                         cfg)
+        x = x + out.reshape(b, s, -1) @ lp["wo"]
+    h2 = _mla_norm(x, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        y = moe_lib.held_moe_ffn(h2, lp["moe"], cfg,
+                                 decode=mode == "decode")
+    else:
+        m = lp["mlp"]
+        y = swiglu(h2, m["w_gate"], m["w_up"], m["w_down"])
+    new = {"c_kv": c_kv, "k_rope": k_rope} if mode == "prefill" else None
+    return x + y, new
+
+
+def _mla_stack(params, x, cfg: MLAConfig, body):
+    """``body(x, layer params, layer index)`` over the dense layers, then
+    the MoE layers (two stacks of different shapes) → (x, outputs)."""
+    ys = []
+    for key in ("dense_layers", "layers"):
+        for lp in _unstack(params[key]):
+            x, y = body(x, lp, len(ys))
+            ys.append(y)
+    return x, ys
+
+
+def _unstack(tree) -> list:
+    """A tree stacked on a leading axis → one tree a slice (views; one
+    ``unbind`` a leaf)."""
+    per_leaf = [torch.unbind(t) for t in leaves(tree)]
+    return [unflatten(tree, list(parts)) for parts in zip(*per_leaf)]
+
+
+def mla_forward_train(params, tokens, cfg: MLAConfig, mesh=None):
+    """tokens (B,S) → logits (B,S,V)."""
+    _refuse_mesh(cfg, mesh)
+    b, s = tokens.shape
+    rot = _mla_rotation(cfg, build_positions(cfg, b, s, device=tokens.device))
+    x, _ = _mla_stack(params, embed_tokens(params, tokens, cfg), cfg,
+                      lambda xc, lp, i: mla_layer_apply(
+                          lp, xc, cfg=cfg, rotation=rot, mode="train"))
+    return lm_head(params, x, cfg)
+
+
+def mla_prefill(params, tokens, cfg: MLAConfig, mesh=None):
+    """→ (last-position logits (B,V), the latent cache {c_kv
+    (L,B,S,kv_lora), k_rope (L,B,S,rope)})."""
+    _refuse_mesh(cfg, mesh)
+    b, s = tokens.shape
+    with obs.span("lm.prefill"):
+        rot = _mla_rotation(cfg, build_positions(cfg, b, s,
+                                                 device=tokens.device))
+        x, ys = _mla_stack(params, embed_tokens(params, tokens, cfg), cfg,
+                           lambda xc, lp, i: mla_layer_apply(
+                               lp, xc, cfg=cfg, rotation=rot,
+                               mode="prefill"))
+        cache = {name: torch.stack([y[name] for y in ys])
+                 for name in ("c_kv", "k_rope")}
+        return lm_head(params, x[:, -1:], cfg)[:, 0], cache
+
+
+def _mla_decode_body(params, token, pos, cache, cfg: MLAConfig):
+    """One decode step of tokens (B,1) at position ``pos`` ((1,) int64 on
+    their device) against the latent cache → logits (B,V).  Reads nothing
+    back to the host: on the card ``_DecodeGraph`` captures and replays
+    it."""
+    b = token.shape[0]
+    rot = _mla_rotation(cfg, pos.view(1, 1).expand(b, 1))
+    per_layer = _unstack(cache)
+    x, _ = _mla_stack(params, embed_tokens(params, token, cfg), cfg,
+                      lambda xc, lp, i: mla_layer_apply(
+                          lp, xc, cfg=cfg, rotation=rot, mode="decode",
+                          cache=per_layer[i], pos=pos))
+    return lm_head(params, x, cfg)[:, 0]
+
+
+class _DecodeGraph:
+    """``_mla_decode_body`` captured as one CUDA graph for one params tree
+    and one shape: the step's ~1,000 launches become one replay, so a
+    decode step costs the card's time and not the host's.  The graph owns
+    a cache of its shape and static token and position inputs; a
+    generation's first step copies its cache in (``load``) and carries on
+    with the graph's.  The capture runs the step eagerly first (on a side
+    stream, as capture asks).  It holds the params' tensors by weak
+    reference: the caller's params tree stays the caller's to drop."""
+
+    def __init__(self, params, token, pos, cache, cfg: MLAConfig):
+        self.leaves = [weakref.ref(t) for t in leaves(params)]
+        self.ticket = 0
+        # normal tensors, so that a later generation can write them under
+        # inference mode or outside it
+        with torch.inference_mode(False):
+            self.cache = {n: c.clone() for n, c in cache.items()}
+            self.token, self.pos = token.clone(), pos.clone()
+        dev = token.device
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.first = _mla_decode_body(params, self.token, self.pos,
+                                          self.cache, cfg)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits = _mla_decode_body(params, self.token, self.pos,
+                                           self.cache, cfg)
+
+    def fits(self, params) -> bool:
+        now = leaves(params)
+        return len(now) == len(self.leaves) and all(
+            r() is t for r, t in zip(self.leaves, now))
+
+    def load(self, cache) -> None:
+        for name, c in cache.items():
+            self.cache[name].copy_(c)
+
+    def __call__(self, token, pos):
+        self.token.copy_(token)
+        self.pos.copy_(pos)
+        self.graph.replay()
+        return self.logits
+
+
+class _GraphCache(dict):
+    """A generation's latent cache after its first step on the card: the
+    tensors of its ``_DecodeGraph``, and the ticket the graph gave this
+    generation."""
+
+    def __init__(self, graph: _DecodeGraph):
+        super().__init__(graph.cache)
+        self.graph, self.ticket = graph, graph.ticket
+
+
+class MLADecoder:
+    """``mla_decode_step`` of one config, as ``models/api.py`` hands it
+    out: on the card it keeps the decode graphs it captured, one a (batch,
+    cache shape, dtype, device), the last ``kept``, so that a run of
+    generations of a few shapes captures each once (an ``MLADecoder``
+    built afresh captures afresh, as after a change to the model's
+    functions).  One generation at a time a shape: a graph's cache is the
+    generation's that started last, and a step of an earlier one raises."""
+
+    def __init__(self, cfg: MLAConfig, kept: int = 4):
+        self.cfg, self.kept, self.graphs = cfg, kept, {}
+
+    def __call__(self, params, token, cache, cache_len, mesh=None):
+        return mla_decode_step(params, token, cache, cache_len, self.cfg,
+                               mesh, graphs=self)
+
+    def step(self, params, token, pos, cache):
+        """→ (logits, the cache the generation carries on with)."""
+        c = cache["c_kv"]
+        key = (tuple(token.shape), tuple(c.shape), c.dtype, c.device)
+        graph = self.graphs.get(key)
+        if graph is not None and graph.fits(params):
+            if getattr(cache, "graph", None) is graph:
+                if cache.ticket != graph.ticket:
+                    raise RuntimeError(
+                        "a later generation of this shape has taken the "
+                        "decode graph's cache: decode one generation at a "
+                        "time a shape")
+                return graph(token, pos), cache
+            graph.load(cache)
+            logits = graph(token, pos)
+        else:
+            self.graphs.pop(key, None)
+            graph = self.graphs[key] = _DecodeGraph(params, token, pos,
+                                                    cache, self.cfg)
+            while len(self.graphs) > self.kept:
+                self.graphs.pop(next(iter(self.graphs)))
+            logits = graph.first
+        graph.ticket += 1
+        return logits, _GraphCache(graph)
+
+
+def mla_decode_step(params, token, cache, cache_len, cfg: MLAConfig,
+                    mesh=None, graphs: Optional[MLADecoder] = None):
+    """token (B,1) against the latent cache (L,B,Smax,·), written at
+    ``cache_len`` → (logits (B,V), the cache to carry on with).  With
+    ``graphs`` on the card the step is a CUDA graph's replay
+    (``MLADecoder.step``): the cache returned is the graph's, the given
+    one copied into it at a generation's first step, and the logits are
+    the graph's, overwritten by the next step.  Otherwise the step runs
+    eagerly on the given cache, written in place.  Each step counts its
+    held-expert pairs here: a replay runs no Python."""
+    _refuse_mesh(cfg, mesh)
+    max_len = cache["c_kv"].shape[2]
+    if not 0 <= cache_len < max_len:
+        raise ValueError(f"decode at position {cache_len} of a cache of "
+                         f"{max_len}")
+    with obs.span("lm.decode_step"):
+        b = token.shape[0]
+        moe_lib.MOE_ROWS.add(cfg.n_moe_layers * b * cfg.experts_held)
+        moe_lib.MOE_TOKENS.add(cfg.n_moe_layers * b)
+        pos = torch.full((1,), cache_len, dtype=torch.int64,
+                         device=token.device)
+        if graphs is None or token.device.type != "cuda":
+            return _mla_decode_body(params, token, pos, cache, cfg), cache
+        return graphs.step(params, token, pos, cache)
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int, dtype=None,
+                   device=None) -> dict:
+    """The latent cache: c_kv (L,B,Smax,kv_lora) and k_rope
+    (L,B,Smax,rope), zeros."""
+    dtype = dtype or _dtype(cfg)
+    lead = (cfg.n_layers, batch, max_len)
+    cache = {"c_kv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype,
+                                 device=device),
+             "k_rope": torch.zeros(lead + (cfg.qk_rope_head_dim,),
+                                   dtype=dtype, device=device)}
+    CACHE_BYTES.add(sum(c.numel() * c.element_size()
+                        for c in cache.values()))
+    return cache
 
 
 # ---------------------------------------------------------------------------
