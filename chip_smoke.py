@@ -242,6 +242,14 @@ Phases, one line of output each (or more), any failure exits non-zero:
            and B4 (k=256) on the widest full 1,024-row chunk of the train
            corpus; B10 over the 20,000 indexed rows and over a typical
            candidate set.
+  b7_slices B7 at the TRON benchmark cell's training shape: 541,919 rows of
+           uniform random codes at k=500 (a few outside [0, V)) into a
+           (500, 65536, 1) table, float32 and bfloat16: one call through
+           bbit_linear_fwd must take the bin-slice schedule
+           (bbit_linear_fwd_sliced up by one), be the one pass's bits
+           and lie within 1e-5 of each row's sum of absolute terms of
+           the plain version (taken in 65,536-row chunks); its time,
+           the one pass's and the bound join the B7 lines as "sliced".
 
   lm       the LM zoo (ROADMAP A6a, no B-kernel and no plain version:
            the launch counters stay at 0): internlm2-1.8b as registered
@@ -369,6 +377,9 @@ STREAM_SHARDS, STREAM_STEPS, STREAM_CRASH_STEP = 8, 16, 9
 STREAM_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
 PREPROCESS_CHUNK = 1024              # preprocess_rows' chunk
 PAPER_K, PAPER_B = 500, 16           # configs/rcv1_bbit.py
+# B7's slice schedule: the TRON benchmark cell's training rows (n >= 1.75V),
+# checked against the plain version this many rows at a time
+SLICED_ROWS, SLICED_CHUNK = 541_919, 1 << 16
 # the serve phase: configs/rcv1_oph.py's serving deployment over HTTP on
 # the stream fit's published params; 4 client threads, requests of 1-64
 # held-out documents, 30 % of the documents sent repeats
@@ -2870,6 +2881,72 @@ def check_paper_shapes(torch, dev, labels, codes, params, errs):
     torch.cuda.empty_cache()
 
 
+def phase_b7_slices(torch, dev, card: str) -> dict:
+    """B7 where it walks its bins in slices: the TRON benchmark cell's
+    541,919 x 500 training codes (uniform random, with stray codes) into
+    a (500, 65536, 1) table in float32 and bfloat16.  Each call must count
+    as sliced, be the one pass's bits and lie within 1e-5 of each row's
+    sum of absolute terms of the plain version.  → {table type: record}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bbit_linear as bl
+    n, k, v = SLICED_ROWS, PAPER_K, 1 << PAPER_B
+    gen = torch.Generator(device=dev).manual_seed(31)
+    codes = torch.randint(0, v, (n, k), dtype=torch.int32, device=dev,
+                          generator=gen)
+    codes[0, :3] = torch.tensor([-1, v, v + 7], dtype=torch.int32)
+    codes[n - 1, k - 1] = -(1 << 20)
+    seen = torch.zeros(k * v, dtype=torch.bool, device=dev)
+    off = v * torch.arange(k, device=dev, dtype=torch.int64)
+    for lo in range(0, n, SLICED_CHUNK):
+        part = codes[lo:lo + SLICED_CHUNK].to(torch.int64)
+        ok = (part >= 0) & (part < v)
+        seen[(part + off)[ok]] = True
+    touched = int(seen.sum())
+    del seen
+    wide = torch.randn((k, v, 1), device=dev, generator=gen)
+    out = {}
+    for name, table in (("float32", wide), ("bfloat16",
+                                            wide.to(torch.bfloat16))):
+        width = bl.fwd_slices(n, k, v, 1, table.element_size(),
+                              _build.l2_bytes(dev.index))
+        before = bl.bbit_linear_fwd.sliced.value
+        got = bl.bbit_linear_fwd(codes, table)
+        torch.cuda.synchronize()
+        counted = bl.bbit_linear_fwd.sliced.value - before
+        same = _bitwise(torch, got, bl._fwd_launch(codes, table, k, k))
+        errs = {}
+        for lo in range(0, n, SLICED_CHUNK):
+            c = codes[lo:lo + SLICED_CHUNK]
+            _close(torch, "bbit_linear_fwd", errs, got[lo:lo + SLICED_CHUNK],
+                   bl.bbit_linear_fwd_plain(c, table),
+                   scale=bl.bbit_linear_fwd_plain(c, table.abs()))
+        shape = f"n={n} k={k} V={v} C=1 {name} table"
+        print(f"b7_slices: bbit_linear_fwd {shape}: {width} bins a slice, "
+              f"counted as sliced {counted}, bitwise the one pass={same}, "
+              f"vs plain max_abs_err={errs['bbit_linear_fwd']} within 1e-5 "
+              "of each row's sum of |terms|")
+        if counted != 1 or width >= k:
+            fail(f"bbit_linear_fwd at {shape} did not take the slices")
+        if not same:
+            fail(f"bbit_linear_fwd at {shape} is not the one pass's bits")
+        bnd = bound(4 * n * k + table.element_size() * touched + 4 * n,
+                    n * k, PEAK_F32_OPS_PER_S)
+        out[name] = dict(
+            shape=shape, width=width, max_abs_err=errs["bbit_linear_fwd"],
+            ms=time_ms(torch, lambda: bl.bbit_linear_fwd(codes, table), 20),
+            one_pass_ms=time_ms(
+                torch, lambda: bl._fwd_launch(codes, table, k, k), 20),
+            bound_ms=bnd[0], bound_by=bnd[1])
+        r = out[name]
+        print(f"timing: bbit_linear_fwd {shape} sliced ms={r['ms']} "
+              f"(one pass {r['one_pass_ms']}) bound_ms={bnd[0]} ({bnd[1]}) "
+              f"card={card}")
+        del got, table
+    del codes, wide
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 def _words(torch, t):
     """A tensor's bits: int16 for bfloat16, int32 for float32."""
@@ -4937,6 +5014,7 @@ def main() -> int:
                        train_data, paper_data, card, int_rate)
     timing_raw = run("timing_raw", phase_timing_raw, torch, dev,
                      train_data["rows"], search, card, int_rate)
+    sliced = run("b7_slices", phase_b7_slices, torch, dev, card)
     lm = run("lm", phase_lm, torch, dev, card)
     lm_mesh = run("lm_mesh", phase_lm_mesh, torch, dev, card)
     print(f"phases (s): {json.dumps(phase_s)}")
@@ -4967,6 +5045,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], **rec})
+        if name == "bbit_linear_fwd":
+            kernels[-1]["sliced"] = sliced["float32"]
     # the bfloat16 table instantiations of B5-B8: launched on the bf16
     # phase's main path only
     for name in KERNELS_BF16:
@@ -4979,6 +5059,8 @@ def main() -> int:
                         "launches": bf16["counts"][name],
                         "max_abs_err": bf16["kernels"]["errs"][name],
                         **bf16["kernels"]["main"][name]})
+        if name == "bbit_linear_fwd_bf16":
+            kernels[-1]["sliced"] = sliced["bfloat16"]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "int32_ops_per_s": int_rate,
@@ -4986,7 +5068,8 @@ def main() -> int:
                        "kernels": kernels, "edge_max_abs_err": edge_errs,
                        "timing": timing["shapes"],
                        "timing_train": timing_train["shapes"],
-                       "timing_raw": timing_raw["shapes"], "train": train,
+                       "timing_raw": timing_raw["shapes"],
+                       "b7_slices": sliced, "train": train,
                        "paper": paper, "stream": stream, "dp": dp,
                        "serve": serve, "bf16": bf16,
                        "linear": linear, "calibrate": calib, "lm": lm,

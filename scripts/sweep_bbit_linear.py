@@ -8,6 +8,7 @@ TRON fits' shapes.
     python3 scripts/sweep_bbit_linear.py [--out sweep.json]
     python3 scripts/sweep_bbit_linear.py --wrappers [--root DIR] [--out f]
     python3 scripts/sweep_bbit_linear.py --stages [--out f]
+    python3 scripts/sweep_bbit_linear.py --slices [--out f]
 
 B6 runs on ``chip_smoke.py``'s train corpus (20,000 synthetic documents,
 seed 11): the minwise codes of ``preprocess_rows`` (k=256, b=8, hash
@@ -27,7 +28,16 @@ rows of random codes (numpy seed 0) at k=256, V=256 and k=500, V=65536,
 C=1: B7 at each bin group (``_fwd_launch``), B8's plan kernel and its sum
 at each span of values a block (``_dw_sum_launch``), and
 ``bbit_linear_bwd_dw`` with its cached plan, each held to its plain
-version (B7 within 1e-5 of each row's sum of absolute terms).
+version (B7 within 1e-5 of each row's sum of absolute terms).  Then B7
+at the paper's width, k=500 over V=65536 with uniform random codes, at
+16,000, 65,536, 98,304, 114,688, 135,480 and 541,919 rows (the smoke
+test's training rows; n = V, 1.5V and 1.75V, about ``fwd_slices``'
+crossover; the TRON cell's test and training sets): one pass and each
+bin-slice width (32-160 bins a slice for a float32 table, 64-320 for
+bfloat16), each the one pass's bits, ``fwd_slices``' width marked and
+printed, with the gathers a second; beside them the control, one pass
+over a V=4096 table (8.2 MB, inside L2) at the same rows.  ``--slices``
+runs only that part.
 
 ``--wrappers`` times only B6's public wrapper at its six inputs, beside
 ``torch.bincount``, and the device time of each kernel one call of it
@@ -67,6 +77,13 @@ GROUP = 32                          # rows a warp of B6 takes at once
 STAGES = ("set up", "rows staged", "groups summed", "warps merged",
           "cluster barrier", "dW stored", "last barrier")
 PROBE_MARKS = 10                    # int64 a block: 7 marks, 8 start, 9 end
+# B7's bin slices: the smoke test's training rows, V, 1.5V and 1.75V rows
+# (about the crossover), the TRON cell's test and training rows; bins a
+# slice by table type; the control's V
+SLICE_ROWS = (16_000, 65_536, 98_304, 114_688, 135_480, 541_919)
+SLICE_WIDTHS = {"float32": (32, 64, 96, 128, 160),
+                "bfloat16": (64, 128, 192, 256, 320)}
+CONTROL_V = 4096
 
 
 def within(got, want, scale) -> bool:
@@ -158,6 +175,8 @@ def main() -> int:
                     help="time only B6's public wrapper")
     ap.add_argument("--stages", action="store_true",
                     help="B6's stage marks at the wrapper's layouts")
+    ap.add_argument("--slices", action="store_true",
+                    help="only B7's bin slices at the paper's width")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose src/repro_torch to time")
     args = ap.parse_args()
@@ -197,6 +216,10 @@ def main() -> int:
 
     def timed(fn, iters):
         return cs.time_ms(torch, fn, iters)
+
+    if args.slices:
+        b7_slices(torch, bl, _build, dev, note, timed)
+        return finish(args, card, rows)
 
     # B6's inputs: the train corpus's codes, and the two brackets
     k, b = cs.K, cs.B
@@ -335,7 +358,7 @@ def main() -> int:
         scale = bl.bbit_linear_fwd_plain(codes, table.abs())
         chosen = bl.fwd_layout(k, v, 1)
         for group in sorted({16, 32, 64, 128, k}):
-            fn = lambda: bl._fwd_launch(codes, table, group)
+            fn = lambda: bl._fwd_launch(codes, table, group, k)
             ok = within(fn(), want, scale)
             note("bbit_linear_fwd", shape, f"group={group}",
                  timed(fn, 50), ok, group == chosen)
@@ -367,7 +390,44 @@ def main() -> int:
             flat1, weights=w_rep, minlength=k * v), 20), True, False)
         del dw_want, dw_scale, plan, flat, flat1, table
         torch.cuda.empty_cache()
+    b7_slices(torch, bl, _build, dev, note, timed)
     return finish(args, card, rows)
+
+
+def b7_slices(torch, bl, _build, dev, note, timed) -> None:
+    """B7 at k=500, V=65536 over each bin-slice width and one pass, at
+    ``SLICE_ROWS``, beside one pass over a V=4096 table (the control)."""
+    k, v = 500, 1 << 16
+    l2 = _build.l2_bytes(dev.index)
+    print(f"L2 bytes: {l2}", flush=True)
+    for n in SLICE_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(n)
+        codes = torch.randint(0, v, (n, k), dtype=torch.int32, device=dev,
+                              generator=gen)
+        for name, widths in SLICE_WIDTHS.items():
+            table = torch.randn((k, v, 1), device=dev,
+                                generator=gen).to(getattr(torch, name))
+            shape = f"n={n} k={k} V={v} C=1 {name}"
+            one = bl._fwd_launch(codes, table, k, k)
+            chosen = bl.fwd_slices(n, k, v, 1, table.element_size(), l2)
+            print(f"fwd_slices {shape}: {chosen} bins a slice", flush=True)
+            for width in (*widths, k):
+                fn = lambda: bl._fwd_launch(codes, table, k, width)
+                ms = timed(fn, 20)
+                note("bbit_linear_fwd", shape,
+                     "one pass" if width == k else f"slices of {width}", ms,
+                     torch.equal(fn().view(torch.int32),
+                                 one.view(torch.int32)), width == chosen,
+                     gathers_g_per_s=round(n * k / ms / 1e6, 3))
+            del table, one
+        small = codes.remainder_(CONTROL_V)
+        table = torch.randn((k, CONTROL_V, 1), device=dev, generator=gen)
+        ms = timed(lambda: bl._fwd_launch(small, table, k, k), 20)
+        note("bbit_linear_fwd", f"n={n} k={k} V={CONTROL_V} C=1 float32",
+             "one pass (control: the table inside L2)", ms, True, False,
+             gathers_g_per_s=round(n * k / ms / 1e6, 3))
+        del codes, small, table
+        torch.cuda.empty_cache()
 
 
 def finish(args, card: str, rows: list) -> int:

@@ -32,9 +32,9 @@
 // in float32 and write dW as float32 or, for a bfloat16 table, as
 // bfloat16 rounded to nearest even (the output type a template argument):
 // the bits of the float32 dW rounded by torch's .to(torch.bfloat16).  The
-// 2-byte table halves the table and dW's bytes; B7's gathers gain little
-// from it, as B7 takes nearly as long on a table that fits L2 (8 MB) as
-// on the 131 MB one (scripts/sweep_table_dtypes.py; PERF.md section 6).
+// 2-byte table halves the table and dW's bytes; B7's gathers gain from it
+// only where the rows gather each table value many times, as a smaller
+// table keeps more of itself in L2 (PERF.md section 6).
 //
 // B7 bbit_linear_fwd replaces bbit_linear.py::bbit_linear_fwd_pallas: the
 //   same sum from widened int32 (n, k) codes.  Bound: bytes -- the codes
@@ -42,20 +42,28 @@
 //   holds a gather back is where the table lies: at b=16 the (500, 65536)
 //   table is 131 MB, 2.6x the L2, and gathers that miss it at random pull
 //   a whole DRAM sector for 4 useful bytes; at b=8 the (256, 256) table
-//   sits in L2, and a gather that misses L1 still costs an L2 sector.
-//   Design, after the TPU kernel's own grid (row blocks, bin blocks, the
-//   bins the accumulation axis): a grid of (row tiles, bin groups), the
-//   group the slower index, so the blocks resident together read one
-//   group's slice of the table.  Where a 32-bin slice fits L1 (V x C <=
-//   512) a group is 32 bins; else one group of all k, as the gathers go
-//   to L2 or DRAM either way (kernels/bbit_linear.py::fwd_layout, from
-//   the shapes alone).  A thread takes one row of one group, 32 bins at a
-//   time: it loads the 32 codes (16 bytes at a time where rows are
-//   16-byte aligned) before any of their gathers, so 32 gathers are in
-//   flight, sums each chunk in a fixed tree and the chunks in order.
-//   With more than one group, each
-//   group writes its partial logits and a second kernel adds them in
-//   group order.  No float atomics: the same bits on every run.
+//   sits in L2, and a gather that misses L1 still costs an L2 sector.  At
+//   541,919 rows every table value is gathered 8.3 times a call: one pass
+//   over all bins gathers 58 G values/s on an H100, a table inside L2 124
+//   G/s (PERF.md section 6).  Design, after the TPU kernel's own grid (row
+//   blocks, bin blocks, the bins the accumulation axis): a grid of (row
+//   tiles, bin groups), the group the slower index, so the blocks resident
+//   together read one group's slice of the table.  Where a 32-bin slice
+//   fits L1 (V x C <= 512) a group is 32 bins, and each group writes its
+//   partial logits, which a second kernel adds in group order.  Else one
+//   group of all k, and where the table passes a sixth of the L2 and the
+//   rows gather each value 1.75 times or more, the bins are walked in slices
+//   whose part of the table fits that sixth: one launch a slice, in bin
+//   order, so the whole card gathers from one slice at a time, from L2;
+//   each launch carries on from the sums the last one left in out
+//   (kernels/bbit_linear.py::fwd_layout and fwd_slices, from the shapes
+//   and the card's L2 alone).  A thread takes one row of one group or
+//   slice, 32 bins at a time: it loads the 32 codes (16 bytes at a time
+//   where rows are 16-byte aligned) before any of their gathers, so 32
+//   gathers are in flight, sums each chunk in a fixed tree and adds the
+//   chunks to its sum in bin order.  A slice ends on a chunk's edge, so a
+//   row's logits are the same bits at any slice width.  No float atomics:
+//   the same bits on every run.
 //
 // B8 bbit_linear_bwd_dw replaces bbit_linear.py::bbit_linear_bwd_dw_pallas:
 //   dW[j, v, c] = sum_n 1{codes[n, j] = v} * dout[n, c].  Bound: bytes --
@@ -341,24 +349,25 @@ cudaError_t launch_packed_fwd_bits(int bits, int blocks, int rows, bool vec,
   }
 }
 
-// B7.  grid (ceil(n / kFwdThreads), ceil(k / group)), the bin group on y;
-// out is (groups, n, c): each group's partial logits (the logits
-// themselves when there is one group).  A thread takes one row's bins of
-// its group, 32 at a time, in order.  kVec: rows start 16-byte aligned.
-// T: the table's type.
+// B7.  grid (ceil(n / kFwdThreads), ceil(k / group)), the bin group on y,
+// the bins from j_base on: out is (groups, n, c), each group's partial
+// logits (the logits themselves when there is one group).  A thread takes
+// one row's bins of its group, 32 at a time, in order.  With j_base > 0
+// (a later bin slice, one group) the thread carries on from the sums that
+// out holds.  kVec: rows start 16-byte aligned.  T: the table's type.
 template <bool kVec, typename T>
 __global__ void __launch_bounds__(kFwdThreads)
 bbit_linear_fwd_kernel(const int32_t* __restrict__ codes,
                        const T* __restrict__ w, float* __restrict__ out,
-                       int n, int k, int v, int c, int group) {
+                       int n, int k, int v, int c, int j_base, int group) {
   const int row = blockIdx.x * kFwdThreads + threadIdx.x;
   if (row >= n) return;
-  const int j_lo = blockIdx.y * group;
+  const int j_lo = j_base + blockIdx.y * group;
   const int j_hi = min(k, j_lo + group);
   const int32_t* crow = codes + static_cast<size_t>(row) * k;
   float* dst = out + (static_cast<size_t>(blockIdx.y) * n + row) * c;
   for (int cc = 0; cc < c; ++cc) {
-    float acc = 0.f;
+    float acc = j_base > 0 ? dst[cc] : 0.f;
     for (int j0 = j_lo; j0 < j_hi; j0 += kFwdChunk) {
       const int len = min(kFwdChunk, j_hi - j0);
       int code[kFwdChunk];
@@ -405,13 +414,13 @@ bbit_linear_fwd_kernel(const int32_t* __restrict__ codes,
 template <typename T>
 void launch_fwd(dim3 grid, bool vec, cudaStream_t st, const int32_t* codes,
                 const T* w, float* out, int n, int k, int v, int c,
-                int group) {
+                int j_base, int group) {
   if (vec) {
-    bbit_linear_fwd_kernel<true, T>
-        <<<grid, kFwdThreads, 0, st>>>(codes, w, out, n, k, v, c, group);
+    bbit_linear_fwd_kernel<true, T><<<grid, kFwdThreads, 0, st>>>(
+        codes, w, out, n, k, v, c, j_base, group);
   } else {
-    bbit_linear_fwd_kernel<false, T>
-        <<<grid, kFwdThreads, 0, st>>>(codes, w, out, n, k, v, c, group);
+    bbit_linear_fwd_kernel<false, T><<<grid, kFwdThreads, 0, st>>>(
+        codes, w, out, n, k, v, c, j_base, group);
   }
 }
 
@@ -1055,11 +1064,14 @@ extern "C" int repro_bbit_linear_packed_fwd(const void* packed, const void* w,
 }
 
 // Launches B7: out (n, c), part (groups, n, c) scratch (unused when there
-// is one group); bf16: the table w is bfloat16 (else float32).
+// is one group); with one group (group >= k), one launch a slice of
+// `width` bins, in bin order, each carrying on from the sums of the one
+// before in out; bf16: the table w is bfloat16 (else float32).
 extern "C" int repro_bbit_linear_fwd(const void* codes, const void* w,
                                      void* part, void* out, int n, int k,
-                                     int v, int c, int group, int vec,
-                                     int bf16, int device, void* stream) {
+                                     int v, int c, int group, int width,
+                                     int vec, int bf16, int device,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1068,22 +1080,32 @@ extern "C" int repro_bbit_linear_fwd(const void* codes, const void* w,
     return static_cast<int>(cudaMemsetAsync(
         out, 0, static_cast<size_t>(n) * c * sizeof(float), st));
   }
-  if (group < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (group < 1 || width < 1 ||
+      (width < k && (group < k || width % repro_torch::kFwdChunk != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int groups = (k + group - 1) / group;
+  const int slices = groups == 1 ? (k + width - 1) / width : 1;
   const dim3 grid((n + repro_torch::kFwdThreads - 1) / repro_torch::kFwdThreads,
                   groups);
   float* dst = static_cast<float*>(groups == 1 ? out : part);
   const int32_t* cp = static_cast<const int32_t*>(codes);
-  if (bf16) {
-    repro_torch::launch_fwd(grid, vec, st, cp,
-                            static_cast<const __nv_bfloat16*>(w), dst, n, k,
-                            v, c, group);
-  } else {
-    repro_torch::launch_fwd(grid, vec, st, cp, static_cast<const float*>(w),
-                            dst, n, k, v, c, group);
+  for (int s = 0; s < slices; ++s) {
+    const int j_base = s * width;
+    const int bins = slices == 1 ? group : width;
+    if (bf16) {
+      repro_torch::launch_fwd(grid, vec, st, cp,
+                              static_cast<const __nv_bfloat16*>(w), dst, n,
+                              k, v, c, j_base, bins);
+    } else {
+      repro_torch::launch_fwd(grid, vec, st, cp,
+                              static_cast<const float*>(w), dst, n, k, v, c,
+                              j_base, bins);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || groups == 1) return static_cast<int>(err);
+  if (groups == 1) return 0;
   const size_t total = static_cast<size_t>(n) * c;
   const int blocks =
       static_cast<int>(std::min((total + 255) / 256, size_t{4096}));

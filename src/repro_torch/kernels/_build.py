@@ -44,7 +44,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "bbit_linear": {
         "repro_bbit_linear_packed_fwd": [P, P, P, P, I, I, I, I, I, I, I,
                                          I, I, I, I, P],
-        "repro_bbit_linear_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, P],
+        "repro_bbit_linear_fwd": [P, P, P, P, I, I, I, I, I, I, I, I, I, P],
         "repro_bbit_linear_dw_plan": [P, P, P, P, P, P, P, I, I, I, I, I,
                                       P],
         "repro_bbit_linear_dw_sum": [P, P, P, P, P, I, I, I, I, I, I, I, I,
@@ -180,6 +180,12 @@ def on_cpu(what: str, t: torch.Tensor) -> bool:
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(index: int) -> int:
+    """Bytes of L2 cache of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).L2_cache_size
 
 
 def stream(t: torch.Tensor) -> int:

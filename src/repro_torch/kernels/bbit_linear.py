@@ -51,9 +51,13 @@ from repro_torch.obs import LaunchCount
 from repro_torch.kernels.fused_encode import check_bits
 
 # B7: bins a thread gathers at once (csrc kFwdChunk), and the bytes of
-# a 32-bin slice of the table that still fit L1 beside other blocks
+# a 32-bin slice of the table that still fit L1 beside other blocks; the
+# share of the card's L2 that a bin slice's part of the table may take,
+# and the times a call must gather each table value before slices pay
 FWD_CHUNK = 32
 FWD_L1_SLICE_BYTES = 64 << 10
+FWD_L2_SHARE = 1 / 6
+FWD_SLICE_REUSE = 1.75
 # B8: the plans kept; the entries a sum block aims at (four windows of
 # csrc kSumWindow) and its values at most (kSumMaxSpan)
 DW_PLAN_CACHE_ENTRIES = 4
@@ -121,11 +125,31 @@ def fwd_layout(k: int, v: int, c: int) -> int:
     """B7's bins per group for a (k, V, C) table, from the shapes alone:
     32 where a 32-bin slice of the table fits L1 (``FWD_L1_SLICE_BYTES``),
     so that the blocks resident on an SM share one slice; else all k in
-    one group, since the gathers then go to L2 or DRAM either way and
-    one group needs no second pass."""
+    one group, which needs no second pass (walked in bin slices where
+    ``fwd_slices`` says so)."""
     if FWD_CHUNK * 4 * v * c <= FWD_L1_SLICE_BYTES:
         return FWD_CHUNK
     return max(k, 1)
+
+
+def fwd_slices(n: int, k: int, v: int, c: int, itemsize: int,
+               l2_bytes: int) -> int:
+    """B7's bins a slice for n rows over a (k, V, C) table of
+    ``itemsize``-byte values on a card with ``l2_bytes`` of L2, from these
+    alone: k (one pass) on the L1 path (``fwd_layout``'s 32-bin groups),
+    where the whole table fits ``FWD_L2_SHARE`` of the L2, or where the
+    rows gather each table value fewer than ``FWD_SLICE_REUSE`` times
+    (nearly every miss is then a first touch); else the most bins, a
+    multiple of ``FWD_CHUNK`` and at least one chunk, whose part of the
+    table fits that share.  Slices end on chunk boundaries, so a row's
+    logits are the same bits at any width."""
+    k1 = max(k, 1)
+    per_bin = v * c * itemsize
+    budget = int(l2_bytes * FWD_L2_SHARE)
+    if (fwd_layout(k, v, c) < k1 or k * per_bin <= budget
+            or n < FWD_SLICE_REUSE * v):
+        return k1
+    return min(max(budget // per_bin // FWD_CHUNK, 1) * FWD_CHUNK, k1)
 
 
 def bbit_linear_fwd_plain(codes: torch.Tensor, weights: torch.Tensor,
@@ -350,10 +374,11 @@ def _check_codes(what: str, codes: torch.Tensor) -> None:
                          f"{codes.dtype} {tuple(codes.shape)}")
 
 
-def _fwd_launch(codes: torch.Tensor, weights: torch.Tensor,
-                group: int) -> torch.Tensor:
+def _fwd_launch(codes: torch.Tensor, weights: torch.Tensor, group: int,
+                width: int) -> torch.Tensor:
     """Launches B7 with ``group`` bins per group (``fwd_layout``'s, on
-    the main path)."""
+    the main path) and, in one group, ``width`` bins a slice
+    (``fwd_slices``'; k: one pass)."""
     n, k = codes.shape
     v, c = weights.shape[1], weights.shape[2]
     groups = -(-k // group)
@@ -368,7 +393,7 @@ def _fwd_launch(codes: torch.Tensor, weights: torch.Tensor,
     with torch.cuda.device(codes.device):
         code = lib.repro_bbit_linear_fwd(
             codes.data_ptr(), weights.data_ptr(), part.data_ptr(),
-            out.data_ptr(), n, k, v, c, group, int(vec),
+            out.data_ptr(), n, k, v, c, group, width, int(vec),
             int(weights.dtype == torch.bfloat16), codes.device.index,
             _build.stream(codes))
     _build.check("bbit_linear", code, "bbit_linear_fwd")
@@ -378,21 +403,27 @@ def _fwd_launch(codes: torch.Tensor, weights: torch.Tensor,
 def bbit_linear_fwd(codes: torch.Tensor,
                     weights: torch.Tensor) -> torch.Tensor:
     """B7: logits f32 (n, C) from int32 codes (n, k) and a table f32 or
-    bf16 (k, V, C); codes outside [0, V) add nothing."""
+    bf16 (k, V, C); codes outside [0, V) add nothing.  A call that walks
+    the bins in slices (``fwd_slices``) counts on ``sliced`` too."""
     if _build.on_cpu("bbit_linear_fwd", codes):
         return bbit_linear_fwd_plain(codes, weights)
     _check_codes("bbit_linear_fwd", codes)
-    k = codes.shape[1]
+    n, k = codes.shape
     _check_table("bbit_linear_fwd", weights, k, 1)
     _check_same_device("bbit_linear_fwd", codes, weights)
-    out = _fwd_launch(codes, weights,
-                      fwd_layout(k, weights.shape[1], weights.shape[2]))
+    v, c = weights.shape[1], weights.shape[2]
+    width = fwd_slices(n, k, v, c, weights.element_size(),
+                       _build.l2_bytes(codes.device.index))
+    out = _fwd_launch(codes, weights, fwd_layout(k, v, c), width)
     _count(bbit_linear_fwd, weights.dtype)
+    if width < k:
+        bbit_linear_fwd.sliced.add()
     return out
 
 
 bbit_linear_fwd.launches = LaunchCount()
 bbit_linear_fwd.launches_bf16 = LaunchCount()
+bbit_linear_fwd.sliced = LaunchCount()
 
 
 def bbit_linear_dw_plan(codes: torch.Tensor, vsize: int) -> DwPlan:

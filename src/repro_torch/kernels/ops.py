@@ -42,7 +42,8 @@ the gradient in the table, the dW kernel (B8, B6).  Integer inputs carry
 no gradient.  B8 keeps a plan of each codes tensor it sees (see
 ``kernels/bbit_linear.py``); ``counts()`` shows the plans built as
 ``bbit_linear_bwd_dw_plans`` and the kept plans served as
-``bbit_linear_bwd_dw_plan_hits``.
+``bbit_linear_bwd_dw_plan_hits``; B7's calls that walked the bins in
+L2-sized slices count as ``bbit_linear_fwd_sliced``.
 
 ``counts()`` is ``obs.counts()``: these counters, registered in ``obs``
 under the names below, every other counter of the program (a fit's
@@ -104,14 +105,16 @@ for _name, _count in PLAIN.items():
     obs.counter(f"{_name}_plain", _count)
 obs.counter("bbit_linear_bwd_dw_plans", PLAN_BUILDS)
 obs.counter("bbit_linear_bwd_dw_plan_hits", PLAN_HITS)
+obs.counter("bbit_linear_fwd_sliced", _bl.bbit_linear_fwd.sliced)
 obs.declare("dispatch.choose")
 
 
 def counts() -> Dict[str, int]:
     """{kernel: launches, kernel + "_plain": plain calls,
     "bbit_linear_bwd_dw_plans": B8's plans built,
-    "bbit_linear_bwd_dw_plan_hits": kept plans served, and every other
-    counter and span total of ``obs``}."""
+    "bbit_linear_bwd_dw_plan_hits": kept plans served,
+    "bbit_linear_fwd_sliced": B7's calls that walked the bins in slices,
+    and every other counter and span total of ``obs``}."""
     return obs.counts()
 
 

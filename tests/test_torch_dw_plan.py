@@ -134,6 +134,49 @@ def test_fwd_layout_is_a_function_of_the_shapes(k, v, c, want):
     assert bl.fwd_layout(k, v, c) == want
 
 
+H100_L2 = 50 << 20
+
+
+@pytest.mark.parametrize("n,k,v,c,itemsize,l2,want", [
+    (541_919, 500, 1 << 16, 1, 4, H100_L2, 32),   # the TRON cell's training
+    (541_919, 500, 1 << 16, 1, 2, H100_L2, 64),   # rows, float32 / bfloat16
+    (135_480, 500, 1 << 16, 1, 4, H100_L2, 32),   # its test rows
+    (135_480, 500, 1 << 16, 1, 2, H100_L2, 64),
+    (16_000, 500, 1 << 16, 1, 4, H100_L2, 500),   # chip_smoke's: one pass
+    (64, 500, 1 << 16, 1, 4, H100_L2, 500),       # a serving batch
+    (98_304, 500, 1 << 16, 1, 2, H100_L2, 500),   # each value read 1.5x
+    (114_687, 500, 1 << 16, 1, 4, H100_L2, 500),  # each value read < 1.75x
+    (114_688, 500, 1 << 16, 1, 4, H100_L2, 32),
+    (131_072, 500, 1 << 16, 1, 4, H100_L2, 32),
+    (541_919, 500, 1 << 16, 3, 4, H100_L2, 32),   # C=3: one chunk at least
+    (541_919, 500, 256, 1, 4, H100_L2, 500),      # the L1 path's groups
+    (541_919, 100, 1 << 16, 1, 4, H100_L2, 32),   # 32, 32, 32 and 4 bins
+    (541_919, 500, 4096, 1, 4, H100_L2, 500),     # 8.2 MB: inside the share
+    (541_919, 500, 1 << 16, 1, 4, 2 * H100_L2, 64),   # twice the L2
+    (541_919, 0, 1 << 16, 1, 4, H100_L2, 1),
+])
+def test_fwd_slices_is_a_function_of_the_shapes(n, k, v, c, itemsize, l2,
+                                                want):
+    assert bl.fwd_slices(n, k, v, c, itemsize, l2) == want
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 100, 500, 4096])
+@pytest.mark.parametrize("v", [2, 256, 4096, 1 << 16])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_fwd_slices_end_on_chunk_boundaries(k, v, c, itemsize):
+    """Slices hold whole 32-bin chunks, so each row's logits keep the one
+    pass's fixed tree a chunk and its chunk order, bit for bit; a slice's
+    part of the table fits the L2 share unless it is one chunk."""
+    width = bl.fwd_slices(541_919, k, v, c, itemsize, H100_L2)
+    assert 1 <= width <= max(k, 1)
+    if width < k:
+        assert width % bl.FWD_CHUNK == 0
+        assert (width == bl.FWD_CHUNK or width * v * c * itemsize
+                <= bl.FWD_L2_SHARE * H100_L2)
+        assert bl.fwd_layout(k, v, c) == k
+
+
 @pytest.mark.parametrize("n,v,span,passes", [
     (16000, 256, 128, 1),             # rcv1_oph
     (16000, 1 << 16, 2048, 2),        # the paper fits

@@ -49,7 +49,7 @@ import torch
 from repro_torch.core.oph import OPHHash
 from repro_torch.core.universal_hash import MultiplyShiftHash
 from repro_torch.core.bbit import pack_codes
-from repro_torch.kernels import (bbit_linear, fused_encode, hamming,
+from repro_torch.kernels import (_build, bbit_linear, fused_encode, hamming,
                                  minhash, ops, oph, vw_sketch)
 from repro_torch.models.linear import BBitLinearConfig, init_bbit_linear
 from repro_torch.serving import HashedClassifierEngine
@@ -669,6 +669,88 @@ def test_fwd_kernel_with_a_ragged_last_bin_group(cuda, n, bits, k, c):
     assert torch.equal(got, again)
     for ref in (want, grouped):
         assert bool(((got - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("k", [500, 499])
+def test_fwd_slices_are_the_one_pass_bits_at_the_paper_width(cuda, dtype, c,
+                                                             k):
+    """B7 at the TRON cell's 541,919 rows over a (k, 65536, C) table walks
+    its bins in L2-sized slices (``fwd_slices``) and gives the one-pass
+    schedule's logits bit for bit (``_fwd_launch`` with width k): float32
+    and bfloat16 tables, C of 1 and 3, about 5 % of the codes outside
+    [0, V), k=500 (16-byte code loads) and k=499 (one code a load), each
+    with a ragged last slice; the call counts once on ``launches`` and on
+    ``sliced``; its first rows within 1e-5 of the plain version."""
+    n, v = 541_919, 1 << 16
+    gen = torch.Generator(device=cuda).manual_seed(31 * k + c)
+    codes = torch.randint(0, v, (n, k), dtype=torch.int32, device=cuda,
+                          generator=gen)
+    strays = torch.tensor([-1, v, v + 7, -(1 << 20)], dtype=torch.int32,
+                          device=cuda)
+    codes = torch.where(torch.rand((n, k), device=cuda, generator=gen) < 0.05,
+                        strays[codes & 3], codes)
+    weights = torch.randn((k, v, c), device=cuda, generator=gen).to(dtype)
+    width = bbit_linear.fwd_slices(n, k, v, c, weights.element_size(),
+                                   _build.l2_bytes(cuda.index))
+    assert width % bbit_linear.FWD_CHUNK == 0 and k % width != 0
+    fn = bbit_linear.bbit_linear_fwd
+    launches = fn.launches_bf16 if dtype == torch.bfloat16 else fn.launches
+    before = (launches.value, fn.sliced.value)
+    got = fn(codes, weights)
+    assert (launches.value, fn.sliced.value) == (before[0] + 1,
+                                                 before[1] + 1)
+    one = bbit_linear._fwd_launch(codes, weights, k, k)
+    head = codes[:4096]
+    want = bbit_linear.bbit_linear_fwd_plain(head, weights)
+    scale = bbit_linear.bbit_linear_fwd_plain(head, weights.abs())
+    torch.cuda.synchronize()
+    assert _bits_equal(got, one)
+    assert bool(((got[:4096] - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+def test_tron_fit_over_slices_is_the_one_pass_fit(cuda, monkeypatch):
+    """A k=500, b=16 TRON fit over 140,000 training rows (each table
+    value gathered twice or more a call, so its B7 calls over them walk
+    the bins in slices) is, bit for bit, the same fit with the slice
+    schedule forced off (``fwd_slices`` giving k): params, objective,
+    iterations, accuracies, and as many B7 launches."""
+    from repro_torch.train.linear_trainer import train_bbit_liblinear
+    k, b, n, n_tr = 500, 16, 150_000, 140_000
+    rng = np.random.default_rng(31)
+    proto = rng.integers(0, 1 << b, size=(2, k))
+    y = rng.integers(0, 2, size=n).astype(np.int32)
+    copy = rng.random((n, k)) < 0.4
+    codes = np.where(copy, proto[y], rng.integers(0, 1 << b, size=(n, k))
+                     ).astype(np.int32)
+    cfg = BBitLinearConfig(k=k, b=b)
+
+    def fit():
+        ops.reset_counts()
+        res = train_bbit_liblinear(codes[:n_tr], y[:n_tr], codes[n_tr:],
+                                   y[n_tr:], cfg, device="cuda")
+        return res, ops.counts()
+
+    sliced, sliced_counts = fit()
+    monkeypatch.setattr(bbit_linear, "fwd_slices",
+                        lambda n, k, *rest: max(k, 1))
+    one, one_counts = fit()
+    ops.reset_counts()
+    assert sliced_counts["bbit_linear_fwd_sliced"] > 0
+    assert one_counts["bbit_linear_fwd_sliced"] == 0
+    assert sliced_counts["bbit_linear_fwd"] == one_counts["bbit_linear_fwd"]
+    assert sorted(sliced.params) == sorted(one.params)
+    assert all(_bits_equal(sliced.params[p], one.params[p])
+               for p in sliced.params)
+    assert (sliced.n_iter, sliced.objective) == (one.n_iter, one.objective)
+    assert (sliced.train_acc, sliced.test_acc) == (one.train_acc,
+                                                   one.test_acc)
 
 
 def _dw_within(got, want, scale):

@@ -38,7 +38,8 @@ OLD_NAMES = ({*KERNELS, *(f"{n}_bf16" for n in BF16),
               *(f"{n}_plain" for n in KERNELS), "bbit_linear_bwd_dw_plans"})
 NEW_COUNTERS = ("bbit_linear_bwd_dw_plan_hits", "tron.host_reads",
                 "tron.cg_steps", "trainer.h2d_bytes", "trainer.d2h_bytes",
-                "trainer.curvature_builds", "trainer.curvature_hits")
+                "trainer.curvature_builds", "trainer.curvature_hits",
+                "bbit_linear_fwd_sliced")
 
 
 @pytest.fixture
